@@ -7,10 +7,22 @@ the lid with only the previous lid density, the whole step needs just
 ``(f, rho_lid)`` as state and is one pass over the 9 planes (reference:
 ``MRTTiledPull.py:379-515``).
 
-This module is also the plain version of the CUDA kernel in
-``kernels/pull.py``: the tests hold it to the JAX engine, and the kernel is
-held to it on the card.  The push and pull oracles of the JAX engine are not
-ported yet (see ``ROADMAP.md``).
+This module is also the plain version of the CUDA kernels: the fused step
+for ``kernels/pull.py`` and ``kernels/tblock.py``, the push oracle for
+``kernels/push.py``.  The tests hold it to the JAX engine, and the kernels
+are held to it on the card.
+
+Beside the fused step it has the JAX engine's two oracles:
+
+``make_push_oracle_step``
+    The unfused collide -> stream -> BC step in the reference NumPy
+    engine's order (reference: ``MRT.py:286-453``), on the plain
+    pre-collision field ``f``.  It is the only engine of the non-NEBB walls
+    ``bounce_back`` and ``nebb_west_eq``.
+``make_pull_oracle_step``
+    The reference pull-kernel semantics written out — gather, NEBB from the
+    previous step's equilibrium, macros, collide — with the equilibrium
+    carried in the state (reference: ``MRTTiledPull.py:403-508``).
 """
 
 from __future__ import annotations
@@ -24,7 +36,7 @@ from .config import SimConfig, resolve_device
 from .ops import boundary as bc_ops
 from .ops import collision as coll
 from .ops.equilibrium import equilibrium, macroscopics
-from .ops.streaming import gather_pull
+from .ops.streaming import gather_pull, stream_push
 
 
 class State(NamedTuple):
@@ -32,6 +44,11 @@ class State(NamedTuple):
 
     f: torch.Tensor        # (9, X, Y) post-collision populations
     rho_lid: torch.Tensor  # (X,) lid-row density from the previous step
+
+
+class PullOracleState(NamedTuple):
+    f: torch.Tensor    # (9, X, Y) post-collision populations
+    feq: torch.Tensor  # (9, X, Y) equilibrium of the previous step
 
 
 # ---------------------------------------------------------------------------
@@ -51,6 +68,12 @@ def init_state(cfg: SimConfig, device="cuda") -> State:
     rho, u = initial_fields(cfg, device)
     f = equilibrium(rho, u)
     return State(f=f, rho_lid=rho[:, 0].clone())
+
+
+def init_pull_oracle_state(cfg: SimConfig, device="cuda") -> PullOracleState:
+    rho, u = initial_fields(cfg, device)
+    f = equilibrium(rho, u)
+    return PullOracleState(f=f, feq=f)
 
 
 def _check_device(state: State, device: torch.device) -> None:
@@ -106,6 +129,54 @@ def _collide(cfg: SimConfig, f_bc, feq, rho, omega=None, cs2_field=None):
             f_bc, omega_eff, cfg.mrt_omega_e, cfg.mrt_omega_eps, cfg.mrt_omega_q
         )
     raise ValueError(cfg.collision)
+
+
+# ---------------------------------------------------------------------------
+# Push oracle (MRT.py order): collide -> stream -> BC
+# ---------------------------------------------------------------------------
+
+def _push_macros(cfg: SimConfig, f):
+    """Moments of the pre-collision field with the wall overrides; the two
+    lid corners belong to the lid for the NumPy engine's ``nebb_west_eq``,
+    to the side walls otherwise."""
+    rho, u = macroscopics(f)
+    lid_corners = "lid" if cfg.boundary == "nebb_west_eq" else "wall"
+    u, rho = bc_ops.override_wall_velocity(u, rho, f, cfg.u_lid, lid_corners)
+    return rho, u
+
+
+def make_push_oracle_step(cfg: SimConfig) -> Callable[[torch.Tensor], torch.Tensor]:
+    def step(f: torch.Tensor) -> torch.Tensor:
+        rho, u = _push_macros(cfg, f)
+        feq = equilibrium(rho, u)
+        fpost = _collide(cfg, f, feq, rho)
+        f_str = stream_push(fpost)
+        return bc_ops.apply(f_str, feq, cfg.boundary, cfg.u_lid, fpost=fpost)
+
+    return step
+
+
+def push_observables(cfg: SimConfig, state: State):
+    """(rho, u) of a push-engine state: the moments of its pre-collision
+    field with the wall overrides."""
+    return _push_macros(cfg, state.f)
+
+
+# ---------------------------------------------------------------------------
+# Pull oracle (kernel order): gather -> BC(feq_prev) -> macros -> collide
+# ---------------------------------------------------------------------------
+
+def make_pull_oracle_step(cfg: SimConfig) -> Callable[[PullOracleState], PullOracleState]:
+    def step(state: PullOracleState) -> PullOracleState:
+        g = gather_pull(state.f)
+        g = bc_ops.nebb(g, state.feq)
+        rho, u = macroscopics(g)
+        u, rho = bc_ops.override_wall_velocity(u, rho, g, cfg.u_lid, "wall")
+        feq = equilibrium(rho, u)
+        f_new = _collide(cfg, g, feq, rho)
+        return PullOracleState(f=f_new, feq=feq)
+
+    return step
 
 
 # ---------------------------------------------------------------------------
@@ -253,6 +324,24 @@ def make_scan_runner(cfg: SimConfig, n_steps: int, device="cuda"):
     return run
 
 
+def make_push_scan_runner(cfg: SimConfig, n_steps: int, device="cuda"):
+    """``n_steps`` push-oracle steps per call on a ``State``.  The push
+    engines carry only the pre-collision field; the returned state fills
+    the lid-density slot with the placeholder ``f[0, :, 0]``, as the JAX
+    driver does (nothing on this path reads it)."""
+    device = resolve_device(device)
+    step = make_push_oracle_step(cfg)
+
+    def run(state: State) -> State:
+        _check_device(state, device)
+        f = state.f
+        for _ in range(n_steps):
+            f = step(f)
+        return State(f=f, rho_lid=f[0, :, 0])
+
+    return run
+
+
 class RunResult(NamedTuple):
     state: State
     steps: int
@@ -266,6 +355,7 @@ def run_to_convergence(
     callback=None,
     device="cuda",
     runner=None,
+    observe=None,
 ) -> RunResult:
     """Chunked driver: ``report_interval`` steps per call, then one scalar
     fetch for the convergence test |d mean(u)| / uLB < tol sustained for
@@ -276,7 +366,10 @@ def run_to_convergence(
     is this module's plain ``make_scan_runner``.  The package-level
     ``run_to_convergence`` (``sim.run_to_convergence``) passes the runner
     that ``simulate`` picks: the CUDA kernel for a float32 NEBB run on the
-    card.  ``callback(step, state, rho, u)`` runs every interval.
+    card.  ``observe(cfg, state)`` gives ``(rho, u)``; by default it is
+    ``observables``, the fused state's (the push engines pass
+    ``push_observables``).  ``callback(step, state, rho, u)`` runs every
+    interval.
     """
     cfg.validate()
     device = resolve_device(device)
@@ -285,6 +378,8 @@ def run_to_convergence(
     chunk = max(1, cfg.report_interval)
     if runner is None:
         runner = make_scan_runner(cfg, chunk, device)
+    if observe is None:
+        observe = observables
 
     mean_u_past = np.inf
     hits = 0
@@ -294,7 +389,7 @@ def run_to_convergence(
     while steps_done < cfg.max_steps:
         state = runner(state)
         steps_done += chunk
-        rho, u = observables(cfg, state)
+        rho, u = observe(cfg, state)
         # f64 host reduction: at f32 the device mean's rounding floor sits near
         # the 1e-8 convergence tolerance.
         mean_u = float(np.mean(u.cpu().numpy(), dtype=np.float64))

@@ -1,11 +1,13 @@
-"""Build the CUDA sources with ``nvcc`` into a shared library with a plain C
-interface, and bind it through ``ctypes``.
+"""Build the CUDA sources with ``nvcc`` into one shared library with a plain
+C interface, and bind it through ``ctypes``.
 
 The library is built at first use, on the machine with the card, into
 ``latticeboltzmannsimulations_torch/_build/`` (git-ignored), under a name
-keyed by a hash of the source and the flags: an edited source builds anew,
-an unchanged one loads the library already there.  Plain ``nvcc`` on one
-file with no PyTorch headers takes seconds; nothing here needs ``ninja``.
+keyed by a hash of every source and header in ``csrc/`` and the flags: an
+edited source builds anew, an unchanged tree loads the library already
+there.  Each ``.cu`` file is compiled by its own ``nvcc`` process, all
+started together, and one more ``nvcc`` links the objects; no file includes
+PyTorch's headers, so the whole build takes seconds and needs no ``ninja``.
 """
 
 from __future__ import annotations
@@ -16,15 +18,18 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "pull_step.cu"
+CSRC = _PKG / "csrc"
+SOURCES = tuple(sorted(CSRC.glob("*.cu")))
+HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 BUILD_TIMEOUT_S = 600
 
 
@@ -43,31 +48,56 @@ def nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
-    digest = hashlib.sha256(SOURCE.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"pull_step_{digest.hexdigest()[:16]}.so"
+    """Where the library for the current sources and flags lives."""
+    digest = hashlib.sha256()
+    for path in SOURCES + HEADERS:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    digest.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    return BUILD_DIR / f"lbm_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands all at once; raise with the output of any that
+    fails.  Returns their output (with ``-Xptxas -v``: registers and spills
+    per kernel)."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs, failed = [], []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{out}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(logs)
 
 
 def ensure_built() -> tuple[Path, str | None]:
     """Build the library if it is missing.  Returns its path and nvcc's
-    output (with ``-Xptxas -v``: registers and spills per kernel), or None
-    when the library was already built."""
+    output, or None when the library was already built."""
     path = library_path()
     if path.exists():
         return path, None
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=BUILD_TIMEOUT_S)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
-    return path, proc.stdout + proc.stderr
+    exe = nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in SOURCES]
+        log = _run([[exe, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(SOURCES, objs)])
+        lib = Path(tmp) / path.name
+        log += _run([[exe, *LINK_FLAGS, "-o", str(lib), *map(str, objs)]])
+        os.replace(lib, path)  # atomic: a concurrent loader sees all or nothing
+    return path, log
 
 
 @functools.cache
@@ -77,15 +107,31 @@ def load_library() -> ctypes.CDLL:
     path, _ = ensure_built()
     lib = ctypes.CDLL(str(path))
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.lbm_pull_step.argtypes = [
-        p, p, p, p, p,              # f, rho_lid_prev, cs2_plane, f_out, rho_lid_out
+    # nx, ny, then the step's scalars (kernels/pull.py::_scalars)
+    scalars = [
         i, i,                       # nx, ny
         fl, fl, fl, fl, fl, fl,     # u_lid, lid_mom, omega, tau0, tau0_sq, omega_minus
         fl, fl, fl,                 # omega_e, omega_eps, omega_q
         i, i, fl,                   # collision, les, smag_coef
+    ]
+    lib.lbm_pull_step.argtypes = [
+        p, p, p, p, p,              # f, rho_lid_prev, cs2_plane, f_out, rho_lid_out
+        *scalars,
         p,                          # stream
     ]
-    lib.lbm_pull_step.restype = ctypes.c_int
+    lib.lbm_tblock_step.argtypes = [
+        p, p, p, p,                 # f, rho_lid_prev, f_out, rho_lid_out
+        *scalars,
+        i,                          # k_steps
+        p,                          # stream
+    ]
+    lib.lbm_push_step.argtypes = [
+        p, p,                       # f, f_out
+        *scalars,
+        p,                          # stream
+    ]
+    for fn in (lib.lbm_pull_step, lib.lbm_tblock_step, lib.lbm_push_step):
+        fn.restype = ctypes.c_int
     lib.lbm_error_string.argtypes = [ctypes.c_int]
     lib.lbm_error_string.restype = ctypes.c_char_p
     return lib

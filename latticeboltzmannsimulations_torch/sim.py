@@ -4,11 +4,23 @@ package's ``sim.py`` runs it on one device.
 
 Backends:
 
-* ``"cuda-pull"`` — the hand-written CUDA kernel (``kernels/pull.py``), one
+* ``"cuda-pull"`` — the one-step CUDA kernel (``kernels/pull.py``), one
   launch per step.  ``backend="auto"`` picks it on a CUDA device for a
-  float32 NEBB configuration.
-* ``"torch"`` — the plain fused engine (``engine.py``), for what the kernel
-  does not take: float64, the tangential lid.
+  float32 NEBB configuration below ``TBLOCK_AUTO_MIN_CELLS``.
+* ``"cuda-tblock"`` — the temporal-block CUDA kernel (``kernels/tblock.py``),
+  ``K`` steps per launch.  ``"auto"`` picks it for float32 NEBB fields of
+  at least ``TBLOCK_AUTO_MIN_CELLS`` cells without Van Driest damping.
+* ``"cuda-push"`` — the push CUDA kernel (``kernels/push.py``), on the plain
+  pre-collision field; only when asked for, as the JAX driver's
+  ``pallas-push``.
+* ``"push-oracle"`` — the plain push engine (``engine.make_push_oracle_step``),
+  the only engine of the ``bounce_back`` and ``nebb_west_eq`` walls.
+* ``"torch"`` — the plain fused engine (``engine.py``), for what the kernels
+  do not take: float64, the tangential lid.
+
+An explicit kernel backend that cannot serve a configuration, or that is
+asked for off the card, raises rather than run something else under its
+name.
 
 Outputs the JAX driver has and this one does not yet (plots, VTK,
 checkpoints, resume, profiler traces) raise ``NotImplementedError`` naming
@@ -20,7 +32,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -28,7 +40,7 @@ import torch
 from . import engine
 from .config import SimConfig, resolve_device
 from .io.metrics import MetricsLogger, mlups
-from .kernels import pull
+from .kernels import pull, push, tblock
 from .validate import compare_to_ghia
 from .validate.ghia_data import has_reynolds
 
@@ -44,7 +56,8 @@ class SimOptions:
     metrics_jsonl: bool = True
     checkpoint_every: int = 0     # steps; 0 = off
     resume_from: Optional[str] = None
-    backend: str = "auto"         # 'auto' | 'cuda-pull' | 'torch'
+    # 'auto' | 'cuda-pull' | 'cuda-tblock' | 'cuda-push' | 'push-oracle' | 'torch'
+    backend: str = "auto"
     verbose: bool = True
     # The wet-node corner treatment (faithful to the reference kernels) leaks
     # a little mass each step — negligible over the reference's 3000-step
@@ -79,34 +92,76 @@ _NOT_PORTED = {
 }
 
 
-def _select_backend(cfg: SimConfig, backend: str, device: torch.device):
-    """Pick the runner factory and name it, as the JAX driver's single-device
-    routing does: the kernel on the card for float32 NEBB, the plain fused
-    engine for what the kernel does not take.  An explicit ``"cuda-pull"``
-    that the kernel cannot serve raises; this is the one place that routes,
-    for ``simulate`` and ``run_to_convergence`` alike."""
+# Fields of at least this many cells take the temporal-block kernel under
+# backend="auto" (float32 NEBB without Van Driest, on the card); None: never.
+# Set from chip_smoke.py's timing of cuda-tblock against cuda-pull in one call
+# on one H100 (PERF.md, section 6): behind it at every measured size, from
+# 1024^2 to 4096^2, and furthest behind from the state at rest.
+TBLOCK_AUTO_MIN_CELLS: Optional[int] = None
+
+BACKENDS = ("auto", "cuda-pull", "cuda-tblock", "cuda-push", "push-oracle", "torch")
+# Walls that only the push oracle implements.
+_PUSH_ONLY = ("bounce_back", "nebb_west_eq")
+
+
+class Backend(NamedTuple):
+    """A routed backend: its name, a factory of ``n``-step runners on
+    ``engine.State``, and ``observe(cfg, state) -> (rho, u)`` of its state."""
+
+    name: str
+    make_runner: Callable[[int], Callable[[engine.State], engine.State]]
+    observe: Callable
+
+
+def _select_backend(cfg: SimConfig, backend: str, device: torch.device) -> Backend:
+    """Pick the runner for ``simulate`` and ``run_to_convergence`` alike, as
+    the JAX driver's single-device routing does; this is the one place that
+    routes.  ``auto`` on the card takes a kernel for float32 NEBB (the
+    temporal-block one from ``TBLOCK_AUTO_MIN_CELLS`` cells), the plain fused
+    engine for float64 and the tangential lid, and the push oracle for the
+    walls only it implements."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     if cfg.mesh_shape != (1, 1):
+        if cfg.boundary != "nebb":
+            raise ValueError(
+                f"boundary {cfg.boundary!r} runs on a single-device engine; "
+                f"the requested mesh {cfg.mesh_shape} would be ignored"
+            )
         raise NotImplementedError(
             f"mesh {cfg.mesh_shape}: the sharded engines are not ported yet "
             "(ROADMAP.md queue 1 item 12)"
         )
-    if cfg.boundary not in ("nebb", "nebb_tangential"):
-        raise NotImplementedError(
-            f"boundary {cfg.boundary!r} runs on the push engine, which is not "
-            "ported yet (ROADMAP.md queue 1 item 8)"
-        )
-    reason = pull.unsupported_reason(cfg)
-    if backend == "cuda-pull" and device.type != "cuda":
-        reason = f"the CUDA kernel runs on a CUDA device, not {device}"
-    if backend == "cuda-pull" and reason is not None:
-        raise ValueError(f"backend 'cuda-pull' cannot run this configuration: {reason}")
-    if backend == "cuda-pull" or (
-        backend == "auto" and device.type == "cuda" and reason is None
-    ):
-        return (lambda n: pull.make_scan_runner(cfg, n, device)), "cuda-pull"
-    if backend in ("auto", "torch"):
-        return (lambda n: engine.make_scan_runner(cfg, n, device)), "torch"
-    raise ValueError(f"unknown backend {backend!r}")
+    fused, pushed = engine.observables, engine.push_observables
+    kernels = {
+        "cuda-pull": (pull.unsupported_reason,
+                      lambda n: pull.make_scan_runner(cfg, n, device), fused),
+        "cuda-tblock": (tblock.unsupported_reason,
+                        lambda n: tblock.make_scan_runner(cfg, n, device), fused),
+        "cuda-push": (push.unsupported_reason,
+                      lambda n: push.make_scan_runner(cfg, n, device), pushed),
+    }
+    if backend in kernels:
+        unsupported, make_runner, observe = kernels[backend]
+        reason = unsupported(cfg)
+        if device.type != "cuda":
+            reason = f"the CUDA kernel runs on a CUDA device, not {device}"
+        if reason is not None:
+            raise ValueError(f"backend {backend!r} cannot run this configuration: {reason}")
+        return Backend(backend, make_runner, observe)
+    if backend == "push-oracle" or cfg.boundary in _PUSH_ONLY:
+        if backend not in ("auto", "push-oracle"):
+            raise ValueError(f"boundary {cfg.boundary!r} runs only on the push "
+                             f"oracle, not on backend {backend!r}")
+        return Backend("push-oracle",
+                       lambda n: engine.make_push_scan_runner(cfg, n, device), pushed)
+    if backend == "auto" and device.type == "cuda" and pull.unsupported_reason(cfg) is None:
+        if (TBLOCK_AUTO_MIN_CELLS is not None
+                and cfg.nx * cfg.ny >= TBLOCK_AUTO_MIN_CELLS
+                and tblock.unsupported_reason(cfg) is None):
+            return Backend("cuda-tblock", kernels["cuda-tblock"][1], fused)
+        return Backend("cuda-pull", kernels["cuda-pull"][1], fused)
+    return Backend("torch", lambda n: engine.make_scan_runner(cfg, n, device), fused)
 
 
 def run_to_convergence(cfg: SimConfig, state: engine.State | None = None,
@@ -116,10 +171,11 @@ def run_to_convergence(cfg: SimConfig, state: engine.State | None = None,
     ``simulate`` would pick (``backend`` as in ``SimOptions``)."""
     cfg.validate()
     device = resolve_device(device)
-    runner_factory, _ = _select_backend(cfg, backend, device)
+    routed = _select_backend(cfg, backend, device)
     return engine.run_to_convergence(
         cfg, state, callback, device,
-        runner=runner_factory(max(1, cfg.report_interval)))
+        runner=routed.make_runner(max(1, cfg.report_interval)),
+        observe=routed.observe)
 
 
 def simulate(cfg: SimConfig, opts: Optional[SimOptions] = None,
@@ -133,10 +189,11 @@ def simulate(cfg: SimConfig, opts: Optional[SimOptions] = None,
                 f"SimOptions.{name} is not ported yet (ROADMAP.md {item})"
             )
     device = resolve_device(device)
-    runner_factory, backend = _select_backend(cfg, opts.backend, device)
+    routed = _select_backend(cfg, opts.backend, device)
+    backend = routed.name
     os.makedirs(opts.out_dir, exist_ok=True)
     chunk = max(1, cfg.report_interval)
-    runner = runner_factory(chunk)
+    runner = routed.make_runner(chunk)
     state = engine.init_state(cfg, device)
     np_dtype = {torch.float32: np.float32, torch.float64: np.float64}[cfg.dtype]
 
@@ -154,7 +211,7 @@ def simulate(cfg: SimConfig, opts: Optional[SimOptions] = None,
     while step < cfg.max_steps:
         state = runner(state)
         step += chunk
-        rho, u = engine.observables(cfg, state)
+        rho, u = routed.observe(cfg, state)
         rho_h, u_h = rho.cpu().numpy(), u.cpu().numpy()
         mean_u = float(u_h.mean(dtype=np.float64))
         if not np.isfinite(mean_u):
@@ -164,7 +221,8 @@ def simulate(cfg: SimConfig, opts: Optional[SimOptions] = None,
             scale = 1.0 / rho_h.mean(dtype=np.float64)
             if abs(scale - 1.0) > 1e-12:
                 # rounded to the working precision first, as the JAX driver's
-                # cfg.dtype(scale) is
+                # cfg.dtype(scale) is; on the push path rho_lid is the
+                # placeholder and is never read
                 s = float(np_dtype(scale))
                 state = engine.State(f=state.f * s, rho_lid=state.rho_lid * s)
 
@@ -187,7 +245,7 @@ def simulate(cfg: SimConfig, opts: Optional[SimOptions] = None,
         mean_past = mean_u
     elapsed = time.perf_counter() - t0
 
-    _, u = engine.observables(cfg, state)
+    _, u = routed.observe(cfg, state)
     u_h = u.cpu().numpy()
     r2 = r2_uy = l2 = None
     if has_reynolds(cfg.reynolds):

@@ -111,10 +111,13 @@ def test_supported_configuration_and_launch_arguments():
 def test_build_goes_to_an_ignored_directory_keyed_by_the_source():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
-    assert re.fullmatch(r"pull_step_[0-9a-f]{16}\.so", path.name)
+    assert re.fullmatch(r"lbm_kernels_[0-9a-f]{16}\.so", path.name)
     rel = _build.BUILD_DIR.relative_to(REPO).as_posix()
     assert f"{rel}/" in (REPO / ".gitignore").read_text().splitlines()
-    flags = " ".join(_build.NVCC_FLAGS)
-    assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
-    src = _build.SOURCE.read_text()
-    assert 'extern "C" int lbm_pull_step(' in src
+    flags = " ".join(_build.COMPILE_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in _build.LINK_FLAGS
+    names = {p.name for p in _build.SOURCES + _build.HEADERS}
+    assert {"pull_step.cu", "tblock_step.cu", "push_step.cu", "lbm_cell.cuh"} <= names
+    src = "".join(p.read_text() for p in _build.SOURCES)
+    for fn in ("lbm_pull_step", "lbm_tblock_step", "lbm_push_step"):
+        assert f'extern "C" int {fn}(' in src

@@ -8,6 +8,7 @@ import torch
 
 import latticeboltzmannsimulations_torch as lbt
 from latticeboltzmannsimulations_torch import engine as t_eng
+from latticeboltzmannsimulations_torch import sim as t_sim
 from latticeboltzmannsimulations_torch.config import SimConfig as TConfig
 from latticeboltzmannsimulations_torch.sim import SimOptions as TOptions
 from latticeboltzmannsimulations_torch.sim import _select_backend
@@ -89,11 +90,22 @@ CUDA = torch.device("cuda", 0)
     (dict(boundary="nebb_tangential"), "auto", CUDA, "torch"),
     (dict(), "cuda-pull", CUDA, "cuda-pull"),
     (dict(), "torch", CUDA, "torch"),
+    # The push scheme: walls only the push oracle implements, on any device;
+    # the push kernel only when asked for.
+    (dict(boundary="bounce_back"), "auto", CPU, "push-oracle"),
+    (dict(boundary="nebb_west_eq"), "auto", CPU, "push-oracle"),
+    (dict(boundary="bounce_back"), "auto", CUDA, "push-oracle"),
+    (dict(boundary="nebb_west_eq", precision="float64"), "auto", CUDA, "push-oracle"),
+    (dict(boundary="nebb_west_eq"), "push-oracle", CPU, "push-oracle"),
+    (dict(), "push-oracle", CUDA, "push-oracle"),
+    (dict(), "cuda-push", CUDA, "cuda-push"),
+    (dict(nx=64, ny=64), "cuda-tblock", CUDA, "cuda-tblock"),
+    (dict(nx=64, ny=64, turbulence="smagorinsky", van_driest=True), "auto", CUDA,
+     "cuda-pull"),
 ])
 def test_backend_routing(kw, backend, device, expect):
     cfg = TConfig(**{"nx": 16, "ny": 16, **kw})
-    _, name = _select_backend(cfg, backend, device)
-    assert name == expect
+    assert _select_backend(cfg, backend, device).name == expect
 
 
 @pytest.mark.parametrize("kw, backend, exc", [
@@ -101,14 +113,86 @@ def test_backend_routing(kw, backend, device, expect):
     (dict(boundary="nebb_tangential"), "cuda-pull", ValueError),
     (dict(), "cuda-pull", ValueError),               # CPU: the kernel needs the card
     (dict(), "pallas", ValueError),
-    (dict(boundary="bounce_back"), "auto", NotImplementedError),
-    (dict(boundary="nebb_west_eq"), "auto", NotImplementedError),
+    (dict(), "cuda-push", ValueError),               # CPU
+    (dict(nx=64, ny=64), "cuda-tblock", ValueError),  # CPU
+    (dict(boundary="bounce_back"), "torch", ValueError),
+    # The push oracle runs these walls on one device only, as in the JAX driver.
+    (dict(boundary="bounce_back", mesh_shape=(2, 1)), "auto", ValueError),
+    (dict(boundary="nebb_west_eq", mesh_shape=(1, 2)), "auto", ValueError),
     (dict(mesh_shape=(2, 2)), "auto", NotImplementedError),
 ])
 def test_backend_routing_refuses(kw, backend, exc):
-    cfg = TConfig(nx=16, ny=16, **kw)
+    cfg = TConfig(**{"nx": 16, "ny": 16, **kw})
     with pytest.raises(exc):
         _select_backend(cfg, backend, CPU)
+
+
+@pytest.mark.parametrize("kw, backend, match", [
+    (dict(boundary="bounce_back"), "cuda-push", "NEBB"),
+    (dict(boundary="nebb_west_eq"), "cuda-pull", "NEBB"),
+    (dict(boundary="bounce_back"), "cuda-tblock", "NEBB"),
+    (dict(precision="float64"), "cuda-push", "float32"),
+    (dict(precision="float64", nx=64, ny=64), "cuda-tblock", "float32"),
+    (dict(turbulence="smagorinsky", van_driest=True), "cuda-push", "Van Driest"),
+    (dict(nx=64, ny=64, turbulence="smagorinsky", van_driest=True), "cuda-tblock",
+     "Van Driest"),
+    (dict(nx=48, ny=48), "cuda-tblock", "window"),
+    (dict(boundary="bounce_back", mesh_shape=(1, 2)), "push-oracle", "single-device"),
+])
+def test_explicit_kernel_backends_refuse_on_the_card(kw, backend, match):
+    """An explicit kernel backend that cannot serve a configuration raises,
+    rather than run another engine under its name (routing touches no
+    device, so the card's routes are checked here)."""
+    cfg = TConfig(**{"nx": 16, "ny": 16, **kw})
+    with pytest.raises(ValueError, match=match):
+        _select_backend(cfg, backend, CUDA)
+
+
+@pytest.mark.parametrize("n", [64, 1024, 2048, 4096])
+def test_auto_takes_the_temporal_block_kernel_from_the_measured_size(n):
+    """``auto`` on the card takes cuda-tblock for float32 NEBB fields of at
+    least ``TBLOCK_AUTO_MIN_CELLS`` cells (set from chip_smoke.py's timing;
+    None: never), cuda-pull below it."""
+    cfg = TConfig(nx=n, ny=n, reynolds=5000.0, collision="mrt")
+    threshold = t_sim.TBLOCK_AUTO_MIN_CELLS
+    want = ("cuda-tblock" if threshold is not None and n * n >= threshold
+            else "cuda-pull")
+    assert _select_backend(cfg, "auto", CUDA).name == want
+    assert _select_backend(cfg, "auto", CPU).name == "torch"
+
+
+@pytest.mark.parametrize("precision, tol", [("float64", 1e-12), ("float32", 1e-6)])
+@pytest.mark.parametrize("boundary", ["bounce_back", "nebb_west_eq"])
+def test_push_path_simulate_matches_jax(tmp_path, boundary, precision, tol):
+    """The push-oracle route of ``simulate`` against the JAX driver's
+    (which also routes these walls to its push oracle), 48^2, 200 steps:
+    mean u at each interval (float32: the two independent float32 runs
+    differ per cell by ~1e-6 at most, and the mean averages that down)."""
+    kw = dict(nx=48, ny=48, reynolds=100.0, boundary=boundary, collision="mrt",
+              precision=precision, max_steps=200, report_interval=100)
+    t_dir, j_dir = tmp_path / "torch", tmp_path / "jax"
+    t_sum = t_simulate(TConfig(**kw), TOptions(out_dir=str(t_dir), verbose=False),
+                       device="cpu")
+    j_sum = j_simulate(JConfig(**kw), JOptions(out_dir=str(j_dir), verbose=False))
+    assert t_sum.backend == "push-oracle" and t_sum.steps == j_sum.steps == 200
+    t_rec = _records(t_dir / "ldc_metrics.jsonl")
+    j_rec = _records(j_dir / "ldc_metrics.jsonl")
+    assert [r["step"] for r in t_rec] == [r["step"] for r in j_rec]
+    for a, b in zip(t_rec[:-1], j_rec[:-1]):
+        assert a["backend"] == b["backend"] == "push-oracle"
+        assert a["mean_u"] == pytest.approx(b["mean_u"], rel=0, abs=tol)
+    assert t_sum.r2_ux == pytest.approx(j_sum.r2_ux, abs=100 * tol)
+
+
+def test_push_oracle_run_to_convergence_observes_the_push_state():
+    """``run_to_convergence`` on the push route reads the push state's
+    observables (lid corners by the boundary's rule), as ``simulate`` does."""
+    cfg = TConfig(nx=24, ny=24, reynolds=100.0, boundary="nebb_west_eq",
+                  max_steps=60, report_interval=30)
+    res = lbt.run_to_convergence(cfg, device="cpu")
+    _, u = t_eng.push_observables(cfg, res.state)
+    assert res.mean_u_history[-1] == float(np.mean(u.numpy(), dtype=np.float64))
+    assert float(u[0, 0, 0]) == pytest.approx(cfg.u_lid)  # nebb_west_eq: corners move with the lid
 
 
 @pytest.mark.parametrize("option, value", [
