@@ -22,6 +22,16 @@ Phases, each printed with its wall time:
    * ``push_step`` against 20 push-oracle steps
      (``engine.make_push_oracle_step``) for the same four cases at 128^2 and
      MRT at 1024^2;
+   * on a 2x2 mesh of this one card (``devices=[card] * 4``, each shard with
+     its real wall flags and halo strips): ``pull_sharded_step`` (SRT, TRT,
+     MRT, MRT+Smagorinsky, SRT+Smagorinsky+Van Driest) and
+     ``tblock_sharded_step`` (K=5, the first four) against 20 steps of the
+     plain sharded engine at 256^2, and both at the sizes the main path
+     runs them (MRT 4096^2 and the Re=100 Ghia case at 128^2, each on the
+     2x2 mesh); ``cuda-sharded`` against ``cuda-pull`` over 64 steps at
+     4096^2 on 2x2 and 1x4 meshes, which must agree exactly;
+     ``tblock_sharded_step`` against ``pull_sharded_step`` over 64 steps at
+     4096^2 (to 1e-6);
 4. main paths, each launch counter set to 0 just before a run and read just
    after it:
    * ``simulate`` and ``run_to_convergence`` at 1024^2 MRT float32 (the
@@ -33,12 +43,24 @@ Phases, each printed with its wall time:
      ``cuda-tblock``;
    * the Re=100 Ghia gate at 96^2 through ``cuda-push``;
    * a 48^2 ``bounce_back`` run, which routes to the push oracle;
+   * the sharded cavity: ``simulate`` at 4096^2 MRT float32 Re=5000 on a
+     2x2 mesh of this card with ``backend="auto"`` and through the sharded
+     kernel that auto does not take there (``cuda-sharded`` or
+     ``cuda-sharded-tblock``), in the order auto, other, other, auto; the
+     Re=100 Ghia gate at 128^2 on the 2x2 mesh through ``cuda-sharded``;
 5. timing with CUDA events: the measured device-copy bandwidth; the
    benchmark's 1024^2 MRT cavity through ``pull_step`` (MLUPS); at 1024^2
    and 2048^2, ``pull_step`` beside ``tblock_step`` for K in {4, 5, 8, 16};
    at 1024^2, 2048^2 and 4096^2, ``pull_step`` and ``tblock_step`` (default
    K) in turns, which sets where ``auto`` takes the latter;
-   ``push_step`` at 1024^2; each kernel's plain version.
+   ``push_step`` at 1024^2; each kernel's plain version; at 4096^2 on the
+   2x2 mesh: both sharded runners from rest in ``simulate``'s calls, with
+   the one-step runner's pad and unpad copies timed apart; from a state
+   further on,
+   ``pull_sharded_step`` and ``tblock_sharded_step`` (default K) with the
+   halo exchange timed apart, and the two sharded runners in turns, which
+   with the main path's MLUPS sets where ``auto`` takes the temporal-block
+   one.
 
 The last three lines are ``nvidia-smi``'s line, one JSON object describing
 each kernel, and ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -62,7 +84,22 @@ import torch
 import latticeboltzmannsimulations_torch as lbt
 from latticeboltzmannsimulations_torch import engine, sim
 from latticeboltzmannsimulations_torch.config import SimConfig
-from latticeboltzmannsimulations_torch.kernels import _build, pull, push, tblock
+from latticeboltzmannsimulations_torch.kernels import (
+    _build,
+    pull,
+    pull_sharded,
+    push,
+    tblock,
+    tblock_sharded,
+)
+from latticeboltzmannsimulations_torch.parallel import (
+    halo,
+    make_mesh,
+    make_sharded_fused_step,
+    make_sharded_scan_runner,
+    shard_state,
+    unshard_state,
+)
 from latticeboltzmannsimulations_torch.sim import SimOptions, simulate
 
 ATOL = 2e-5
@@ -72,9 +109,12 @@ REPLACES = {
     "pull_step": "kernels/pallas_pull.py:189 (_make_kernel)",
     "tblock_step": "kernels/pallas_pull_tblock.py:72 (_make_kernel)",
     "push_step": "kernels/pallas_push.py:65 (_make_kernel)",
+    "pull_sharded_step": "kernels/pallas_pull_sharded.py:84 (_make_local_kernel)",
+    "tblock_sharded_step": "kernels/pallas_pull_tblock_sharded.py:57 (_make_kernel)",
 }
 SOURCES = {name: f"latticeboltzmannsimulations_torch/csrc/{name}.cu" for name in REPLACES}
-COUNTERS = {"pull_step": pull, "tblock_step": tblock, "push_step": push}
+COUNTERS = {"pull_step": pull, "tblock_step": tblock, "push_step": push,
+            "pull_sharded_step": pull_sharded, "tblock_sharded_step": tblock_sharded}
 COMPARE_STEPS = 20
 TBLOCK_COMPARE_K = 8
 BENCH_N = 1024
@@ -95,6 +135,13 @@ FLOPS_PER_CELL_MRT = 170
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# The sharded cavity: the BASELINE's scale-out size, on a 2x2 mesh of this
+# one card (and a 1x4 mesh for the comparison with pull_step).
+SHARDED_N = 4096
+SHARDED_MESH = (2, 2)
+SHARDED_COMPARE_N = 256
+SHARDED_STEPS = SWEEP_STEPS        # a multiple of the sharded tblock's K
+SHARDED_WARM_STEPS = 4 * SHARDED_STEPS   # steps before the sharded timing
 
 
 @contextlib.contextmanager
@@ -211,6 +258,124 @@ def check_runner_ping_pong(device) -> None:
     print("  scan runner (7 steps) == 7 single steps, input untouched", flush=True)
 
 
+def sharded_mesh(device, shape=SHARDED_MESH):
+    """A mesh of ``shape`` shards, every one on this card."""
+    return make_mesh(shape, [device] * (shape[0] * shape[1]))
+
+
+def compare_sharded(name: str, cfg: SimConfig, device, module) -> float:
+    """20 steps of a sharded kernel's runner (``module``: ``pull_sharded`` or
+    ``tblock_sharded`` at its default K) against 20 steps of the plain
+    sharded engine, on a mesh of this card."""
+    mesh = sharded_mesh(device, cfg.mesh_shape)
+    s0 = shard_state(engine.init_state(cfg, device), mesh)
+    plain = unshard_state(make_sharded_scan_runner(cfg, COMPARE_STEPS, mesh)(s0), device)
+    out = unshard_state(module.make_sharded_runner(cfg, COMPARE_STEPS, mesh)(s0), device)
+    kernel = module.__name__.rsplit(".", 1)[1]
+    return check_close(f"{kernel} {name} mesh {cfg.mesh_shape}", cfg, out.f, plain.f,
+                       out.rho_lid, plain.rho_lid)
+
+
+def compare_sharded_pull(cfg: SimConfig, device, n: int) -> float:
+    """``cuda-sharded`` against ``cuda-pull`` on the global grid over n
+    steps: the same arithmetic, the wrap supplied by the halo, so they must
+    agree exactly."""
+    mesh = sharded_mesh(device, cfg.mesh_shape)
+    s0 = engine.init_state(cfg, device)
+    a = unshard_state(pull_sharded.make_sharded_runner(cfg, n, mesh)(
+        shard_state(s0, mesh)), device)
+    b = pull.make_scan_runner(dataclasses.replace(cfg, mesh_shape=(1, 1)), n, device)(s0)
+    return check_close(f"cuda-sharded vs pull_step, {n} steps, mesh {cfg.mesh_shape}",
+                       cfg, a.f, b.f, a.rho_lid, b.rho_lid, atol=0.0)
+
+
+def compare_tblock_sharded_pull(cfg: SimConfig, device, n: int) -> float:
+    """The sharded temporal-block kernel against the sharded one-step kernel
+    over n steps (blocks of the default K, the remainder through the
+    latter)."""
+    mesh = sharded_mesh(device, cfg.mesh_shape)
+    s0 = shard_state(engine.init_state(cfg, device), mesh)
+    a = unshard_state(tblock_sharded.make_sharded_runner(cfg, n, mesh)(s0), device)
+    b = unshard_state(pull_sharded.make_sharded_runner(cfg, n, mesh)(s0), device)
+    return check_close(f"tblock_sharded K={tblock_sharded.K_STEPS} vs pull_sharded, "
+                       f"{n} steps, mesh {cfg.mesh_shape}", cfg, a.f, b.f,
+                       a.rho_lid, b.rho_lid, atol=TBLOCK_VS_PULL_ATOL)
+
+
+def sharded_bound(cfg: SimConfig, k_steps: int = 1) -> tuple[float, str]:
+    """Least ms per step of a sharded kernel over the whole mesh, at the
+    published peaks: each shard's carry with its halo ring (k_steps deep)
+    and its lid densities read once and its cells written once per launch
+    of k_steps steps, or the operations of one step on every cell."""
+    mx, my = cfg.mesh_shape
+    lx, ly = cfg.nx // mx, cfg.ny // my
+    d = k_steps
+    per_shard = (36 * (lx + 2 * d) * (ly + 2 * d) + 36 * lx * ly
+                 + 2 * 4 * (lx + 2 * d))
+    bytes_ms = mx * my * per_shard / k_steps / PEAK_BYTES_PER_S * 1e3
+    ops_ms = FLOPS_PER_CELL_MRT * cfg.nx * cfg.ny / PEAK_F32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def time_sharded(cfg: SimConfig, device, state, k_steps: int | None) -> dict:
+    """Device ms per step on the mesh of a sharded kernel's runner
+    (``k_steps`` None: the one-step kernel; else the temporal-block one),
+    from ``state``: the whole runner; then, on buffers with the runner's
+    layout, views and launch arguments, the halo exchange alone and the
+    kernel launches alone, these both from buffer to buffer as in the
+    runner, so the flow moves on (``ms``), and again and again on the
+    same input (``fixed_ms``); and the plain version."""
+    mesh = sharded_mesh(device, cfg.mesh_shape)
+    lx, ly = cfg.nx // cfg.mesh_shape[0], cfg.ny // cfg.mesh_shape[1]
+    if k_steps is None:
+        runner = pull_sharded.make_sharded_runner(cfg, SHARDED_STEPS, mesh)
+        lay, per_launch = pull_sharded.layout(lx, ly), 1
+    else:
+        runner = tblock_sharded.make_sharded_runner(cfg, SHARDED_STEPS, mesh, k_steps)
+        lay, per_launch = halo.Layout.tight(lx, ly, k_steps), k_steps
+    runner(state)
+    out = dict(full_ms=cuda_time_ms(lambda: runner(state), 1) / SHARDED_STEPS)
+    n = SHARDED_STEPS // per_launch
+    carries = [halo.pad_blocks(state.f, lay)]
+    rows = [halo.pad_rows(state.rho_lid, 0 if k_steps is None else k_steps)]
+    exchange = halo.halo_pairs(carries[0], lay)
+    if k_steps is not None:
+        exchange += halo.row_halo_pairs(rows[0], k_steps)
+    halo.copy_pairs(exchange)
+    # the second buffers start as copies, so their rings hold the flow's values
+    carries.append(tuple(tuple(c.clone() for c in col) for col in carries[0]))
+    rows.append(tuple(tuple(r.clone() for r in col) for col in rows[0]))
+    calls = []
+    for src in (0, 1):
+        dst = 1 - src
+        if k_steps is None:
+            calls.append([(mesh.device(ix, iy), pull_sharded._shard_call(
+                cfg, lay, carries[src][ix][iy], rows[src][ix][iy],
+                halo.edge_flags(mesh.shape, ix, iy), None, carries[dst][ix][iy],
+                rows[dst][ix][iy])) for ix, iy in mesh.shards()])
+        else:
+            calls.append([(mesh.device(ix, iy), tblock_sharded._block_call(
+                cfg, carries[src][ix][iy], rows[src][ix][iy], (ix * lx, iy * ly),
+                carries[dst][ix][iy], rows[dst][ix][iy], k_steps))
+                for ix, iy in mesh.shards()])
+    out["exchange_ms"] = cuda_time_ms(lambda: halo.copy_pairs(exchange), n) / per_launch
+    out["fixed_ms"] = cuda_time_ms(lambda: pull_sharded.run_calls(calls[0]), n) / per_launch
+
+    def both():
+        pull_sharded.run_calls(calls[0])
+        pull_sharded.run_calls(calls[1])
+
+    out["ms"] = cuda_time_ms(both, n // 2) / (2 * per_launch)
+    if k_steps is None:
+        out["plain_ms"] = time_plain(make_sharded_fused_step(cfg, mesh), state, reps=3)
+    else:
+        out["plain_ms"] = cuda_time_ms(lambda: [
+            tblock_sharded.plain_block(cfg, carries[0][ix][iy], rows[0][ix][iy],
+                                       (ix * lx, iy * ly), k_steps)
+            for ix, iy in mesh.shards()], 1) / k_steps
+    return out
+
+
 def reset_counters() -> None:
     for module in COUNTERS.values():
         module.launches = 0
@@ -221,31 +386,42 @@ def read_counters() -> dict:
 
 
 def run_main_path(cfg: SimConfig, device, out_dir: str, backend: str,
-                  expect: str | None, gates: dict | None = None) -> dict:
+                  expect: str | None, gates: dict | None = None,
+                  mlups: list | None = None) -> dict:
     """``simulate`` through ``backend``; checks the route (when ``expect``
     is given), the launches of the routed kernel against the steps, a
-    finite field and the Ghia gates.  Returns the launch counts."""
+    finite field and the Ghia gates.  Returns the launch counts, and
+    appends the run's MLUPS to ``mlups`` where given."""
     reset_counters()
+    halo.copies = 0
     summary = simulate(cfg, SimOptions(out_dir=out_dir, verbose=False,
                                        backend=backend), device=device)
     torch.cuda.synchronize()
     counts = read_counters()
+    copies = f" halo copies={halo.copies}" if halo.copies else ""
     print(f"  {cfg.describe()} backend={backend}: routed to {summary.backend}, "
-          f"steps={summary.steps} launches={counts} MLUPS={summary.mlups:.1f} "
-          f"r2_ux={summary.r2_ux} r2_uy={summary.r2_uy} l2={summary.l2_combined}",
-          flush=True)
+          f"steps={summary.steps} launches={counts}{copies} "
+          f"MLUPS={summary.mlups:.1f} r2_ux={summary.r2_ux} r2_uy={summary.r2_uy} "
+          f"l2={summary.l2_combined}", flush=True)
     if expect is not None and summary.backend != expect:
         raise AssertionError(f"routed to {summary.backend!r}, not {expect!r}")
     if not math.isfinite(summary.mlups):
         raise AssertionError("non-finite MLUPS")
+    if mlups is not None:
+        mlups.append(summary.mlups)
     steps, chunks = summary.steps, summary.steps // cfg.report_interval
     blocks, rem = divmod(cfg.report_interval, tblock.K_STEPS)
-    want = {
-        "cuda-pull": {"pull_step": steps, "tblock_step": 0, "push_step": 0},
-        "cuda-tblock": {"pull_step": chunks * rem, "tblock_step": chunks * blocks,
-                        "push_step": 0},
-        "cuda-push": {"pull_step": 0, "tblock_step": 0, "push_step": steps},
-    }.get(summary.backend, {"pull_step": 0, "tblock_step": 0, "push_step": 0})
+    s_blocks, s_rem = divmod(cfg.report_interval, tblock_sharded.K_STEPS)
+    shards = cfg.mesh_shape[0] * cfg.mesh_shape[1]
+    want = {name: 0 for name in COUNTERS}
+    want.update({
+        "cuda-pull": {"pull_step": steps},
+        "cuda-tblock": {"pull_step": chunks * rem, "tblock_step": chunks * blocks},
+        "cuda-push": {"push_step": steps},
+        "cuda-sharded": {"pull_sharded_step": shards * steps},
+        "cuda-sharded-tblock": {"pull_sharded_step": shards * chunks * s_rem,
+                                "tblock_sharded_step": shards * chunks * s_blocks},
+    }.get(summary.backend, {}))
     if counts != want:
         raise AssertionError(f"{summary.backend}: launches {counts}, expected {want}")
     for key, (op, limit) in (gates or {}).items():
@@ -373,6 +549,31 @@ def main() -> None:
         worst["push_step"] = max(worst["push_step"],
                                  compare_push("mrt", bench_cfg, device))
 
+    with phase("kernel vs plain: sharded"):
+        n = SHARDED_COMPARE_N
+        for name, kw in small + [vd]:
+            cfg = SimConfig(nx=n, ny=n, mesh_shape=SHARDED_MESH, **kw)
+            worst["pull_sharded_step"] = max(worst["pull_sharded_step"],
+                                             compare_sharded(name, cfg, device, pull_sharded))
+            if name != vd[0]:
+                worst["tblock_sharded_step"] = max(
+                    worst["tblock_sharded_step"],
+                    compare_sharded(name, cfg, device, tblock_sharded))
+        sharded_cfg = dataclasses.replace(bench_cfg, nx=SHARDED_N, ny=SHARDED_N,
+                                          mesh_shape=SHARDED_MESH)
+        sharded_ghia = SimConfig(nx=128, ny=128, reynolds=100.0, collision="mrt",
+                                 max_steps=16_000, report_interval=2_000,
+                                 mesh_shape=SHARDED_MESH)
+        # both kernels at the shapes the main path gives them
+        for name, cfg in (("mrt", sharded_cfg), ("mrt re=100", sharded_ghia)):
+            for module in (pull_sharded, tblock_sharded):
+                key = module.__name__.rsplit(".", 1)[1] + "_step"
+                worst[key] = max(worst[key], compare_sharded(name, cfg, device, module))
+        for shape in (SHARDED_MESH, (1, 4)):
+            compare_sharded_pull(dataclasses.replace(sharded_cfg, mesh_shape=shape),
+                                 device, 64)
+        compare_tblock_sharded_pull(sharded_cfg, device, 64)
+
     main_launches = {name: 0 for name in REPLACES}
     with phase("main path: cuda-pull"), tempfile.TemporaryDirectory() as tmp:
         main_cfg = dataclasses.replace(bench_cfg, max_steps=10_000,
@@ -417,6 +618,30 @@ def main() -> None:
             SimConfig(nx=48, ny=48, reynolds=100.0, boundary="bounce_back",
                       max_steps=200, report_interval=100),
             device, tmp, "auto", "push-oracle")
+    with phase("main path: sharded cavity"), tempfile.TemporaryDirectory() as tmp:
+        mesh_devices = [device] * (SHARDED_MESH[0] * SHARDED_MESH[1])
+        sharded_run = dataclasses.replace(sharded_cfg, max_steps=2_000,
+                                          report_interval=500)
+        # auto, then the sharded kernel auto did not take, in the order
+        # auto, other, other, auto (the first run of a size is slower)
+        sharded_mlups = {"auto": [], "other": []}
+        counts = run_main_path(sharded_run, mesh_devices, tmp, "auto", None,
+                               mlups=sharded_mlups["auto"])
+        add_counts(main_launches, counts)
+        other = ("cuda-sharded" if counts["pull_sharded_step"] == 0
+                 else "cuda-sharded-tblock")
+        for key, backend in (("other", other), ("other", other), ("auto", "auto")):
+            add_counts(main_launches, run_main_path(
+                sharded_run, mesh_devices, tmp, backend,
+                None if backend == "auto" else other, mlups=sharded_mlups[key]))
+        auto_name = "cuda-sharded-tblock" if other == "cuda-sharded" else "cuda-sharded"
+        print(f"  {SHARDED_N}^2 mesh {SHARDED_MESH} simulate MLUPS, mean of two: "
+              f"auto ({auto_name}) {sum(sharded_mlups['auto']) / 2:.1f}, {other} "
+              f"{sum(sharded_mlups['other']) / 2:.1f}", flush=True)
+        add_counts(main_launches, run_main_path(
+            sharded_ghia, mesh_devices, tmp, "cuda-sharded", "cuda-sharded",
+            {"r2_ux": (">", 0.99), "l2_combined": ("<", 0.05)}))
+
     print(f"  launches on the main paths: {main_launches}", flush=True)
     for name, n in main_launches.items():
         if n == 0:
@@ -523,6 +748,81 @@ def main() -> None:
         print(f"  {BENCH_N}^2 push_step {ms:.5f} ms/step ({cells * 1e-3 / ms:.1f} "
               f"MLUPS); plain {timing['push_step']['plain_ms']:.4f} ms/step; bound "
               f"{b_ms:.5f} ms/step by {b_by}", flush=True)
+
+    with phase("timing: sharded"):
+        mesh = sharded_mesh(device)
+        cells = SHARDED_N * SHARDED_N
+        # Both sharded runners from rest in simulate's calls of
+        # report_interval steps over the main path's steps, and the one-step
+        # runner's pad and unpad copies (made once per call).
+        s0 = shard_state(engine.init_state(sharded_cfg, device), mesh)
+        interval = sharded_run.report_interval
+        rest_ms = {}
+        for name, module in (("cuda-sharded", pull_sharded),
+                             ("cuda-sharded-tblock", tblock_sharded)):
+            chunk = module.make_sharded_runner(sharded_cfg, interval, mesh)
+
+            def from_rest():
+                s = s0
+                for _ in range(sharded_run.max_steps // interval):
+                    s = chunk(s)
+
+            rest_ms[name] = cuda_time_ms(from_rest, 1) / sharded_run.max_steps
+        lay = pull_sharded.layout(SHARDED_N // SHARDED_MESH[0], SHARDED_N // SHARDED_MESH[1])
+        pad_ms = cuda_time_ms(lambda: halo.unpad_blocks(halo.pad_blocks(s0.f, lay), lay), 5)
+        one = rest_ms["cuda-sharded"]
+        print(f"  {SHARDED_N}^2 mesh {SHARDED_MESH} runners from rest in {interval}-step "
+              f"calls: {rest_ms} ms/step ({cells * 1e-3 / one:.1f} MLUPS one-step); "
+              f"tblock/one-step {one / rest_ms['cuda-sharded-tblock']:.3f}x; pad + unpad "
+              f"{pad_ms:.4f} ms per call ({pad_ms / (one * interval):.4f} of a one-step "
+              f"call)", flush=True)
+        # The rest from the state after SHARDED_WARM_STEPS steps of the
+        # one-step kernel.
+        warm = pull_sharded.make_sharded_runner(sharded_cfg, SHARDED_STEPS, mesh)
+        s1 = s0
+        for _ in range(SHARDED_WARM_STEPS // SHARDED_STEPS):
+            s1 = warm(s1)
+        del s0, chunk, warm
+        # pull_step on the same cells and state, launched alone as the
+        # sharded kernels are below
+        one_cfg = dataclasses.replace(sharded_cfg, mesh_shape=(1, 1))
+        g1 = unshard_state(s1, device)
+        out = engine.State(torch.empty_like(g1.f), torch.empty_like(g1.rho_lid))
+        pull_ms = cuda_time_ms(lambda: pull.pull_step(one_cfg, g1.f, g1.rho_lid, out.f,
+                                                      out.rho_lid), SHARDED_STEPS)
+        del g1, out
+        print(f"  {SHARDED_N}^2 pull_step on the same state, launched alone "
+              f"{pull_ms:.5f} ms/step ({cells * 1e-3 / pull_ms:.1f} MLUPS)", flush=True)
+        for name, k in (("pull_sharded_step", None),
+                        ("tblock_sharded_step", tblock_sharded.K_STEPS)):
+            t = time_sharded(sharded_cfg, device, s1, k)
+            t["bound_ms"], t["bound_by"] = sharded_bound(sharded_cfg, k or 1)
+            timing[name] = t
+            print(f"  {SHARDED_N}^2 mesh {SHARDED_MESH} {name}"
+                  f"{'' if k is None else f' K={k}'}: runner {t['full_ms']:.5f} "
+                  f"ms/step ({cells * 1e-3 / t['full_ms']:.1f} MLUPS); kernel launches "
+                  f"alone {t['ms']:.5f} ms/step (on one fixed input "
+                  f"{t['fixed_ms']:.5f}); halo exchange alone "
+                  f"{t['exchange_ms']:.5f} ms/step ({t['exchange_ms'] / t['full_ms']:.3f} "
+                  f"of the runner); plain {t['plain_ms']:.4f} ms/step; bound "
+                  f"{t['bound_ms']:.5f} ms/step by {t['bound_by']}", flush=True)
+
+        # Is the temporal-block runner ahead of the one-step one?  In turns,
+        # from the state after SHARDED_WARM_STEPS steps.
+        runners = {
+            "cuda-sharded": pull_sharded.make_sharded_runner(sharded_cfg, SHARDED_STEPS, mesh),
+            "cuda-sharded-tblock": tblock_sharded.make_sharded_runner(
+                sharded_cfg, SHARDED_STEPS, mesh)}
+        ms = {name: [] for name in runners}
+        for name in ("cuda-sharded", "cuda-sharded-tblock", "cuda-sharded-tblock",
+                     "cuda-sharded") * 2:
+            ms[name].append(cuda_time_ms(lambda: runners[name](s1), 1) / SHARDED_STEPS)
+        one, blk = (sum(ms[n]) / len(ms[n]) for n in runners)
+        print(f"  {SHARDED_N}^2 mesh {SHARDED_MESH} in turns: {ms} ms/step; "
+              f"tblock/one-step {one / blk:.3f}x; ahead by more than "
+              f"{AHEAD_MARGIN - 1:.1%}: {one / blk > AHEAD_MARGIN}; sim.py routes auto "
+              f"to it for shards of {sim.SHARDED_TBLOCK_AUTO_MIN_CELLS} cells", flush=True)
+        del s1, runners
 
     print(f"chip_smoke total wall time: {time.perf_counter() - t_start:.1f} s",
           flush=True)

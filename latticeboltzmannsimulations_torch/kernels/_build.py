@@ -102,18 +102,23 @@ def ensure_built() -> tuple[Path, str | None]:
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    """The built library, with every argument type declared (an undeclared
-    pointer would be passed as a 32-bit int and cut)."""
+    """The built library, with every argument type declared."""
     path, _ = ensure_built()
-    lib = ctypes.CDLL(str(path))
+    return declare(ctypes.CDLL(str(path)))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument and result types of every entry point of
+    ``lib`` (an undeclared pointer would be passed as a 32-bit int and
+    cut).  Returns ``lib``."""
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # nx, ny, then the step's scalars (kernels/pull.py::_scalars)
-    scalars = [
-        i, i,                       # nx, ny
+    # the step's scalars after nx, ny (kernels/pull.py::_scalars)
+    physics = [
         fl, fl, fl, fl, fl, fl,     # u_lid, lid_mom, omega, tau0, tau0_sq, omega_minus
         fl, fl, fl,                 # omega_e, omega_eps, omega_q
         i, i, fl,                   # collision, les, smag_coef
     ]
+    scalars = [i, i, *physics]      # nx, ny, then the physics
     lib.lbm_pull_step.argtypes = [
         p, p, p, p, p,              # f, rho_lid_prev, cs2_plane, f_out, rho_lid_out
         *scalars,
@@ -130,7 +135,22 @@ def load_library() -> ctypes.CDLL:
         *scalars,
         p,                          # stream
     ]
-    for fn in (lib.lbm_pull_step, lib.lbm_tblock_step, lib.lbm_push_step):
+    lib.lbm_pull_sharded_step.argtypes = [
+        p, p, p, p, p,              # f, rho_lid_prev, cs2_plane, f_out, rho_lid_out
+        i, i, i, i,                 # lx, ly, pitch, y0 of the carry
+        i, i, i, i,                 # left, right, top, bottom walls owned
+        *physics,
+        p,                          # stream
+    ]
+    lib.lbm_tblock_sharded_step.argtypes = [
+        p, p, p, p,                 # f, panel, f_out, panel_out
+        i, i, i, i,                 # lx, ly, x_off, y_off
+        *scalars,
+        i,                          # k_steps
+        p,                          # stream
+    ]
+    for fn in (lib.lbm_pull_step, lib.lbm_tblock_step, lib.lbm_push_step,
+               lib.lbm_pull_sharded_step, lib.lbm_tblock_sharded_step):
         fn.restype = ctypes.c_int
     lib.lbm_error_string.argtypes = [ctypes.c_int]
     lib.lbm_error_string.restype = ctypes.c_char_p

@@ -180,3 +180,31 @@ def van_driest_cs2(
     z_plus = dist * visc_inv
     cs = cs_bulk * (1.0 - torch.exp(-z_plus / 26.0))
     return cs * cs
+
+
+def van_driest_cs2_block(
+    nx: int,
+    ny: int,
+    x0: int,
+    y0: int,
+    lx: int,
+    ly: int,
+    visc_inv: float,
+    cs_bulk: float = 0.16,
+    dtype: torch.dtype = torch.float32,
+    device=None,
+) -> torch.Tensor:
+    """Per-shard slice of the Van Driest Cs^2 field.
+
+    Builds the ``(lx, ly)`` block whose global origin is ``(x0, y0)``, using
+    the *global* wall distances, so a sharded run matches the single-device
+    ``van_driest_cs2(nx, ny, ...)`` field exactly.
+    """
+    x = (x0 + torch.arange(lx, dtype=dtype, device=device))[:, None]
+    y = (y0 + torch.arange(ly, dtype=dtype, device=device))[None, :]
+    dist = torch.minimum(
+        torch.minimum(x, (nx - 1) - x), torch.minimum(y, (ny - 1) - y)
+    )
+    z_plus = dist * visc_inv
+    cs = cs_bulk * (1.0 - torch.exp(-z_plus / 26.0))
+    return cs * cs

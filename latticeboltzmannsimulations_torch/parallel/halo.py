@@ -1,0 +1,464 @@
+"""The sharded fused step in plain PyTorch: a two-phase halo exchange and
+wall handling masked to the shards that own each wall.
+
+The counterpart of the JAX package's ``parallel/halo.py``.  The global
+lattice ``f (9, X, Y)`` is split over a mesh (``mesh.py``); every step each
+shard
+
+1. receives one-cell edge strips from its four axis neighbours, in two
+   phases (y rows first, then x columns of the y-padded block), so the
+   diagonal populations f5..f8 receive the corner values,
+2. gathers (pull-streams) from its padded block,
+3. applies the reduced NEBB rewrites masked to the shards that own a global
+   wall, in the engine's order (left, right, bottom, lid),
+4. computes the moments, the equilibrium and the collision locally.
+
+The neighbour rings are periodic, which reproduces the single-device
+engine's wrap (``torch.roll``) exactly; the wrap value is visible in the
+trajectory at the lid corners, so the corners depend on it.  A one-shard
+axis copies onto itself.  JAX's ``ppermute`` becomes tensor copies between
+the shards' blocks, which are peer copies when the shards sit on different
+cards; ``copies`` counts every copy the sharded runners make.
+
+This module is also the plain version of the sharded CUDA kernels:
+``local_step`` on a one-cell padded block for ``kernels/pull_sharded.py``,
+and ``masked_step`` with masks keyed to the global cell for
+``kernels/tblock_sharded.py``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from .. import lattice
+from ..config import SimConfig
+from ..engine import State, _collide, init_state
+from ..ops.collision import van_driest_cs2_block
+from ..ops.equilibrium import equilibrium, lid_row_density, macroscopics
+from .mesh import (
+    Blocks,
+    Mesh,
+    block_shape,
+    shard_lattice,
+    shard_rows,
+    unshard_lattice,
+    unshard_rows,
+)
+
+Pair = Tuple[torch.Tensor, torch.Tensor]
+
+# Tensor copies made by the halo exchanges and the sharded runners in this
+# process (strips, lid-density replication, and the padding of a runner's
+# input and output).
+copies = 0
+
+
+class ShardedState(NamedTuple):
+    """A ``State`` on a mesh: ``f[ix][iy]`` is shard ``(ix, iy)``'s
+    ``(9, lx, ly)`` block and ``rho_lid[ix][iy]`` its ``(lx,)`` slice of the
+    lid density (the same for every ``iy``)."""
+
+    f: Blocks
+    rho_lid: Blocks
+
+    def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "ShardedState":
+        """``fn`` applied to every block."""
+        return ShardedState(*(tuple(tuple(fn(b) for b in col) for col in blocks)
+                              for blocks in self))
+
+
+class WallMasks(NamedTuple):
+    """Which cells of a ``(w, h)`` block lie on each wall: per column
+    (``left``, ``right``) and per row (``bottom``, ``lid``)."""
+
+    left: torch.Tensor    # (w,) bool
+    right: torch.Tensor   # (w,) bool
+    bottom: torch.Tensor  # (h,) bool
+    lid: torch.Tensor     # (h,) bool
+
+
+def _copy(dst: torch.Tensor, src: torch.Tensor) -> None:
+    global copies
+    dst.copy_(src)
+    copies += 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Where a shard's cells sit in its carry ``(C, lx + 2*depth, pitch)``:
+    x at ``[depth, depth + lx)``, y at ``[y0, y0 + ly)``, inside a
+    ``depth``-deep halo ring; the columns of a row past the ring are
+    padding that nothing reads."""
+
+    lx: int
+    ly: int
+    depth: int
+    y0: int
+    pitch: int
+
+    @classmethod
+    def tight(cls, lx: int, ly: int, depth: int) -> "Layout":
+        """The ring and nothing else: ``(C, lx + 2*depth, ly + 2*depth)``."""
+        return cls(lx, ly, depth, depth, ly + 2 * depth)
+
+    @classmethod
+    def aligned(cls, lx: int, ly: int, depth: int) -> "Layout":
+        """``y0`` and the pitch multiples of 32, so the first cell of every
+        float32 carry row starts a 128-byte line (a warp's 32 cells span
+        one line, as in an unpadded field whose rows are a multiple of 32
+        long)."""
+        y0 = -(-depth // 32) * 32
+        return cls(lx, ly, depth, y0, -(-(y0 + ly + depth) // 32) * 32)
+
+    def new(self, like: torch.Tensor) -> torch.Tensor:
+        """An unset carry of this layout for blocks like ``like``."""
+        return like.new_empty((like.shape[0], self.lx + 2 * self.depth, self.pitch))
+
+    def cells(self, carry: torch.Tensor) -> torch.Tensor:
+        """The view of the shard's cells."""
+        return carry[:, self.depth:self.depth + self.lx, self.y0:self.y0 + self.ly]
+
+    def padded(self, carry: torch.Tensor) -> torch.Tensor:
+        """The view of the cells with their halo ring."""
+        d = self.depth
+        return carry[:, :, self.y0 - d:self.y0 + self.ly + d]
+
+
+def halo_pairs(carries: Blocks, layout: Layout) -> List[Pair]:
+    """The (destination, source) views of the two-phase exchange that fills
+    the halo ring of every shard's carry, in the order they must be copied:
+    y rows first (the top halo is the ``my``-predecessor's last rows), then
+    x columns of the y-padded carries, corners included.  Needs
+    ``lx, ly >= depth``."""
+    mx, my = len(carries), len(carries[0])
+    d, lx, ly, y0 = layout.depth, layout.lx, layout.ly, layout.y0
+    ring = slice(y0 - d, y0 + ly + d)
+    pairs = []
+    for ix in range(mx):
+        for iy in range(my):
+            c = carries[ix][iy]
+            up, down = carries[ix][(iy - 1) % my], carries[ix][(iy + 1) % my]
+            pairs.append((c[:, d:d + lx, y0 - d:y0], up[:, d:d + lx, y0 + ly - d:y0 + ly]))
+            pairs.append((c[:, d:d + lx, y0 + ly:y0 + ly + d], down[:, d:d + lx, y0:y0 + d]))
+    for ix in range(mx):
+        for iy in range(my):
+            c = carries[ix][iy]
+            left, right = carries[(ix - 1) % mx][iy], carries[(ix + 1) % mx][iy]
+            pairs.append((c[:, :d, ring], left[:, lx:lx + d, ring]))
+            pairs.append((c[:, d + lx:, ring], right[:, d:2 * d, ring]))
+    return pairs
+
+
+def row_halo_pairs(panels: Blocks, depth: int) -> List[Pair]:
+    """The copies that fill the x halo of every shard's ``(lx + 2*depth,)``
+    lid-density panel from its x neighbours (the x phase of
+    ``halo_pairs``)."""
+    mx, my = len(panels), len(panels[0])
+    d = depth
+    lx = panels[0][0].shape[0] - 2 * d
+    pairs = []
+    for ix in range(mx):
+        for iy in range(my):
+            p = panels[ix][iy]
+            pairs.append((p[:d], panels[(ix - 1) % mx][iy][lx:lx + d]))
+            pairs.append((p[d + lx:], panels[(ix + 1) % mx][iy][d:2 * d]))
+    return pairs
+
+
+def replicate_pairs(rows: Blocks) -> List[Pair]:
+    """The copies of each ``iy = 0`` shard's row over the others of its
+    column: the lid density is owned by the top shards (the JAX package's
+    ``psum`` over ``my``)."""
+    return [(row, column[0]) for column in rows for row in column[1:]]
+
+
+def copy_pairs(pairs: List[Pair]) -> None:
+    """Copy each source view into its destination view, in order."""
+    for dst, src in pairs:
+        _copy(dst, src)
+
+
+def _map_blocks(fn, blocks: Blocks) -> Blocks:
+    return tuple(tuple(fn(b) for b in column) for column in blocks)
+
+
+def empty_blocks(blocks: Blocks) -> Blocks:
+    """An unset tensor like each block."""
+    return _map_blocks(torch.empty_like, blocks)
+
+
+def pad_blocks(blocks: Blocks, layout: Layout) -> Blocks:
+    """Each ``(C, lx, ly)`` block copied into a new carry of ``layout``;
+    the halo ring is left unset."""
+    def pad(b):
+        c = layout.new(b)
+        _copy(layout.cells(c), b)
+        return c
+    return _map_blocks(pad, blocks)
+
+
+def unpad_blocks(carries: Blocks, layout: Layout) -> Blocks:
+    """The cells of each carry as a new contiguous block."""
+    def unpad(c):
+        cells = layout.cells(c)
+        b = c.new_empty(cells.shape)
+        _copy(b, cells)
+        return b
+    return _map_blocks(unpad, carries)
+
+
+def pad_rows(rows: Blocks, depth: int) -> Blocks:
+    """Each ``(lx,)`` row copied into a new ``(lx + 2*depth,)`` panel; the
+    halo is left unset."""
+    def pad(r):
+        p = r.new_empty(r.shape[0] + 2 * depth)
+        _copy(p[depth:depth + r.shape[0]], r)
+        return p
+    return _map_blocks(pad, rows)
+
+
+def unpad_rows(panels: Blocks, depth: int) -> Blocks:
+    """The cells of each panel as a new row."""
+    def unpad(p):
+        r = p.new_empty(p.shape[0] - 2 * depth)
+        _copy(r, p[depth:p.shape[0] - depth])
+        return r
+    return _map_blocks(unpad, panels)
+
+
+def exchange_halo(blocks: Blocks, depth: int = 1) -> Blocks:
+    """Every shard's ``(C, lx, ly)`` block padded to
+    ``(C, lx + 2*depth, ly + 2*depth)`` with its neighbours' edge strips,
+    two-phase so the corners propagate diagonally."""
+    _, lx, ly = blocks[0][0].shape
+    layout = Layout.tight(lx, ly, depth)
+    carries = pad_blocks(blocks, layout)
+    copy_pairs(halo_pairs(carries, layout))
+    return carries
+
+
+def edge_flags(mesh_shape: Tuple[int, int], ix: int, iy: int) -> Tuple[bool, bool, bool, bool]:
+    """Does shard ``(ix, iy)`` own the global (left, right, lid, bottom)
+    wall?  The lid is global row 0, on the ``iy = 0`` shards."""
+    mx, my = mesh_shape
+    return ix == 0, ix == mx - 1, iy == 0, iy == my - 1
+
+
+def flag_masks(flags, lx: int, ly: int, device) -> WallMasks:
+    """The walls of an ``(lx, ly)`` shard from its edge flags: a wall is the
+    edge cell of a shard that owns it."""
+    left, right, top, bottom = flags
+    cols = torch.arange(lx, device=device)
+    rows = torch.arange(ly, device=device)
+    return WallMasks(left=(cols == 0) & left, right=(cols == lx - 1) & right,
+                     bottom=(rows == ly - 1) & bottom, lid=(rows == 0) & top)
+
+
+def _gather_from_padded(fpad: torch.Tensor) -> torch.Tensor:
+    """Pull gather on a one-cell padded block ``(9, w + 2, h + 2)``:
+    ``out[k](x, y) = f[k](x - cx_k, y + cy_k)`` (see ``ops/streaming.py``)."""
+    w, h = fpad.shape[1] - 2, fpad.shape[2] - 2
+    planes = []
+    for k in range(lattice.Q):
+        x0 = 1 - int(lattice.CX[k])
+        y0 = 1 + int(lattice.CY[k])
+        planes.append(fpad[k, x0:x0 + w, y0:y0 + h])
+    return torch.stack(planes)
+
+
+def _gather_bc(cfg: SimConfig, fpad: torch.Tensor, rho_lid_prev: torch.Tensor,
+               m: WallMasks) -> torch.Tensor:
+    """Gather + reduced NEBB on the cells the masks mark, in the fused
+    engine's order (left, right, bottom, lid), so corner values chain as
+    there.  ``rho_lid_prev`` is the previous lid density of each cell,
+    ``(w, h)`` or ``(w, 1)``; the lid momentum is zero on the side-wall
+    columns (the two corners)."""
+    g = _gather_from_padded(fpad)
+    w, h = g.shape[1], g.shape[2]
+    left, right, bottom, lid = m
+    # Left wall: f1<-f3, f5<-f7, f8<-f6.
+    g[1][left] = g[3][left]
+    g[5][left] = g[7][left]
+    g[8][left] = g[6][left]
+    # Right wall: f3<-f1, f6<-f8, f7<-f5.
+    g[3][right] = g[1][right]
+    g[6][right] = g[8][right]
+    g[7][right] = g[5][right]
+    # Bottom wall: f2<-f4, f5<-f7, f6<-f8.
+    g[2][:, bottom] = g[4][:, bottom]
+    g[5][:, bottom] = g[7][:, bottom]
+    g[6][:, bottom] = g[8][:, bottom]
+    # Moving lid: f4<-f2; f7<-f5 - mom; f8<-f6 + mom.
+    mom = (rho_lid_prev * (cfg.u_lid / 6.0)).expand(w, h)
+    mom = torch.where((left | right)[:, None], 0.0, mom)
+    g[4][:, lid] = g[2][:, lid]
+    g[7][:, lid] = g[5][:, lid] - mom[:, lid]
+    g[8][:, lid] = g[6][:, lid] + mom[:, lid]
+    return g
+
+
+def _macros(cfg: SimConfig, g: torch.Tensor, m: WallMasks):
+    """Moments with the wall overrides: u = 0 on the static walls; on the
+    lid row between the side walls u = (u_lid, 0) and the closure density
+    (the two lid corners belong to the side walls)."""
+    rho, u = macroscopics(g)
+    side = m.left | m.right
+    u = torch.where(side[:, None] | m.bottom[None, :], 0.0, u)
+    lid_in = m.lid[None, :] & ~side[:, None]
+    u = torch.stack([torch.where(lid_in, cfg.u_lid, u[0]),
+                     torch.where(lid_in, 0.0, u[1])])
+    rho = torch.where(lid_in, lid_row_density(g), rho)
+    return rho, u
+
+
+def masked_step(cfg: SimConfig, fpad: torch.Tensor, rho_lid_prev: torch.Tensor,
+                m: WallMasks, cs2: Optional[torch.Tensor] = None):
+    """One fused step of the ``(w, h)`` interior of a one-cell padded block
+    with the walls where ``m`` marks them.  Returns the post-collision
+    ``(9, w, h)`` and the density ``(w, h)`` (the closure density on the lid
+    row: the next step's lid density).  ``cs2`` is the block's Van Driest
+    Cs^2 plane, required under Van Driest damping."""
+    if cfg.turbulence == "smagorinsky" and cfg.van_driest and cs2 is None:
+        raise ValueError("a sharded Van Driest step needs its shard's Cs^2 plane")
+    g = _gather_bc(cfg, fpad, rho_lid_prev, m)
+    rho, u = _macros(cfg, g, m)
+    feq = equilibrium(rho, u)
+    return _collide(cfg, g, feq, rho, cs2_field=cs2), rho
+
+
+def local_step(cfg: SimConfig, fpad: torch.Tensor, rho_lid: torch.Tensor,
+               flags, cs2: Optional[torch.Tensor] = None):
+    """One fused step of one shard: ``fpad (9, lx + 2, ly + 2)`` with its
+    halo ring filled and the shard's ``(lx,)`` lid density -> the new
+    ``(9, lx, ly)`` block and its ``(lx,)`` first-row density (the lid
+    density on a shard that owns the lid)."""
+    lx, ly = fpad.shape[1] - 2, fpad.shape[2] - 2
+    m = flag_masks(flags, lx, ly, fpad.device)
+    f_new, rho = masked_step(cfg, fpad, rho_lid[:, None], m, cs2)
+    return f_new, rho[:, 0].clone()
+
+
+def cs2_blocks(cfg: SimConfig, mesh: Mesh, dtype: torch.dtype) -> Optional[Blocks]:
+    """Each shard's slice of the global Van Driest Cs^2 plane on its device,
+    or None without Van Driest damping."""
+    if not (cfg.turbulence == "smagorinsky" and cfg.van_driest):
+        return None
+    lx, ly = block_shape(cfg.nx, cfg.ny, cfg.mesh_shape)
+    return tuple(
+        tuple(van_driest_cs2_block(cfg.nx, cfg.ny, ix * lx, iy * ly, lx, ly,
+                                   cfg.u_lid / cfg.nu, dtype=dtype,
+                                   device=mesh.device(ix, iy))
+              for iy in range(mesh.shape[1]))
+        for ix in range(mesh.shape[0]))
+
+
+def check_mesh(cfg: SimConfig, mesh: Mesh) -> Tuple[int, int]:
+    """``(lx, ly)``; raises unless the mesh is the configuration's and
+    divides its grid."""
+    if tuple(cfg.mesh_shape) != mesh.shape:
+        raise ValueError(f"the mesh is {mesh.shape}, the configuration's "
+                         f"mesh_shape {cfg.mesh_shape}")
+    return block_shape(cfg.nx, cfg.ny, mesh.shape)
+
+
+def check_sharded_state(cfg: SimConfig, state: ShardedState, mesh: Mesh) -> None:
+    """Every block has its shard's shape, dtype and device."""
+    lx, ly = block_shape(cfg.nx, cfg.ny, mesh.shape)
+    for ix, iy in mesh.shards():
+        dev = mesh.device(ix, iy)
+        for name, t, shape in (("f", state.f[ix][iy], (9, lx, ly)),
+                               ("rho_lid", state.rho_lid[ix][iy], (lx,))):
+            if tuple(t.shape) != shape or t.device != dev:
+                raise ValueError(
+                    f"shard {(ix, iy)}: {name} is {tuple(t.shape)} on {t.device}, "
+                    f"expected {shape} on {dev}")
+
+
+def _sharded_step(cfg: SimConfig, mesh: Mesh):
+    lx, ly = check_mesh(cfg, mesh)
+    cs2 = cs2_blocks(cfg, mesh, cfg.dtype)
+
+    def step(state: ShardedState) -> ShardedState:
+        check_sharded_state(cfg, state, mesh)
+        padded = exchange_halo(state.f)
+        f, rows = [], []
+        for ix in range(mesh.shape[0]):
+            col_f, col_rho = [], []
+            for iy in range(mesh.shape[1]):
+                f_new, rho_row = local_step(
+                    cfg, padded[ix][iy], state.rho_lid[ix][iy],
+                    edge_flags(mesh.shape, ix, iy),
+                    None if cs2 is None else cs2[ix][iy])
+                col_f.append(f_new)
+                col_rho.append(rho_row)
+            f.append(tuple(col_f))
+            # the lid density of the top shard, replicated over the column
+            rows.append(tuple(col_rho[0].to(mesh.device(ix, iy))
+                              for iy in range(mesh.shape[1])))
+        return ShardedState(tuple(f), tuple(rows))
+
+    return step
+
+
+def make_sharded_fused_step(cfg: SimConfig, mesh: Mesh) -> Callable[[ShardedState], ShardedState]:
+    """One fused collide-and-stream step over the mesh."""
+    cfg.validate()
+    return _sharded_step(cfg, mesh)
+
+
+def make_sharded_scan_runner(cfg: SimConfig, n_steps: int, mesh: Mesh):
+    """``n_steps`` sharded steps per call, each with its halo exchange."""
+    step = make_sharded_fused_step(cfg, mesh)
+
+    def run(state: ShardedState) -> ShardedState:
+        for _ in range(n_steps):
+            state = step(state)
+        return state
+
+    return run
+
+
+def sharded_observables(cfg: SimConfig, mesh: Mesh):
+    """The sharded counterpart of ``engine.observables``: the
+    boundary-corrected pre-collision ``(rho (X, Y), u (2, X, Y))``, gathered
+    onto the mesh's first device."""
+    check_mesh(cfg, mesh)
+
+    def obs(state: ShardedState):
+        check_sharded_state(cfg, state, mesh)
+        padded = exchange_halo(state.f)
+        rho_b, u_b = [], []
+        for ix in range(mesh.shape[0]):
+            col_rho, col_u = [], []
+            for iy in range(mesh.shape[1]):
+                fpad = padded[ix][iy]
+                m = flag_masks(edge_flags(mesh.shape, ix, iy), fpad.shape[1] - 2,
+                               fpad.shape[2] - 2, fpad.device)
+                rho, u = _macros(cfg, _gather_bc(cfg, fpad, state.rho_lid[ix][iy][:, None], m), m)
+                col_rho.append(rho)
+                col_u.append(u)
+            rho_b.append(tuple(col_rho))
+            u_b.append(tuple(col_u))
+        dev = mesh.first_device
+        return unshard_lattice(tuple(rho_b), dev), unshard_lattice(tuple(u_b), dev)
+
+    return obs
+
+
+def shard_state(state: State, mesh: Mesh) -> ShardedState:
+    """Place a (single-device) ``State`` onto the mesh."""
+    return ShardedState(f=shard_lattice(state.f, mesh),
+                        rho_lid=shard_rows(state.rho_lid, mesh))
+
+
+def unshard_state(state: ShardedState, device: torch.device) -> State:
+    """The reverse of ``shard_state``: the global ``State`` on ``device``."""
+    return State(f=unshard_lattice(state.f, device),
+                 rho_lid=unshard_rows(state.rho_lid, device))
+
+
+def init_sharded_state(cfg: SimConfig, mesh: Mesh) -> ShardedState:
+    return shard_state(init_state(cfg, mesh.first_device), mesh)

@@ -1,6 +1,6 @@
 """High-level simulation driver: the time loop with per-interval metrics,
 convergence, mass correction, Ghia gating and backend selection, as the JAX
-package's ``sim.py`` runs it on one device.
+package's ``sim.py`` runs it, on one device or on a mesh of them.
 
 Backends:
 
@@ -18,6 +18,25 @@ Backends:
 * ``"torch"`` — the plain fused engine (``engine.py``), for what the kernels
   do not take: float64, the tangential lid.
 
+With a mesh (``cfg.mesh_shape`` larger than ``(1, 1)``, or one of these
+backends asked for) the lattice is split over the mesh's devices
+(``parallel/``) and one of the sharded engines runs it:
+
+* ``"cuda-sharded"`` — the one-step sharded CUDA kernel
+  (``kernels/pull_sharded.py``), a halo exchange and one launch per shard per
+  step.  ``"auto"`` picks it for float32 NEBB on a mesh of CUDA devices.
+* ``"cuda-sharded-tblock"`` — the sharded temporal-block CUDA kernel
+  (``kernels/tblock_sharded.py``), one exchange and one launch per shard per
+  ``K`` steps.  ``"auto"`` picks it for shards of at least
+  ``SHARDED_TBLOCK_AUTO_MIN_CELLS`` cells (None: never).
+* ``"sharded"`` — the plain sharded engine (``parallel/halo.py``), for the
+  rest (float64, a mesh on the CPU).
+
+``device`` is one device, or with a mesh a sequence of ``mx * my`` devices
+(which may repeat one); the default ``"cuda"`` with a mesh takes the first
+``mx * my`` cards and raises with fewer.  The walls other than NEBB and the
+single-device backends refuse a mesh.
+
 An explicit kernel backend that cannot serve a configuration, or that is
 asked for off the card, raises rather than run something else under its
 name.
@@ -32,7 +51,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -40,7 +59,9 @@ import torch
 from . import engine
 from .config import SimConfig, resolve_device
 from .io.metrics import MetricsLogger, mlups
-from .kernels import pull, push, tblock
+from .kernels import pull, pull_sharded, push, tblock, tblock_sharded
+from .parallel import halo
+from .parallel.mesh import Mesh, make_mesh
 from .validate import compare_to_ghia
 from .validate.ghia_data import has_reynolds
 
@@ -56,7 +77,8 @@ class SimOptions:
     metrics_jsonl: bool = True
     checkpoint_every: int = 0     # steps; 0 = off
     resume_from: Optional[str] = None
-    # 'auto' | 'cuda-pull' | 'cuda-tblock' | 'cuda-push' | 'push-oracle' | 'torch'
+    # 'auto' | 'cuda-pull' | 'cuda-tblock' | 'cuda-push' | 'push-oracle' |
+    # 'torch' | 'cuda-sharded' | 'cuda-sharded-tblock' | 'sharded'
     backend: str = "auto"
     verbose: bool = True
     # The wet-node corner treatment (faithful to the reference kernels) leaks
@@ -84,11 +106,11 @@ class SimSummary:
 # Options of the JAX driver that this package does not run yet, with the
 # ROADMAP.md item (queue 1) that ports each.
 _NOT_PORTED = {
-    "save_plots": "queue 1 item 9 (viz)",
-    "save_vtk": "queue 1 item 9 (io/vtk)",
-    "checkpoint_every": "queue 1 item 9 (io/checkpoint)",
-    "resume_from": "queue 1 item 9 (io/checkpoint)",
-    "profile_dir": "queue 1 item 9 (profiler traces)",
+    "save_plots": "queue 1 item 6 (viz)",
+    "save_vtk": "queue 1 item 6 (io/vtk)",
+    "checkpoint_every": "queue 1 item 3 (io/checkpoint)",
+    "resume_from": "queue 1 item 3 (io/checkpoint)",
+    "profile_dir": "queue 1 item 6 (profiler traces)",
 }
 
 
@@ -99,39 +121,121 @@ _NOT_PORTED = {
 # 1024^2 to 4096^2, and furthest behind from the state at rest.
 TBLOCK_AUTO_MIN_CELLS: Optional[int] = None
 
-BACKENDS = ("auto", "cuda-pull", "cuda-tblock", "cuda-push", "push-oracle", "torch")
+# Meshes whose shards hold at least this many cells take the sharded
+# temporal-block kernel under backend="auto" (float32 NEBB without Van
+# Driest, on CUDA devices); None: never.  Keyed to the shard, as the JAX
+# driver's gate is.  Set only where chip_smoke.py counts it ahead of
+# cuda-sharded by more than its margin in every reading (the runners, the
+# launches alone and simulate in alternating order); at 4096^2 on a 2x2 mesh
+# of one H100, the one size measured, they disagree (PERF.md, section 6).
+SHARDED_TBLOCK_AUTO_MIN_CELLS: Optional[int] = None
+
+BACKENDS = ("auto", "cuda-pull", "cuda-tblock", "cuda-push", "push-oracle", "torch",
+            "cuda-sharded", "cuda-sharded-tblock", "sharded")
+_SHARDED = ("cuda-sharded", "cuda-sharded-tblock", "sharded")
 # Walls that only the push oracle implements.
 _PUSH_ONLY = ("bounce_back", "nebb_west_eq")
 
 
+def _same(state):
+    return state
+
+
 class Backend(NamedTuple):
-    """A routed backend: its name, a factory of ``n``-step runners on
-    ``engine.State``, and ``observe(cfg, state) -> (rho, u)`` of its state."""
+    """A routed backend: its name, a factory of ``n``-step runners on its
+    state, ``observe(cfg, state) -> (rho, u)`` of its state, and ``prep``,
+    which turns an ``engine.State`` into its state (the sharding onto the
+    mesh; the identity on one device)."""
 
     name: str
-    make_runner: Callable[[int], Callable[[engine.State], engine.State]]
+    make_runner: Callable[[int], Callable]
     observe: Callable
+    prep: Callable = _same
 
 
-def _select_backend(cfg: SimConfig, backend: str, device: torch.device) -> Backend:
+Placement = Union[torch.device, Mesh]
+
+
+def _placement(cfg: SimConfig, device) -> Placement:
+    """Where a run goes: one resolved device, or with a mesh the ``Mesh`` of
+    its devices (the default ``"cuda"`` takes the first ``mx * my``
+    cards)."""
+    if isinstance(device, (str, torch.device)):
+        if tuple(cfg.mesh_shape) == (1, 1):
+            return resolve_device(device)
+        d = torch.device(device)
+        if d.type == "cuda" and d.index is None:
+            return make_mesh(cfg.mesh_shape)
+        raise ValueError(
+            f"mesh {cfg.mesh_shape} needs {cfg.mesh_shape[0] * cfg.mesh_shape[1]} "
+            f"devices; pass a sequence of them, not the one device {d}")
+    devices: Sequence = list(device)
+    if tuple(cfg.mesh_shape) == (1, 1) and len(devices) == 1:
+        return resolve_device(devices[0])
+    return make_mesh(cfg.mesh_shape, devices)
+
+
+def _first_device(where: Placement) -> torch.device:
+    return where.first_device if isinstance(where, Mesh) else where
+
+
+def _select_sharded(cfg: SimConfig, backend: str, mesh: Mesh) -> Backend:
+    """The sharded half of the routing, as the JAX driver's sharded branch:
+    ``auto`` takes the one-step kernel for float32 NEBB on CUDA devices (the
+    temporal-block one for shards of ``SHARDED_TBLOCK_AUTO_MIN_CELLS``
+    cells), the plain sharded engine otherwise."""
+    observe = halo.sharded_observables(cfg, mesh)
+    prep = lambda s: halo.shard_state(s, mesh)  # noqa: E731
+    kernels = {
+        "cuda-sharded": (pull_sharded.unsupported_reason,
+                         lambda n: pull_sharded.make_sharded_runner(cfg, n, mesh)),
+        "cuda-sharded-tblock": (tblock_sharded.unsupported_reason,
+                                lambda n: tblock_sharded.make_sharded_runner(cfg, n, mesh)),
+    }
+    if backend == "auto" and mesh.on_cuda:
+        if (SHARDED_TBLOCK_AUTO_MIN_CELLS is not None
+                and (cfg.nx // mesh.shape[0]) * (cfg.ny // mesh.shape[1])
+                >= SHARDED_TBLOCK_AUTO_MIN_CELLS
+                and tblock_sharded.unsupported_reason(cfg) is None):
+            backend = "cuda-sharded-tblock"
+        elif pull_sharded.unsupported_reason(cfg) is None:
+            backend = "cuda-sharded"
+    if backend in kernels:
+        unsupported, make_runner = kernels[backend]
+        reason = unsupported(cfg)
+        if not mesh.on_cuda:
+            reason = f"the CUDA kernel runs on CUDA devices, not {mesh.devices}"
+        if reason is not None:
+            raise ValueError(f"backend {backend!r} cannot run this configuration: {reason}")
+        return Backend(backend, make_runner, lambda _cfg, s: observe(s), prep)
+    return Backend("sharded", lambda n: halo.make_sharded_scan_runner(cfg, n, mesh),
+                   lambda _cfg, s: observe(s), prep)
+
+
+def _select_backend(cfg: SimConfig, backend: str, device: Placement) -> Backend:
     """Pick the runner for ``simulate`` and ``run_to_convergence`` alike, as
-    the JAX driver's single-device routing does; this is the one place that
-    routes.  ``auto`` on the card takes a kernel for float32 NEBB (the
+    the JAX driver's routing does; this is the one place that routes.  On
+    one device ``auto`` on the card takes a kernel for float32 NEBB (the
     temporal-block one from ``TBLOCK_AUTO_MIN_CELLS`` cells), the plain fused
     engine for float64 and the tangential lid, and the push oracle for the
-    walls only it implements."""
+    walls only it implements.  A mesh, or a sharded backend, goes to
+    ``_select_sharded``; ``device`` is then the ``Mesh`` (or, for a 1 x 1
+    mesh, its one device)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
-    if cfg.mesh_shape != (1, 1):
+    if cfg.mesh_shape != (1, 1) or backend in _SHARDED:
         if cfg.boundary != "nebb":
             raise ValueError(
                 f"boundary {cfg.boundary!r} runs on a single-device engine; "
                 f"the requested mesh {cfg.mesh_shape} would be ignored"
             )
-        raise NotImplementedError(
-            f"mesh {cfg.mesh_shape}: the sharded engines are not ported yet "
-            "(ROADMAP.md queue 1 item 12)"
-        )
+        if backend not in ("auto", *_SHARDED):
+            raise ValueError(
+                f"backend {backend!r} is single-device; the requested mesh "
+                f"{cfg.mesh_shape} would be ignored"
+            )
+        mesh = device if isinstance(device, Mesh) else make_mesh(cfg.mesh_shape, [device])
+        return _select_sharded(cfg, backend, mesh)
     fused, pushed = engine.observables, engine.push_observables
     kernels = {
         "cuda-pull": (pull.unsupported_reason,
@@ -168,19 +272,37 @@ def run_to_convergence(cfg: SimConfig, state: engine.State | None = None,
                        callback=None, device="cuda",
                        backend: str = "auto") -> engine.RunResult:
     """``engine.run_to_convergence`` stepping through the backend that
-    ``simulate`` would pick (``backend`` as in ``SimOptions``)."""
+    ``simulate`` would pick (``backend`` and ``device`` as there).  With a
+    mesh, ``callback`` sees the sharded state and the result holds the
+    global state on the mesh's first device."""
     cfg.validate()
-    device = resolve_device(device)
-    routed = _select_backend(cfg, backend, device)
-    return engine.run_to_convergence(
-        cfg, state, callback, device,
+    where = _placement(cfg, device)
+    routed = _select_backend(cfg, backend, where)
+    first = _first_device(where)
+    if state is None:
+        state = engine.init_state(cfg, first)
+    result = engine.run_to_convergence(
+        cfg, routed.prep(state), callback, first,
         runner=routed.make_runner(max(1, cfg.report_interval)),
         observe=routed.observe)
+    if isinstance(result.state, halo.ShardedState):
+        result = result._replace(state=halo.unshard_state(result.state, first))
+    return result
+
+
+def _scaled(state, s: float):
+    """The state with every population and lid density times ``s``."""
+    if isinstance(state, halo.ShardedState):
+        return state.map(lambda t: t * s)
+    return engine.State(f=state.f * s, rho_lid=state.rho_lid * s)
 
 
 def simulate(cfg: SimConfig, opts: Optional[SimOptions] = None,
              device="cuda") -> SimSummary:
-    """Run a cavity simulation to convergence with full diagnostics."""
+    """Run a cavity simulation to convergence with full diagnostics.
+    ``device`` is one device, or with a mesh a sequence of ``mx * my``
+    devices; the default ``"cuda"`` takes the first card (``mx * my``
+    cards with a mesh)."""
     opts = opts or SimOptions()
     cfg.validate()
     for name, item in _NOT_PORTED.items():
@@ -188,13 +310,13 @@ def simulate(cfg: SimConfig, opts: Optional[SimOptions] = None,
             raise NotImplementedError(
                 f"SimOptions.{name} is not ported yet (ROADMAP.md {item})"
             )
-    device = resolve_device(device)
-    routed = _select_backend(cfg, opts.backend, device)
+    where = _placement(cfg, device)
+    routed = _select_backend(cfg, opts.backend, where)
     backend = routed.name
     os.makedirs(opts.out_dir, exist_ok=True)
     chunk = max(1, cfg.report_interval)
     runner = routed.make_runner(chunk)
-    state = engine.init_state(cfg, device)
+    state = routed.prep(engine.init_state(cfg, _first_device(where)))
     np_dtype = {torch.float32: np.float32, torch.float64: np.float64}[cfg.dtype]
 
     metrics = MetricsLogger(
@@ -223,8 +345,7 @@ def simulate(cfg: SimConfig, opts: Optional[SimOptions] = None,
                 # rounded to the working precision first, as the JAX driver's
                 # cfg.dtype(scale) is; on the push path rho_lid is the
                 # placeholder and is never read
-                s = float(np_dtype(scale))
-                state = engine.State(f=state.f * s, rho_lid=state.rho_lid * s)
+                state = _scaled(state, float(np_dtype(scale)))
 
         rec = {"mean_u": mean_u, "backend": backend}
         if has_reynolds(cfg.reynolds):

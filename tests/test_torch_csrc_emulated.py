@@ -1,0 +1,340 @@
+"""The CUDA sources of the port, built with ``g++`` as a serial emulation and
+held to their plain versions on the CPU.
+
+There is no ``nvcc`` and no card here, so this is the only CPU check of the
+kernels' code.  The sources in ``latticeboltzmannsimulations_torch/csrc``
+are read as they are, and a copy is rewritten for the host:
+
+* a stub ``cuda_runtime.h`` turns the CUDA keywords into C++ (``__shared__``
+  becomes ``static``, ``__syncthreads()`` does nothing) and keeps
+  ``threadIdx``/``blockIdx``/``blockDim``/``gridDim`` in globals;
+* every ``kThreads`` is set to 1, so a block is one thread, which runs the
+  block's loops serially: a valid schedule for these kernels' barriers;
+* every launch ``kernel<<<grid, block, smem, stream>>>(args)`` becomes a
+  loop over the grid's blocks; dynamic shared memory is a host buffer.
+
+The library is called through ``ctypes`` by each wrapper's own ``_launch``,
+on CPU tensors.  It holds every kernel to its plain version at atol 2e-5
+over 20 float32 steps (an independent float32 implementation), and holds
+these bit for bit on ragged shapes: ``tblock_step`` against ``pull_step``,
+the sharded one-step kernel on a mesh against ``pull_step`` on the global
+grid, and the sharded temporal-block kernel against the sharded one-step
+kernel.  A serial run cannot show a race; the card tests
+(``test_torch_cuda.py``) and ``chip_smoke.py`` stay for that.  Skips without
+``g++``.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+
+import pytest
+import torch
+
+from latticeboltzmannsimulations_torch import engine
+from latticeboltzmannsimulations_torch.config import SimConfig
+from latticeboltzmannsimulations_torch.kernels import (
+    _build,
+    pull,
+    pull_sharded,
+    push,
+    tblock,
+    tblock_sharded,
+)
+from latticeboltzmannsimulations_torch.parallel import halo, make_mesh
+from latticeboltzmannsimulations_torch.parallel.mesh import block_shape
+
+ATOL = 2e-5
+STEPS = 20
+
+_STUB = r"""
+#pragma once
+#include <algorithm>
+#include <cmath>
+#include <cstddef>
+#include <vector>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __restrict__ __restrict
+#define __shared__ static
+using std::max;
+using std::min;
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
+inline dim3 threadIdx(0, 0, 0), blockIdx(0, 0, 0), blockDim, gridDim;
+inline void __syncthreads() {}
+typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+                   cudaErrorInvalidConfiguration = 9 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class T>
+inline cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int) { return cudaSuccess; }
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t) { return "emulated error"; }
+namespace emu {
+inline std::vector<float> smem;
+inline float* dynamic_smem() { return smem.data(); }
+template <class F>
+void launch(F body, dim3 grid, dim3 block, size_t smem_bytes = 0, void* = nullptr) {
+  smem.assign(smem_bytes / sizeof(float) + 1, 0.0f);
+  gridDim = grid;
+  blockDim = block;
+  for (unsigned z = 0; z < grid.z; ++z)
+    for (unsigned y = 0; y < grid.y; ++y)
+      for (unsigned x = 0; x < grid.x; ++x) {
+        blockIdx = dim3(x, y, z);
+        threadIdx = dim3(0, 0, 0);
+        body();
+      }
+}
+}  // namespace emu
+"""
+
+
+def _matching(text: str, start: int, open_: str, close: str) -> int:
+    """Index just past the bracket that closes the one at ``start``."""
+    depth = 0
+    for i in range(start, len(text)):
+        depth += {open_: 1, close: -1}.get(text[i], 0)
+        if depth == 0:
+            return i + 1
+    raise ValueError("unbalanced brackets")
+
+
+def _emulate(source: str) -> str:
+    """A CUDA source rewritten for the serial host build."""
+    text = re.sub(r"constexpr int kThreads = [^;]+;", "constexpr int kThreads = 1;", source)
+    text = re.sub(r"extern __shared__ float (\w+)\[\];",
+                  r"float* \1 = emu::dynamic_smem();", text)
+    while "<<<" in text:
+        at = text.index("<<<")
+        name = re.search(r"(\w+)\s*$", text[:at]).group(1)
+        head = at - len(name)
+        end_cfg = text.index(">>>", at)
+        config = text[at + 3:end_cfg]
+        args_start = text.index("(", end_cfg)
+        args_end = _matching(text, args_start, "(", ")")
+        args = text[args_start:args_end]
+        text = (text[:head] + f"emu::launch([&] {{ {name}{args}; }}, {config})"
+                + text[args_end:])
+    return text
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the CUDA sources as a host emulation")
+    out = tmp_path_factory.mktemp("csrc_emulated")
+    (out / "cuda_runtime.h").write_text(_STUB)
+    for header in _build.HEADERS:
+        (out / header.name).write_text(_emulate(header.read_text()))
+    procs, objs = [], []
+    for src in _build.SOURCES:
+        cpp = out / f"{src.stem}.cpp"
+        cpp.write_text(_emulate(src.read_text()))
+        objs.append(out / f"{src.stem}.o")
+        procs.append(subprocess.Popen(
+            [gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-fPIC", "-I", str(out),
+             "-c", "-o", str(objs[-1]), str(cpp)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for src, proc in zip(_build.SOURCES, procs):
+        log, _ = proc.communicate(timeout=300)
+        assert proc.returncode == 0, f"{src.name}:\n{log}"
+    so = out / "lbm_emulated.so"
+    subprocess.run([gxx, "-shared", "-o", str(so), *map(str, objs)], check=True,
+                   timeout=120)
+    return _build.declare(ctypes.CDLL(str(so)))
+
+
+CASES = {
+    "srt": dict(collision="srt"),
+    "trt": dict(collision="trt"),
+    "mrt": dict(collision="mrt"),
+    "mrt_smagorinsky": dict(collision="mrt", turbulence="smagorinsky", reynolds=5000.0),
+    "srt_van_driest": dict(collision="srt", turbulence="smagorinsky",
+                           van_driest=True, reynolds=5000.0),
+}
+
+
+def _cfg(nx, ny, case="mrt", **kw):
+    return SimConfig(**{"nx": nx, "ny": ny, "reynolds": 400.0, **CASES[case], **kw})
+
+
+def _start(cfg):
+    """The start state with seeded noise, so that every population moves."""
+    s = engine.init_state(cfg, "cpu")
+    gen = torch.Generator().manual_seed(0)
+    return engine.State(s.f * (1.0 + 1e-3 * torch.randn(s.f.shape, generator=gen)),
+                        s.rho_lid.clone())
+
+
+def _plain(cfg, state, n):
+    step = engine.make_fused_step(cfg)
+    for _ in range(n):
+        state = step(state)
+    return state
+
+
+def _pull_steps(lib, cfg, state, n):
+    cs2 = pull._cs2_plane(cfg, torch.device("cpu"))
+    bufs = [state, engine.State(torch.empty_like(state.f), torch.empty_like(state.rho_lid)),
+            engine.State(torch.empty_like(state.f), torch.empty_like(state.rho_lid))]
+    src = bufs[0]
+    for i in range(n):
+        dst = bufs[1 + i % 2]
+        pull._launch(lib, src.f.data_ptr(), src.rho_lid.data_ptr(),
+                     None if cs2 is None else cs2.data_ptr(), dst.f.data_ptr(),
+                     dst.rho_lid.data_ptr(), pull._scalars(cfg), None)
+        src = dst
+    return src
+
+
+def _tblock_steps(lib, cfg, state, n_blocks, k):
+    src = state
+    for _ in range(n_blocks):
+        dst = engine.State(torch.empty_like(src.f), torch.empty_like(src.rho_lid))
+        tblock._launch(lib, (src.f.data_ptr(), src.rho_lid.data_ptr()),
+                       (dst.f.data_ptr(), dst.rho_lid.data_ptr()),
+                       pull._scalars(cfg), k, None)
+        src = dst
+    return src
+
+
+def _pull_sharded_steps(lib, cfg, mesh, state, n):
+    """``pull_sharded.make_sharded_runner``'s loop, launching the emulated
+    kernel through the wrapper's ``_launch``."""
+    cs2 = halo.cs2_blocks(cfg, mesh, torch.float32)
+    lay = pull_sharded.layout(*block_shape(cfg.nx, cfg.ny, mesh.shape))
+    carries = [halo.pad_blocks(state.f, lay)]
+    carries.append(halo.empty_blocks(carries[0]))
+    rows = [halo.pad_rows(state.rho_lid, 0)]
+    rows.append(halo.empty_blocks(rows[0]))
+    for i in range(n):
+        src, dst = i % 2, (i + 1) % 2
+        halo.copy_pairs(halo.halo_pairs(carries[src], lay))
+        for ix, iy in mesh.shards():
+            pull_sharded._launch(
+                lib, carries[src][ix][iy].data_ptr(), rows[src][ix][iy].data_ptr(),
+                None if cs2 is None else cs2[ix][iy].data_ptr(),
+                carries[dst][ix][iy].data_ptr(), rows[dst][ix][iy].data_ptr(),
+                lay, halo.edge_flags(mesh.shape, ix, iy), pull._scalars(cfg)[2:], None)
+    halo.copy_pairs(halo.replicate_pairs(rows[n % 2]))
+    return halo.ShardedState(halo.unpad_blocks(carries[n % 2], lay), rows[n % 2])
+
+
+def _tblock_sharded_steps(lib, cfg, mesh, state, n_blocks, k):
+    """``tblock_sharded.make_sharded_runner``'s loop (no remainder),
+    launching the emulated kernel through the wrapper's ``_launch``."""
+    lx, ly = block_shape(cfg.nx, cfg.ny, mesh.shape)
+    lay = halo.Layout.tight(lx, ly, k)
+    carries = [halo.pad_blocks(state.f, lay)]
+    carries.append(halo.empty_blocks(carries[0]))
+    panels = [halo.pad_rows(state.rho_lid, k)]
+    panels.append(halo.empty_blocks(panels[0]))
+    for i in range(n_blocks):
+        src, dst = i % 2, (i + 1) % 2
+        halo.copy_pairs(halo.halo_pairs(carries[src], lay)
+                        + halo.row_halo_pairs(panels[src], k))
+        for ix, iy in mesh.shards():
+            tblock_sharded._launch(
+                lib, carries[src][ix][iy].data_ptr(), panels[src][ix][iy].data_ptr(),
+                carries[dst][ix][iy].data_ptr(), panels[dst][ix][iy].data_ptr(),
+                lx, ly, (ix * lx, iy * ly), pull._scalars(cfg), k, None)
+        halo.copy_pairs(halo.replicate_pairs(panels[dst]))
+    return halo.ShardedState(halo.unpad_blocks(carries[n_blocks % 2], lay),
+                             halo.unpad_rows(panels[n_blocks % 2], k))
+
+
+def _global(sharded):
+    return halo.unshard_state(sharded, torch.device("cpu"))
+
+
+def _close(a, b):
+    torch.testing.assert_close(a.f, b.f, rtol=0, atol=ATOL)
+    torch.testing.assert_close(a.rho_lid, b.rho_lid, rtol=0, atol=ATOL)
+
+
+def _equal(a, b):
+    assert torch.equal(a.f, b.f)
+    assert torch.equal(a.rho_lid, b.rho_lid)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_pull_step_matches_plain(lib, case):
+    cfg = _cfg(70, 46, case)
+    s0 = _start(cfg)
+    _close(_pull_steps(lib, cfg, s0, STEPS), _plain(cfg, s0, STEPS))
+
+
+@pytest.mark.parametrize("case", ["srt", "trt", "mrt", "mrt_smagorinsky"])
+def test_tblock_step_matches_plain(lib, case):
+    cfg = _cfg(100, 70, case)
+    s0 = _start(cfg)
+    _close(_tblock_steps(lib, cfg, s0, STEPS // 5, 5), _plain(cfg, s0, STEPS))
+
+
+@pytest.mark.parametrize("nx, ny, k", [(64, 64, 1), (100, 70, 5), (70, 130, 10)])
+def test_tblock_step_equals_pull_step(lib, nx, ny, k):
+    cfg = _cfg(nx, ny)
+    s0 = _start(cfg)
+    _equal(_tblock_steps(lib, cfg, s0, 2, k), _pull_steps(lib, cfg, s0, 2 * k))
+
+
+@pytest.mark.parametrize("case", ["srt", "trt", "mrt", "mrt_smagorinsky"])
+def test_push_step_matches_oracle(lib, case):
+    cfg = _cfg(70, 46, case)
+    f = f_plain = _start(cfg).f
+    oracle = engine.make_push_oracle_step(cfg)
+    for _ in range(STEPS):
+        out = torch.empty_like(f)
+        push._launch(lib, f.data_ptr(), out.data_ptr(), pull._scalars(cfg), None)
+        f, f_plain = out, oracle(f_plain)
+    torch.testing.assert_close(f, f_plain, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_pull_sharded_matches_plain(lib, case):
+    cfg = _cfg(70, 46, case, mesh_shape=(2, 2))
+    mesh = make_mesh(cfg.mesh_shape, ["cpu"] * 4)
+    s0 = _start(cfg)
+    out = _pull_sharded_steps(lib, cfg, mesh, halo.shard_state(s0, mesh), STEPS)
+    _close(_global(out), _plain(cfg, s0, STEPS))
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (1, 2), (3, 1)])
+def test_pull_sharded_equals_pull_step(lib, mesh_shape):
+    cfg = _cfg(66, 46, mesh_shape=mesh_shape)
+    mesh = make_mesh(mesh_shape, ["cpu"] * 4)
+    s0 = _start(cfg)
+    out = _pull_sharded_steps(lib, cfg, mesh, halo.shard_state(s0, mesh), STEPS)
+    _equal(_global(out), _pull_steps(lib, cfg, s0, STEPS))
+
+
+@pytest.mark.parametrize("case", ["srt", "trt", "mrt", "mrt_smagorinsky"])
+def test_tblock_sharded_matches_plain(lib, case):
+    cfg = _cfg(70, 46, case, mesh_shape=(2, 2))
+    mesh = make_mesh(cfg.mesh_shape, ["cpu"] * 4)
+    s0 = _start(cfg)
+    out = _tblock_sharded_steps(lib, cfg, mesh, halo.shard_state(s0, mesh), STEPS // 5, 5)
+    _close(_global(out), _plain(cfg, s0, STEPS))
+
+
+@pytest.mark.parametrize("nx, ny, mesh_shape, k", [
+    (70, 46, (2, 2), 5),     # shards narrower than the window
+    (140, 96, (2, 1), 8),    # shards wider than one tile, ragged last tiles
+    (64, 40, (1, 5), 8),     # ly == K: every shard sees a wall image
+    (36, 28, (1, 1), 5),     # both lid images in one window
+])
+def test_tblock_sharded_equals_pull_sharded(lib, nx, ny, mesh_shape, k):
+    cfg = _cfg(nx, ny, mesh_shape=mesh_shape)
+    mesh = make_mesh(mesh_shape, ["cpu"] * 5)
+    s0 = halo.shard_state(_start(cfg), mesh)
+    _equal(_global(_tblock_sharded_steps(lib, cfg, mesh, s0, 2, k)),
+           _global(_pull_sharded_steps(lib, cfg, mesh, s0, 2 * k)))

@@ -8,13 +8,27 @@ card, which has no JAX; there, skip this directory's JAX conftest:
 Tolerance atol 2e-5 over 20 float32 steps: an independent float32
 implementation, whose order of operations and FMA contraction differ."""
 
+import dataclasses
+
 import pytest
 import torch
 
 import latticeboltzmannsimulations_torch as lbt
 from latticeboltzmannsimulations_torch import engine
 from latticeboltzmannsimulations_torch.config import SimConfig
-from latticeboltzmannsimulations_torch.kernels import pull, push, tblock
+from latticeboltzmannsimulations_torch.kernels import (
+    pull,
+    pull_sharded,
+    push,
+    tblock,
+    tblock_sharded,
+)
+from latticeboltzmannsimulations_torch.parallel import (
+    make_mesh,
+    make_sharded_scan_runner,
+    shard_state,
+    unshard_state,
+)
 from latticeboltzmannsimulations_torch.sim import SimOptions, simulate
 
 ATOL = 2e-5
@@ -246,3 +260,134 @@ def test_push_oracle_route_on_the_card(cuda, tmp_path, boundary):
     s = simulate(cfg, SimOptions(out_dir=str(tmp_path), verbose=False), device=cuda)
     assert s.backend == "push-oracle" and s.steps == 200
     assert s.r2_ux is not None and torch.isfinite(torch.tensor(s.r2_ux))
+
+
+# The sharded kernels, on meshes of one card: each shard runs its kernel with
+# its real wall flags and its real halo strips.
+SHARDED_CASES = {
+    **CASES,
+    "srt_van_driest": dict(collision="srt", turbulence="smagorinsky",
+                           van_driest=True, reynolds=5000.0),
+}
+
+
+def _mesh(cuda, shape):
+    return make_mesh(shape, [cuda] * (shape[0] * shape[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SHARDED_CASES))
+def test_pull_sharded_matches_plain(cuda, case):
+    """20 steps on a 2x2 mesh of ragged 65x49 shards against 20 steps of the
+    plain sharded engine; one launch per shard per step."""
+    cfg = SimConfig(**{"nx": 130, "ny": 98, "reynolds": 400.0, "mesh_shape": (2, 2),
+                       **SHARDED_CASES[case]})
+    mesh = _mesh(cuda, cfg.mesh_shape)
+    s0 = shard_state(engine.init_state(cfg, device=cuda), mesh)
+    before = pull_sharded.launches
+    out = pull_sharded.make_sharded_runner(cfg, 20, mesh)(s0)
+    torch.cuda.synchronize()
+    assert pull_sharded.launches - before == 4 * 20
+    ref = make_sharded_scan_runner(cfg, 20, mesh)(s0)
+    a, b = unshard_state(out, cuda), unshard_state(ref, cuda)
+    torch.testing.assert_close(a.f, b.f, rtol=0, atol=ATOL)
+    torch.testing.assert_close(a.rho_lid, b.rho_lid, rtol=0, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (1, 4), (3, 1), (1, 1)])
+def test_pull_sharded_equals_pull_step(cuda, mesh_shape):
+    """The same arithmetic as the one-device kernel, the wrap supplied by
+    the halo: equal bit for bit over 33 steps."""
+    cfg = SimConfig(nx=150, ny=100, reynolds=1000.0, collision="mrt",
+                    mesh_shape=mesh_shape)
+    mesh = _mesh(cuda, mesh_shape)
+    s0 = engine.init_state(cfg, device=cuda)
+    a = unshard_state(pull_sharded.make_sharded_runner(cfg, 33, mesh)(
+        shard_state(s0, mesh)), cuda)
+    b = pull.make_scan_runner(dataclasses.replace(cfg, mesh_shape=(1, 1)), 33,
+                              device=cuda)(s0)
+    torch.cuda.synchronize()
+    assert torch.equal(a.f, b.f) and torch.equal(a.rho_lid, b.rho_lid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CASES))
+def test_tblock_sharded_matches_plain(cuda, case):
+    """20 steps at K=5 (four launches per shard) on a 2x2 mesh of ragged
+    shards against 20 steps of the plain sharded engine."""
+    cfg = SimConfig(**{"nx": 130, "ny": 98, "reynolds": 400.0, "mesh_shape": (2, 2),
+                       **CASES[case]})
+    mesh = _mesh(cuda, cfg.mesh_shape)
+    s0 = shard_state(engine.init_state(cfg, device=cuda), mesh)
+    before = (tblock_sharded.launches, pull_sharded.launches)
+    out = tblock_sharded.make_sharded_runner(cfg, 20, mesh)(s0)
+    torch.cuda.synchronize()
+    assert (tblock_sharded.launches - before[0], pull_sharded.launches - before[1]) == (16, 0)
+    ref = make_sharded_scan_runner(cfg, 20, mesh)(s0)
+    a, b = unshard_state(out, cuda), unshard_state(ref, cuda)
+    torch.testing.assert_close(a.f, b.f, rtol=0, atol=ATOL)
+    torch.testing.assert_close(a.rho_lid, b.rho_lid, rtol=0, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx, ny, mesh_shape, k, n", [
+    (200, 150, (2, 2), 5, 23),   # with a remainder through the one-step kernel
+    (256, 64, (2, 8), 8, 16),    # ly == K
+    (48, 40, (1, 1), 5, 20),     # both lid images in one window
+])
+def test_tblock_sharded_equals_pull_sharded(cuda, nx, ny, mesh_shape, k, n):
+    cfg = SimConfig(nx=nx, ny=ny, reynolds=1000.0, collision="mrt",
+                    mesh_shape=mesh_shape)
+    mesh = _mesh(cuda, mesh_shape)
+    s0 = shard_state(engine.init_state(cfg, device=cuda), mesh)
+    a = unshard_state(tblock_sharded.make_sharded_runner(cfg, n, mesh, k_steps=k)(s0), cuda)
+    b = unshard_state(pull_sharded.make_sharded_runner(cfg, n, mesh)(s0), cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(a.f, b.f) and torch.equal(a.rho_lid, b.rho_lid)
+
+
+@pytest.mark.cuda
+def test_sharded_refusals(cuda):
+    cfg = SimConfig(nx=32, ny=32, mesh_shape=(2, 1))
+    lay = pull_sharded.layout(16, 32)
+    fp = torch.zeros(9, 18, lay.pitch, device=cuda)
+    rho = torch.ones(16, device=cuda)
+    flags = (True, False, True, True)
+    with pytest.raises(ValueError, match="in place"):
+        pull_sharded.shard_step(cfg, lay, fp, rho, flags, None, fp, rho.clone())
+    with pytest.raises(ValueError, match="lies on"):
+        pull_sharded.shard_step(cfg, lay, fp, rho.cpu(), flags, None, fp.clone(),
+                                rho.clone())
+    with pytest.raises(ValueError, match="float32"):
+        pull_sharded.make_sharded_runner(SimConfig(nx=32, ny=32, precision="float64",
+                                                   mesh_shape=(2, 1)), 4, _mesh(cuda, (2, 1)))
+    with pytest.raises(ValueError, match="lies on|expected"):
+        pull_sharded.make_sharded_runner(cfg, 4, _mesh(cuda, (2, 1)))(
+            shard_state(engine.init_state(cfg, device="cpu"), make_mesh((2, 1), ["cpu"] * 2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend, kernel", [("auto", "pull_sharded"),
+                                             ("cuda-sharded-tblock", "tblock_sharded")])
+def test_simulate_on_a_mesh_of_one_card(cuda, tmp_path, backend, kernel):
+    """The driver on a 2x2 mesh of one card launches the routed kernel once
+    per shard per step (per K steps for the temporal-block kernel, with the
+    remainder through the one-step kernel), and follows the single-device
+    kernel's run (atol 1e-7 on the metrics' mean u)."""
+    cfg = SimConfig(nx=128, ny=128, reynolds=400.0, collision="mrt",
+                    max_steps=606, report_interval=202, mesh_shape=(2, 2))
+    blocks, rem = divmod(202, tblock_sharded.K_STEPS)
+    before = (pull_sharded.launches, tblock_sharded.launches)
+    summary = simulate(cfg, SimOptions(out_dir=str(tmp_path / "mesh"), verbose=False,
+                                       backend=backend), device=[cuda] * 4)
+    counts = (pull_sharded.launches - before[0], tblock_sharded.launches - before[1])
+    if kernel == "pull_sharded":
+        assert summary.backend == "cuda-sharded" and counts == (4 * 606, 0)
+    else:
+        assert summary.backend == "cuda-sharded-tblock"
+        assert counts == (4 * 3 * rem, 4 * 3 * blocks)
+    one = simulate(dataclasses.replace(cfg, mesh_shape=(1, 1)),
+                   SimOptions(out_dir=str(tmp_path / "one"), verbose=False), device=cuda)
+    assert summary.steps == one.steps == 606
+    assert summary.r2_ux == pytest.approx(one.r2_ux, abs=1e-6)

@@ -10,6 +10,7 @@ import latticeboltzmannsimulations_torch as lbt
 from latticeboltzmannsimulations_torch import engine as t_eng
 from latticeboltzmannsimulations_torch import sim as t_sim
 from latticeboltzmannsimulations_torch.config import SimConfig as TConfig
+from latticeboltzmannsimulations_torch.parallel import halo
 from latticeboltzmannsimulations_torch.sim import SimOptions as TOptions
 from latticeboltzmannsimulations_torch.sim import _select_backend
 from latticeboltzmannsimulations_torch.sim import run_to_convergence as t_run
@@ -119,7 +120,7 @@ def test_backend_routing(kw, backend, device, expect):
     # The push oracle runs these walls on one device only, as in the JAX driver.
     (dict(boundary="bounce_back", mesh_shape=(2, 1)), "auto", ValueError),
     (dict(boundary="nebb_west_eq", mesh_shape=(1, 2)), "auto", ValueError),
-    (dict(mesh_shape=(2, 2)), "auto", NotImplementedError),
+    (dict(mesh_shape=(2, 2)), "auto", ValueError),   # one device, a 2x2 mesh
 ])
 def test_backend_routing_refuses(kw, backend, exc):
     cfg = TConfig(**{"nx": 16, "ny": 16, **kw})
@@ -217,3 +218,73 @@ def test_simulate_defaults_to_the_card(tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_simulate(TConfig(nx=16, ny=16), TOptions(out_dir=str(tmp_path), verbose=False))
+
+
+@pytest.mark.parametrize("backend", ["auto", "sharded"])
+def test_simulate_on_a_mesh_of_cpu_shards_gives_the_single_device_run(tmp_path, backend):
+    """A (2, 2) mesh of CPU shards routes to the plain sharded engine and
+    reproduces the single-device run: steps, metrics and Ghia scores, with
+    the mass correction applied to every shard.  (float64: the sharded
+    density sums round differently from the global ones in the last bit.)"""
+    kw = dict(nx=32, ny=32, reynolds=100.0, collision="mrt", max_steps=600,
+              report_interval=200, precision="float64")
+    one = t_simulate(TConfig(**kw), TOptions(out_dir=str(tmp_path / "one"), verbose=False),
+                     device="cpu")
+    mesh = t_simulate(TConfig(**kw, mesh_shape=(2, 2)),
+                      TOptions(out_dir=str(tmp_path / "mesh"), verbose=False,
+                               backend=backend),
+                      device=["cpu"] * 4)
+    assert (one.backend, mesh.backend) == ("torch", "sharded")
+    assert (mesh.steps, mesh.converged) == (one.steps, one.converged)
+    for key in ("r2_ux", "r2_uy", "l2_combined"):
+        assert getattr(mesh, key) == pytest.approx(getattr(one, key), abs=1e-12), key
+    a = _records(tmp_path / "one" / "ldc_metrics.jsonl")
+    b = _records(tmp_path / "mesh" / "ldc_metrics.jsonl")
+    assert [r["step"] for r in a] == [r["step"] for r in b]
+    for x, y in zip(a, b):
+        if "mean_u" in x:
+            assert y["mean_u"] == pytest.approx(x["mean_u"], abs=1e-15)
+
+
+def test_run_to_convergence_on_a_mesh_of_cpu_shards_gives_the_single_device_run():
+    kw = dict(nx=24, ny=24, reynolds=100.0, max_steps=90, report_interval=30,
+              precision="float64")
+    one = t_run(TConfig(**kw), device="cpu")
+    seen = []
+    mesh = t_run(TConfig(**kw, mesh_shape=(2, 2)), device=["cpu"] * 4,
+                 callback=lambda step, state, rho, u: seen.append((step, type(state))))
+    assert (mesh.steps, mesh.converged) == (one.steps, one.converged) == (90, False)
+    assert mesh.mean_u_history == pytest.approx(one.mean_u_history, abs=1e-15)
+    # the result holds the global state; the callback saw the sharded one
+    torch.testing.assert_close(mesh.state.f, one.state.f, rtol=0, atol=1e-12)
+    torch.testing.assert_close(mesh.state.rho_lid, one.state.rho_lid, rtol=0, atol=1e-12)
+    assert seen == [(30, halo.ShardedState), (60, halo.ShardedState),
+                    (90, halo.ShardedState)]
+
+
+@pytest.mark.parametrize("device, exc, match", [
+    ("cpu", ValueError, "pass a sequence"),           # one device, a 2x2 mesh
+    (["cpu"] * 3, ValueError, "needs 4 devices, have 3"),
+    (torch.device("cuda", 0), ValueError, "pass a sequence"),
+])
+def test_a_mesh_needs_its_devices(tmp_path, device, exc, match):
+    cfg = TConfig(nx=16, ny=16, max_steps=10, report_interval=10, mesh_shape=(2, 2))
+    with pytest.raises(exc, match=match):
+        t_simulate(cfg, TOptions(out_dir=str(tmp_path), verbose=False), device=device)
+    with pytest.raises(exc, match=match):
+        t_run(cfg, device=device)
+
+
+def test_a_mesh_defaults_to_the_cards(tmp_path):
+    if torch.cuda.device_count() >= 4:
+        pytest.skip("four CUDA devices are present")
+    cfg = TConfig(nx=16, ny=16, max_steps=10, report_interval=10, mesh_shape=(2, 2))
+    with pytest.raises((RuntimeError, ValueError), match="CUDA devices|needs 4 devices"):
+        t_simulate(cfg, TOptions(out_dir=str(tmp_path), verbose=False))
+
+
+def test_a_one_device_sequence_runs_a_single_device_config():
+    cfg = TConfig(nx=16, ny=16, max_steps=20, report_interval=10)
+    a = t_run(cfg, device=["cpu"])
+    b = t_run(cfg, device="cpu")
+    assert torch.equal(a.state.f, b.state.f)
