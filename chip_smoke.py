@@ -32,6 +32,13 @@ Phases, each printed with its wall time:
      4096^2 on 2x2 and 1x4 meshes, which must agree exactly;
      ``tblock_sharded_step`` against ``pull_sharded_step`` over 64 steps at
      4096^2 (to 1e-6);
+   * (a) ``halo_x_exchange`` on a 4096^2 carry set of the tight layout (K=5)
+     on 2x2 and 4x1 meshes of the card, filled from a seeded generator,
+     against the plain x-phase copies on a copy of it: equal
+     (``torch.equal``), and nothing outside the x halos moved; (b) the
+     temporal-block sharded runner with ``halo_impl="rdma"`` against
+     ``"ppermute"`` at 4096^2 MRT Re=5000 on the same meshes, over 64 and
+     67 steps (the latter through the remainder): max |d| = 0;
 4. main paths, each launch counter set to 0 just before a run and read just
    after it:
    * ``simulate`` and ``run_to_convergence`` at 1024^2 MRT float32 (the
@@ -48,6 +55,16 @@ Phases, each printed with its wall time:
      kernel that auto does not take there (``cuda-sharded`` or
      ``cuda-sharded-tblock``), in the order auto, other, other, auto; the
      Re=100 Ghia gate at 128^2 on the 2x2 mesh through ``cuda-sharded``;
+   * the x-ring exchange: the temporal-block sharded runner with
+     ``halo_impl="rdma"`` at 4096^2 on the 2x2 mesh in 500-step calls, and
+     the Re=100 Ghia gate at 128^2 on the 2x2 mesh through it;
+   * (c) the remote form: two processes on the card (a ``gloo`` group on a
+     ``file://`` store), after a probe that CUDA IPC maps memory between
+     them; on a (2, 1) mesh at 1024^2 MRT, the ``"rdma"`` runner (x strips
+     written through IPC into the other process's carries) and the
+     ``"ppermute"`` runner (x strips sent through host-staged ``gloo``),
+     gathered on rank 0, against the one-process mesh over 64 steps: max
+     |d| = 0; and the two-process exchange's time with its host barriers;
 5. timing with CUDA events: the measured device-copy bandwidth; the
    benchmark's 1024^2 MRT cavity through ``pull_step`` (MLUPS); at 1024^2
    and 2048^2, ``pull_step`` beside ``tblock_step`` for K in {4, 5, 8, 16};
@@ -60,7 +77,10 @@ Phases, each printed with its wall time:
    ``pull_sharded_step`` and ``tblock_sharded_step`` (default K) with the
    halo exchange timed apart, and the two sharded runners in turns, which
    with the main path's MLUPS sets where ``auto`` takes the temporal-block
-   one.
+   one; (d) at 4096^2 on the 2x2 mesh, ``halo_x_exchange`` alone, the same
+   strips by ``copy_pairs`` (its plain version and the library time), its
+   bound, and the two temporal-block runners (``"rdma"``, ``"ppermute"``)
+   in turns from the state 7 680 steps on.
 
 The last three lines are ``nvidia-smi``'s line, one JSON object describing
 each kernel, and ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -81,11 +101,15 @@ import time
 
 import torch
 
+import torch.distributed as dist
+from torch.multiprocessing.reductions import rebuild_cuda_tensor, reduce_tensor
+
 import latticeboltzmannsimulations_torch as lbt
 from latticeboltzmannsimulations_torch import engine, sim
 from latticeboltzmannsimulations_torch.config import SimConfig
 from latticeboltzmannsimulations_torch.kernels import (
     _build,
+    halo_rdma,
     pull,
     pull_sharded,
     push,
@@ -97,10 +121,12 @@ from latticeboltzmannsimulations_torch.parallel import (
     make_mesh,
     make_sharded_fused_step,
     make_sharded_scan_runner,
+    multihost,
     shard_state,
     unshard_state,
 )
 from latticeboltzmannsimulations_torch.sim import SimOptions, simulate
+from latticeboltzmannsimulations_torch.validate import compare_to_ghia
 
 ATOL = 2e-5
 TBLOCK_VS_PULL_ATOL = 1e-6
@@ -111,10 +137,13 @@ REPLACES = {
     "push_step": "kernels/pallas_push.py:65 (_make_kernel)",
     "pull_sharded_step": "kernels/pallas_pull_sharded.py:84 (_make_local_kernel)",
     "tblock_sharded_step": "kernels/pallas_pull_tblock_sharded.py:57 (_make_kernel)",
+    "halo_x_exchange": ("kernels/halo_rdma.py:137 (make_x_halo_exchange; "
+                        "_make_local_kernel :57, _make_remote_kernel :85)"),
 }
 SOURCES = {name: f"latticeboltzmannsimulations_torch/csrc/{name}.cu" for name in REPLACES}
 COUNTERS = {"pull_step": pull, "tblock_step": tblock, "push_step": push,
-            "pull_sharded_step": pull_sharded, "tblock_sharded_step": tblock_sharded}
+            "pull_sharded_step": pull_sharded, "tblock_sharded_step": tblock_sharded,
+            "halo_x_exchange": halo_rdma}
 COMPARE_STEPS = 20
 TBLOCK_COMPARE_K = 8
 BENCH_N = 1024
@@ -142,6 +171,16 @@ SHARDED_MESH = (2, 2)
 SHARDED_COMPARE_N = 256
 SHARDED_STEPS = SWEEP_STEPS        # a multiple of the sharded tblock's K
 SHARDED_WARM_STEPS = 4 * SHARDED_STEPS   # steps before the sharded timing
+# The x-ring exchange: the meshes of the card it is checked on, the steps of
+# the runner comparison (the second runs through the remainder), the
+# two-process case, and the launches per timing.
+RDMA_MESHES = (SHARDED_MESH, (4, 1))
+RDMA_COMPARE_STEPS = (64, 67)
+IPC_N = 1024
+IPC_MESH = (2, 1)
+IPC_STEPS = 64
+EXCHANGE_REPS = 200
+IPC_EXCHANGE_REPS = 50
 
 
 @contextlib.contextmanager
@@ -300,6 +339,190 @@ def compare_tblock_sharded_pull(cfg: SimConfig, device, n: int) -> float:
     return check_close(f"tblock_sharded K={tblock_sharded.K_STEPS} vs pull_sharded, "
                        f"{n} steps, mesh {cfg.mesh_shape}", cfg, a.f, b.f,
                        a.rho_lid, b.rho_lid, atol=TBLOCK_VS_PULL_ATOL)
+
+
+def noisy_state(cfg: SimConfig, device, seed: int = 7) -> engine.State:
+    """The start state with seeded noise (1e-3 relative), so that every
+    population of every strip moves."""
+    s = engine.init_state(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    noise = torch.randn(s.f.shape, generator=gen, device=device)
+    return engine.State(s.f * (1.0 + 1e-3 * noise), s.rho_lid)
+
+
+def random_carries(device, shape, lay: halo.Layout, seed: int = 7):
+    """Carries of the tight layout and their lid panels on a mesh ``shape``
+    of this card, filled from a seeded generator."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mx, my = shape
+    width = lay.lx + 2 * lay.depth
+
+    def blocks(*size):
+        return tuple(tuple(torch.rand(size, generator=gen, device=device)
+                           for _ in range(my)) for _ in range(mx))
+
+    return blocks(9, width, lay.pitch), blocks(width)
+
+
+def compare_x_exchange(device, shape, n: int = SHARDED_N) -> float:
+    """(a) The exchange kernel on an n^2 carry set (K=5) against the plain
+    x-phase copies on a copy of it: equal, one launch for the whole mesh of
+    this card, and the cells and y halos untouched."""
+    mx, my = shape
+    k = tblock_sharded.K_STEPS
+    lay = halo.Layout.tight(n // mx, n // my, k)
+    carries, panels = random_carries(device, shape, lay)
+    copies = [tuple(tuple(tuple(b.clone() for b in col) for col in blocks)
+                    for blocks in (carries, panels)) for _ in range(2)]
+    plain, orig = copies
+    exchange = halo_rdma.make_x_halo_exchange(sharded_mesh(device, shape), carries,
+                                              panels, lay)
+    before = halo_rdma.launches
+    exchange()
+    launched = halo_rdma.launches - before
+    halo.copy_pairs(halo.move_pairs(halo_rdma.x_moves(*plain, lay)))
+    torch.cuda.synchronize()
+    err, equal = 0.0, True
+    for ix in range(mx):
+        for iy in range(my):
+            for got, want, was in zip((carries, panels), plain, orig):
+                a, b, c = got[ix][iy], want[ix][iy], was[ix][iy]
+                # the cells and y halos: every x position but the x halos
+                inner = (slice(k, k + lay.lx),) if a.dim() == 1 else (slice(None),
+                                                                       slice(k, k + lay.lx))
+                err = max(err, (a - b).abs().max().item())
+                equal &= torch.equal(a, b) and torch.equal(a[inner], c[inner])
+    print(f"  halo_x_exchange {n}^2 K={k} mesh {shape}: {launched} launch, "
+          f"max|d| vs the plain x-phase copies {err:.3e}, equal and nothing else "
+          f"moved: {equal}", flush=True)
+    if launched != 1:
+        raise AssertionError(f"halo_x_exchange: {launched} launches for one card, not 1")
+    if not equal or err != 0.0:
+        raise AssertionError(f"halo_x_exchange differs from the plain copies on {shape}")
+    return err
+
+
+def compare_rdma_runner(cfg: SimConfig, device, n: int) -> float:
+    """(b) The temporal-block sharded runner with the exchange kernel
+    against the one with strip copies, over n steps from a seeded noisy
+    state: they move the same values, so they must agree exactly."""
+    mesh = sharded_mesh(device, cfg.mesh_shape)
+    s0 = shard_state(noisy_state(cfg, device), mesh)
+    before = halo_rdma.launches
+    a = unshard_state(tblock_sharded.make_sharded_runner(cfg, n, mesh, halo_impl="rdma")(s0),
+                      device)
+    launched = halo_rdma.launches - before
+    b = unshard_state(tblock_sharded.make_sharded_runner(cfg, n, mesh)(s0), device)
+    print(f"  rdma runner: {launched} halo_x_exchange launches in {n} steps", flush=True)
+    if launched != n // tblock_sharded.K_STEPS:
+        raise AssertionError("the rdma runner did not launch the exchange once per block")
+    return check_close(f"tblock_sharded rdma vs ppermute, {n} steps, mesh "
+                       f"{cfg.mesh_shape}", cfg, a.f, b.f, a.rho_lid, b.rho_lid, atol=0.0)
+
+
+def ipc_probe(rank: int, device) -> None:
+    """Does CUDA IPC map memory between the two processes?  Each offers a
+    buffer, opens the other's, reads it and writes into it."""
+    mine = torch.full((1 << 20,), float(rank + 1), device=device)
+    offers = [None, None]
+    dist.all_gather_object(offers, reduce_tensor(mine)[1])
+    theirs = rebuild_cuda_tensor(*offers[1 - rank])
+    seen = theirs.sum().item()
+    theirs[:1] = -1.0
+    torch.cuda.synchronize()
+    dist.barrier()
+    ok = seen == float(2 - rank) * (1 << 20) and mine[0].item() == -1.0
+    del theirs
+    torch.cuda.synchronize()
+    dist.barrier()
+    if not ok:
+        raise AssertionError(f"rank {rank}: CUDA IPC read {seen}, own first value "
+                             f"{mine[0].item()}")
+
+
+def two_process_run(rank: int, out_path: str) -> None:
+    """(c) In each of two processes on the card: the IPC probe; then both
+    temporal-block runners on a (2, 1) mesh spanning the processes at
+    1024^2 MRT, gathered on rank 0 against the same runner on a mesh of one
+    process; then the x phase alone in both forms, with its host ordering.
+    Rank 0 writes what it found to ``out_path``."""
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    ipc_probe(rank, device)
+    cfg = SimConfig(nx=IPC_N, ny=IPC_N, reynolds=5000.0, collision="mrt",
+                    precision="float32", mesh_shape=IPC_MESH).validate()
+    pod = multihost.make_pod_mesh(IPC_MESH, [device])
+    s0 = noisy_state(cfg, device)
+    if rank == 0:
+        one = sharded_mesh(device, IPC_MESH)
+        ref = unshard_state(tblock_sharded.make_sharded_runner(cfg, IPC_STEPS, one)(
+            shard_state(s0, one)), device)
+    found = {"rank_shards": pod.local_shards()}
+    for impl in ("rdma", "ppermute"):
+        before = (halo_rdma.launches, halo.sends, halo.staged)
+        out = unshard_state(tblock_sharded.make_sharded_runner(
+            cfg, IPC_STEPS, pod, halo_impl=impl)(shard_state(s0, pod)), device, pod)
+        counts = [a - b for a, b in zip((halo_rdma.launches, halo.sends, halo.staged),
+                                        before)]
+        found[impl] = {"launches": counts[0], "sends": counts[1], "staged": counts[2]}
+        if rank == 0:
+            found[impl]["max_abs_err"] = max((out.f - ref.f).abs().max().item(),
+                                             (out.rho_lid - ref.rho_lid).abs().max().item())
+    k = tblock_sharded.K_STEPS
+    lay = halo.Layout.tight(IPC_N // IPC_MESH[0], IPC_N // IPC_MESH[1], k)
+    state = shard_state(s0, pod)
+    carries, panels = halo.pad_blocks(state.f, lay), halo.pad_rows(state.rho_lid, k)
+    forms = {"rdma": halo_rdma.make_x_halo_exchange(pod, carries, panels, lay),
+             "ppermute": halo.Transfer(pod, halo_rdma.x_moves(carries, panels, lay))}
+    for name in ("rdma", "ppermute", "ppermute", "rdma"):
+        forms[name]()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(IPC_EXCHANGE_REPS):
+            forms[name]()
+        torch.cuda.synchronize()
+        found.setdefault(f"{name}_exchange_ms", []).append(
+            (time.perf_counter() - t0) * 1e3 / IPC_EXCHANGE_REPS)
+    forms["rdma"].close()
+    if rank == 0:
+        with open(out_path, "w") as fh:
+            json.dump(found, fh)
+
+
+def run_two_processes() -> dict:
+    """Spawn the two processes of (c) and return what rank 0 found."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = f"{tmp}/found.json"
+        multihost.spawn(two_process_run, 2, f"{tmp}/store", args=(out_path,),
+                        backend="gloo", timeout=300)
+        with open(out_path) as fh:
+            return json.load(fh)
+
+
+def time_x_exchange(cfg: SimConfig, device, state, copy_bw: float) -> dict:
+    """(d) Device ms of one exchange on the mesh at K=5 from ``state``'s
+    carries: the kernel's one launch and the same strips by ``copy_pairs``
+    (its plain version, and the library time), in turns; and its bound."""
+    mesh = sharded_mesh(device, cfg.mesh_shape)
+    k = tblock_sharded.K_STEPS
+    lay = halo.Layout.tight(cfg.nx // cfg.mesh_shape[0], cfg.ny // cfg.mesh_shape[1], k)
+    carries, panels = halo.pad_blocks(state.f, lay), halo.pad_rows(state.rho_lid, k)
+    halo.copy_pairs(halo.halo_pairs(carries, lay) + halo.row_halo_pairs(panels, k))
+    pairs = halo.move_pairs(halo_rdma.x_moves(carries, panels, lay))
+    forms = {"kernel": halo_rdma.make_x_halo_exchange(mesh, carries, panels, lay),
+             "copies": lambda: halo.copy_pairs(pairs)}
+    ms = {name: [] for name in forms}
+    for name in ("kernel", "copies", "copies", "kernel"):
+        forms[name]()
+        ms[name].append(cuda_time_ms(forms[name], EXCHANGE_REPS))
+    strip_bytes = 2 * sum(src.numel() * src.element_size() for _, src in pairs)
+    out = dict(ms=sum(ms["kernel"]) / 2, plain_ms=sum(ms["copies"]) / 2,
+               bound_ms=strip_bytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
+               copy_bound_ms=strip_bytes / copy_bw * 1e3, strips=len(pairs),
+               strip_bytes=strip_bytes, turns=ms)
+    out["library_ms"] = out["plain_ms"]
+    return out
 
 
 def sharded_bound(cfg: SimConfig, k_steps: int = 1) -> tuple[float, str]:
@@ -574,6 +797,19 @@ def main() -> None:
                                  device, 64)
         compare_tblock_sharded_pull(sharded_cfg, device, 64)
 
+    with phase("kernel vs plain: x-ring exchange"):
+        # at both shapes the main path gives the kernel: 4096^2 and the
+        # Re=100 Ghia run's 128^2
+        for shape, n in [(s, SHARDED_N) for s in RDMA_MESHES] + [
+                (SHARDED_MESH, sharded_ghia.nx)]:
+            worst["halo_x_exchange"] = max(worst["halo_x_exchange"],
+                                           compare_x_exchange(device, shape, n))
+        for cfg in [dataclasses.replace(sharded_cfg, mesh_shape=s) for s in RDMA_MESHES] + [
+                sharded_ghia]:
+            for n in RDMA_COMPARE_STEPS:
+                worst["halo_x_exchange"] = max(worst["halo_x_exchange"],
+                                               compare_rdma_runner(cfg, device, n))
+
     main_launches = {name: 0 for name in REPLACES}
     with phase("main path: cuda-pull"), tempfile.TemporaryDirectory() as tmp:
         main_cfg = dataclasses.replace(bench_cfg, max_steps=10_000,
@@ -641,6 +877,66 @@ def main() -> None:
         add_counts(main_launches, run_main_path(
             sharded_ghia, mesh_devices, tmp, "cuda-sharded", "cuda-sharded",
             {"r2_ux": (">", 0.99), "l2_combined": ("<", 0.05)}))
+
+    with phase("main path: x-ring exchange"):
+        # The runner with halo_impl="rdma" (simulate does not route to it, as
+        # the JAX package's does not), in simulate's 500-step calls.
+        reset_counters()
+        halo.copies = 0
+        mesh = sharded_mesh(device)
+        interval = sharded_run.report_interval
+        runner = tblock_sharded.make_sharded_runner(sharded_cfg, interval, mesh,
+                                                    halo_impl="rdma")
+        s = shard_state(engine.init_state(sharded_cfg, device), mesh)
+        calls = sharded_run.max_steps // interval
+        for _ in range(calls):
+            s = runner(s)
+        torch.cuda.synchronize()
+        counts = read_counters()
+        shards = SHARDED_MESH[0] * SHARDED_MESH[1]
+        blocks = calls * (interval // tblock_sharded.K_STEPS)
+        want = {name: 0 for name in COUNTERS}
+        want.update(halo_x_exchange=blocks, tblock_sharded_step=shards * blocks)
+        finite = all(bool(torch.isfinite(b).all()) for col in s.f for b in col)
+        print(f"  {SHARDED_N}^2 mesh {SHARDED_MESH} rdma runner, {calls} calls of "
+              f"{interval} steps: launches={counts} halo copies={halo.copies} "
+              f"finite={finite}", flush=True)
+        if counts != want or not finite:
+            raise AssertionError(f"rdma runner: launches {counts}, expected {want}")
+        add_counts(main_launches, counts)
+        # the Re=100 Ghia gate through it, on the 2x2 mesh at 128^2
+        reset_counters()
+        chunk = sharded_ghia.report_interval
+        runner = tblock_sharded.make_sharded_runner(sharded_ghia, chunk, mesh,
+                                                    halo_impl="rdma")
+        s = shard_state(engine.init_state(sharded_ghia, device), mesh)
+        for _ in range(sharded_ghia.max_steps // chunk):
+            s = runner(s)
+        _, u = halo.sharded_observables(sharded_ghia, mesh)(s)
+        ghia = compare_to_ghia(u.cpu().numpy(), sharded_ghia.u_lid, sharded_ghia.reynolds)
+        counts = read_counters()
+        add_counts(main_launches, counts)
+        blocks = sharded_ghia.max_steps // tblock_sharded.K_STEPS   # chunk % K == 0
+        want = {name: 0 for name in COUNTERS}
+        want.update(halo_x_exchange=blocks, tblock_sharded_step=shards * blocks)
+        print(f"  {sharded_ghia.describe()} rdma runner, {sharded_ghia.max_steps} steps: "
+              f"launches={counts} r2_ux={ghia.r2_ux} r2_uy={ghia.r2_uy} "
+              f"l2={ghia.l2_combined}", flush=True)
+        if counts != want:
+            raise AssertionError(f"rdma runner at 128^2: launches {counts}, expected {want}")
+        if not (ghia.r2_ux > 0.99 and ghia.l2_combined < 0.05):
+            raise AssertionError(f"Ghia gate failed through the rdma runner: {ghia}")
+        del s, runner
+
+    with phase("remote form: two processes on the card"):
+        remote = run_two_processes()
+        print(f"  {IPC_N}^2 mesh {IPC_MESH} across two processes, {IPC_STEPS} steps: "
+              f"{json.dumps(remote)}", flush=True)
+        for impl in ("rdma", "ppermute"):
+            if remote[impl]["max_abs_err"] != 0.0:
+                raise AssertionError(f"two processes, {impl}: differs from one process")
+        if remote["rdma"]["launches"] == 0 or remote["ppermute"]["sends"] == 0:
+            raise AssertionError("the two-process runs did not cross processes")
 
     print(f"  launches on the main paths: {main_launches}", flush=True)
     for name, n in main_launches.items():
@@ -822,6 +1118,24 @@ def main() -> None:
               f"tblock/one-step {one / blk:.3f}x; ahead by more than "
               f"{AHEAD_MARGIN - 1:.1%}: {one / blk > AHEAD_MARGIN}; sim.py routes auto "
               f"to it for shards of {sim.SHARDED_TBLOCK_AUTO_MIN_CELLS} cells", flush=True)
+        # (d) the x-ring exchange: the kernel alone against the same strips by
+        # copy_pairs, and the temporal-block runner with each x phase, in
+        # turns, from the same state
+        t = time_x_exchange(sharded_cfg, device, s1, copy_bw)
+        timing["halo_x_exchange"] = t
+        print(f"  {SHARDED_N}^2 mesh {SHARDED_MESH} K={tblock_sharded.K_STEPS} x-ring "
+              f"exchange of {t['strips']} strips, {t['strip_bytes']} B read + written: "
+              f"halo_x_exchange {t['ms']:.5f} ms, copy_pairs {t['plain_ms']:.5f} ms "
+              f"(turns {t['turns']}); bound {t['bound_ms']:.5f} ms at the published "
+              f"rate, {t['copy_bound_ms']:.5f} ms at the measured copy rate", flush=True)
+        runners = {impl: tblock_sharded.make_sharded_runner(
+            sharded_cfg, SHARDED_STEPS, mesh, halo_impl=impl) for impl in ("rdma", "ppermute")}
+        ms = {impl: [] for impl in runners}
+        for impl in ("rdma", "ppermute", "ppermute", "rdma"):
+            ms[impl].append(cuda_time_ms(lambda: runners[impl](s1), 1) / SHARDED_STEPS)
+        print(f"  {SHARDED_N}^2 mesh {SHARDED_MESH} tblock_sharded runner in turns: "
+              f"{ms} ms/step; rdma/ppermute speed "
+              f"{sum(ms['ppermute']) / sum(ms['rdma']):.4f}x", flush=True)
         del s1, runners
 
     print(f"chip_smoke total wall time: {time.perf_counter() - t_start:.1f} s",
@@ -838,7 +1152,7 @@ def main() -> None:
         "plain_ms": timing[name]["plain_ms"],
         "bound_ms": timing[name]["bound_ms"],
         "bound_by": timing[name]["bound_by"],
-        "library_ms": None,
+        "library_ms": timing[name].get("library_ms"),
     } for name in REPLACES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -149,8 +149,15 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         i,                          # k_steps
         p,                          # stream
     ]
+    lib.lbm_halo_x_exchange.argtypes = [
+        p,                          # table of strips (int64, 6 per strip)
+        i, i, ctypes.c_longlong,    # strips, most planes, most floats per plane
+        p,                          # stream
+    ]
+    lib.lbm_enable_peer_access.argtypes = [i, i]   # device, peer
     for fn in (lib.lbm_pull_step, lib.lbm_tblock_step, lib.lbm_push_step,
-               lib.lbm_pull_sharded_step, lib.lbm_tblock_sharded_step):
+               lib.lbm_pull_sharded_step, lib.lbm_tblock_sharded_step,
+               lib.lbm_halo_x_exchange, lib.lbm_enable_peer_access):
         fn.restype = ctypes.c_int
     lib.lbm_error_string.argtypes = [ctypes.c_int]
     lib.lbm_error_string.restype = ctypes.c_char_p

@@ -11,13 +11,17 @@ Each shard carries its block inside a one-cell halo ring, in two buffers
 per shard of the layout ``layout(lx, ly)``: ``(9, lx + 2, pitch)``, the
 cells' rows starting on a 128-byte line (``parallel.halo.Layout.aligned``).
 A step is the two-phase halo exchange (four strip copies per shard,
-``parallel.halo.halo_pairs``) and one launch per shard, which reads one
-buffer and writes the other's cells.  A shard on a CUDA device launches the kernel or raises; a shard
+``parallel.halo.halo_moves``) and one launch per shard, which reads one
+buffer and writes the other's cells.  On a mesh that spans processes
+(``parallel.multihost``) each process runs its own shards, and the strips
+between processes travel over ``torch.distributed``
+(``parallel.halo.Transfer``), one phase at a time.  A shard on a CUDA device launches the kernel or raises; a shard
 on the CPU runs the plain version (what the CPU tests exercise).  There is
 no fallback from one to the other.
 
 ``launches`` counts the kernel's launches in this process; the copies of
-the exchange count in ``parallel.halo.copies``.
+the exchange count in ``parallel.halo.copies``, its strips sent to other
+processes in ``parallel.halo.sends``.
 """
 
 from __future__ import annotations
@@ -140,10 +144,11 @@ def _launch(lib, f_ptr: int, rho_ptr: int, cs2_ptr: int | None, f_out_ptr: int,
 
 def make_sharded_runner(cfg: SimConfig, n_steps: int, mesh: Mesh):
     """``n_steps`` sharded steps per call on a ``ShardedState``: per step the
-    halo exchange, then one launch per shard.  Each call pads its input
-    into fresh buffers, fixes the views of the exchange and the arguments
-    of the launches for both buffers once, and returns new blocks; the input
-    is never written."""
+    halo exchange, then one launch per shard of this process.  Each call
+    pads its input into fresh buffers, fixes the views of the exchange and
+    the arguments of the launches for both buffers once, and returns new
+    blocks; the input is never written.  On a mesh that spans processes
+    every process calls it at once, with its own blocks."""
     _check_cfg(cfg)
     lay = layout(*halo.check_mesh(cfg, mesh))
     cs2 = halo.cs2_blocks(cfg, mesh, torch.float32)
@@ -159,16 +164,18 @@ def make_sharded_runner(cfg: SimConfig, n_steps: int, mesh: Mesh):
         exchange, steps = [], []
         for src in (0, 1):
             dst = 1 - src
-            exchange.append(halo.halo_pairs(carries[src], lay))
+            exchange.append([halo.Transfer(mesh, phase)
+                             for phase in halo.halo_moves(carries[src], lay)])
             steps.append([(mesh.device(ix, iy), _shard_call(
                 cfg, lay, carries[src][ix][iy], rows[src][ix][iy],
                 halo.edge_flags(mesh.shape, ix, iy), None if cs2 is None else cs2[ix][iy],
-                carries[dst][ix][iy], rows[dst][ix][iy])) for ix, iy in mesh.shards()])
+                carries[dst][ix][iy], rows[dst][ix][iy])) for ix, iy in mesh.local_shards()])
         for i in range(n_steps):
-            halo.copy_pairs(exchange[i % 2])
+            for phase in exchange[i % 2]:
+                phase()
             run_calls(steps[i % 2])
         out = n_steps % 2
-        halo.copy_pairs(halo.replicate_pairs(rows[out]))
+        halo.Transfer(mesh, halo.replicate_moves(rows[out]))()
         return halo.ShardedState(halo.unpad_blocks(carries[out], lay), rows[out])
 
     return run

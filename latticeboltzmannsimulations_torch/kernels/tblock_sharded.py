@@ -13,18 +13,25 @@ ring keeps the shard's own cells exact for K steps.
 Each shard carries its block padded with a K-deep halo ring,
 ``(9, lx + 2K, ly + 2K)``, and its lid density as an ``(lx + 2K,)`` panel,
 in two buffers each.  Every K steps the ring is refreshed by the two-phase
-strip copies (``parallel.halo.halo_pairs``), the panel's x halo by the
-same x exchange, and each shard launches the kernel once; then the panel is
-copied from the shard that owns the lid to the rest of its column.  A
-runner's ``n mod K`` remaining steps go through the one-step sharded kernel
-(``kernels/pull_sharded.py``), as the JAX runner's go through its per-step
-sharded kernel.
+exchange (``parallel.halo.halo_moves``), the panel's x halo by the same x
+phase, and each shard launches the kernel once; then the panel is copied
+from the shard that owns the lid to the rest of its column.  The x phase is
+strip copies (``halo_impl="ppermute"``, the JAX runner's default) or the
+x-ring exchange kernel, which writes the strips straight into the
+neighbours' carries (``halo_impl="rdma"``, ``kernels/halo_rdma.py``).  On a
+mesh that spans processes (``parallel.multihost``) each process runs its
+own shards and the strips between processes travel over
+``torch.distributed`` (or, under ``"rdma"``, through carries mapped by CUDA
+IPC).  A runner's ``n mod K`` remaining steps go through the one-step
+sharded kernel (``kernels/pull_sharded.py``), as the JAX runner's go
+through its per-step sharded kernel.
 
 A shard on a CUDA device launches the kernel or raises; on the CPU it runs
 the plain version (what the CPU tests exercise).  There is no fallback from
 one to the other.  ``launches`` counts this kernel's launches (the
 remainder steps count in ``pull_sharded.launches``, the copies in
-``parallel.halo.copies``).
+``parallel.halo.copies``, the exchange kernel's launches in
+``halo_rdma.launches``).
 """
 
 from __future__ import annotations
@@ -36,9 +43,12 @@ import torch
 from ..config import SimConfig
 from ..parallel import halo
 from ..parallel.mesh import Mesh, block_shape
-from . import _build, pull, pull_sharded, tblock
+from . import _build, halo_rdma, pull, pull_sharded, tblock
 
 launches = 0
+
+# The transports of the x phase, with the JAX runner's names.
+HALO_IMPLS = ("ppermute", "rdma")
 
 WINDOW = tblock.WINDOW
 # Steps per launch by default: the single-device kernel's (tblock.K_STEPS).
@@ -160,13 +170,19 @@ def _launch(lib, f_ptr: int, panel_ptr: int, f_out_ptr: int, panel_out_ptr: int,
 
 
 def make_sharded_runner(cfg: SimConfig, n_steps: int, mesh: Mesh,
-                        k_steps: int = K_STEPS):
+                        k_steps: int = K_STEPS, halo_impl: str = "ppermute"):
     """``n_steps`` sharded steps per call on a ``ShardedState``:
-    ``n_steps // k_steps`` blocks of one exchange and one launch per shard,
-    then ``n_steps % k_steps`` steps of the one-step sharded kernel.  Each
-    call pads its input into fresh buffers, fixes the views of the exchange
-    and the arguments of the launches for both buffers once, and returns new
-    blocks; the input is never written."""
+    ``n_steps // k_steps`` blocks of one exchange and one launch per shard
+    of this process, then ``n_steps % k_steps`` steps of the one-step
+    sharded kernel.  ``halo_impl`` is the x phase's transport (one of
+    ``HALO_IMPLS``); the y phase and the lid panel's replication are copies
+    either way, the y phase first.  Each call pads its input into fresh
+    buffers, fixes the exchange and the arguments of the launches for both
+    buffers once, and returns new blocks; the input is never written.  On a
+    mesh that spans processes every process calls it at once, with its own
+    blocks."""
+    if halo_impl not in HALO_IMPLS:
+        raise ValueError(f"unknown halo_impl {halo_impl!r}; one of {HALO_IMPLS}")
     _check_cfg(cfg, k_steps)
     lx, ly = halo.check_mesh(cfg, mesh)
     n_blocks, rem = divmod(n_steps, k_steps)
@@ -181,20 +197,32 @@ def make_sharded_runner(cfg: SimConfig, n_steps: int, mesh: Mesh,
             carries.append(halo.empty_blocks(carries[0]))
             panels = [halo.pad_rows(state.rho_lid, k)]
             panels.append(halo.empty_blocks(panels[0]))
-            exchange, blocks, replicate = [], [], []
-            for src in (0, 1):
-                dst = 1 - src
-                exchange.append(halo.halo_pairs(carries[src], lay)
-                                + halo.row_halo_pairs(panels[src], k))
-                blocks.append([(mesh.device(ix, iy), _block_call(
-                    cfg, carries[src][ix][iy], panels[src][ix][iy], (ix * lx, iy * ly),
-                    carries[dst][ix][iy], panels[dst][ix][iy], k))
-                    for ix, iy in mesh.shards()])
-                replicate.append(halo.replicate_pairs(panels[dst]))
-            for i in range(n_blocks):
-                halo.copy_pairs(exchange[i % 2])
-                pull_sharded.run_calls(blocks[i % 2])
-                halo.copy_pairs(replicate[i % 2])
+            exchange, blocks, replicate, kernels = [], [], [], []
+            try:
+                for src in (0, 1):
+                    dst = 1 - src
+                    y_phase, x_phase = halo.halo_moves(carries[src], lay)
+                    if halo_impl == "rdma":
+                        kernels.append(halo_rdma.make_x_halo_exchange(
+                            mesh, carries[src], panels[src], lay))
+                        x_exchange = kernels[-1]
+                    else:
+                        x_exchange = halo.Transfer(
+                            mesh, x_phase + halo.row_halo_moves(panels[src], k))
+                    exchange.append([halo.Transfer(mesh, y_phase), x_exchange])
+                    blocks.append([(mesh.device(ix, iy), _block_call(
+                        cfg, carries[src][ix][iy], panels[src][ix][iy], (ix * lx, iy * ly),
+                        carries[dst][ix][iy], panels[dst][ix][iy], k))
+                        for ix, iy in mesh.local_shards()])
+                    replicate.append(halo.Transfer(mesh, halo.replicate_moves(panels[dst])))
+                for i in range(n_blocks):
+                    for phase in exchange[i % 2]:   # y, then x
+                        phase()
+                    pull_sharded.run_calls(blocks[i % 2])
+                    replicate[i % 2]()
+            finally:
+                for kernel in kernels:
+                    kernel.close()
             out = n_blocks % 2
             state = halo.ShardedState(halo.unpad_blocks(carries[out], lay),
                                       halo.unpad_rows(panels[out], k))

@@ -1,8 +1,9 @@
 """Spatial domain decomposition of the lattice over a 2-D mesh of devices,
-driven from one process, with an explicit one-cell halo exchange (the JAX
-package's ``parallel/``; its multi-process ``multihost`` is not ported
-yet)."""
+with an explicit halo exchange (the JAX package's ``parallel/``).  A mesh is
+driven from one process, or spans the processes of a group
+(``multihost``)."""
 
+from . import multihost
 from .mesh import Mesh, make_mesh, shard_lattice, shard_rows, unshard_lattice
 from .halo import (
     ShardedState,
@@ -26,6 +27,7 @@ __all__ = [
     "init_sharded_state",
     "make_sharded_fused_step",
     "make_sharded_scan_runner",
+    "multihost",
     "sharded_observables",
     "shard_state",
     "unshard_state",

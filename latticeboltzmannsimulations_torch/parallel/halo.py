@@ -18,7 +18,10 @@ engine's wrap (``torch.roll``) exactly; the wrap value is visible in the
 trajectory at the lid corners, so the corners depend on it.  A one-shard
 axis copies onto itself.  JAX's ``ppermute`` becomes tensor copies between
 the shards' blocks, which are peer copies when the shards sit on different
-cards; ``copies`` counts every copy the sharded runners make.
+cards; ``copies`` counts every copy the sharded runners make.  On a mesh
+that spans processes a strip whose two ends lie in different processes is
+sent and received over ``torch.distributed`` instead (``Transfer``), one
+phase at a time; ``sends`` and ``staged`` count those strips.
 
 This module is also the plain version of the sharded CUDA kernels:
 ``local_step`` on a one-cell padded block for ``kernels/pull_sharded.py``,
@@ -32,6 +35,7 @@ import dataclasses
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .. import lattice
 from ..config import SimConfig
@@ -42,6 +46,7 @@ from .mesh import (
     Blocks,
     Mesh,
     block_shape,
+    local_blocks,
     shard_lattice,
     shard_rows,
     unshard_lattice,
@@ -51,9 +56,13 @@ from .mesh import (
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
 # Tensor copies made by the halo exchanges and the sharded runners in this
-# process (strips, lid-density replication, and the padding of a runner's
-# input and output).
+# process (strips whose two ends it holds, lid-density replication, and the
+# padding of a runner's input and output).
 copies = 0
+# Strips this process sent to another process, and strips it copied into or
+# out of the contiguous buffers of those sends and receives.
+sends = 0
+staged = 0
 
 
 class ShardedState(NamedTuple):
@@ -66,8 +75,7 @@ class ShardedState(NamedTuple):
 
     def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "ShardedState":
         """``fn`` applied to every block."""
-        return ShardedState(*(tuple(tuple(fn(b) for b in col) for col in blocks)
-                              for blocks in self))
+        return ShardedState(*(_map_blocks(fn, blocks) for blocks in self))
 
 
 class WallMasks(NamedTuple):
@@ -127,52 +135,99 @@ class Layout:
         return carry[:, :, self.y0 - d:self.y0 + self.ly + d]
 
 
-def halo_pairs(carries: Blocks, layout: Layout) -> List[Pair]:
-    """The (destination, source) views of the two-phase exchange that fills
-    the halo ring of every shard's carry, in the order they must be copied:
-    y rows first (the top halo is the ``my``-predecessor's last rows), then
-    x columns of the y-padded carries, corners included.  Needs
-    ``lx, ly >= depth``."""
+ALL = slice(None)
+
+
+class Strip(NamedTuple):
+    """A view of one shard's tensor: ``blocks[ix][iy][index]``."""
+
+    blocks: Blocks
+    shard: Tuple[int, int]
+    index: Tuple[slice, ...]
+
+    def view(self) -> torch.Tensor:
+        ix, iy = self.shard
+        return self.blocks[ix][iy][self.index]
+
+
+# (destination, source): the source's values go into the destination.
+Move = Tuple[Strip, Strip]
+
+
+def halo_moves(carries: Blocks, layout: Layout) -> Tuple[List[Move], List[Move]]:
+    """The two phases of the exchange that fills the halo ring of every
+    shard's carry: the y phase (the top halo is the ``my``-predecessor's
+    last rows) and the x phase (columns of the y-padded carries, corners
+    included), which must run after it.  Needs ``lx, ly >= depth``."""
     mx, my = len(carries), len(carries[0])
     d, lx, ly, y0 = layout.depth, layout.lx, layout.ly, layout.y0
     ring = slice(y0 - d, y0 + ly + d)
-    pairs = []
+    cols = slice(d, d + lx)
+    y_phase, x_phase = [], []
     for ix in range(mx):
         for iy in range(my):
-            c = carries[ix][iy]
-            up, down = carries[ix][(iy - 1) % my], carries[ix][(iy + 1) % my]
-            pairs.append((c[:, d:d + lx, y0 - d:y0], up[:, d:d + lx, y0 + ly - d:y0 + ly]))
-            pairs.append((c[:, d:d + lx, y0 + ly:y0 + ly + d], down[:, d:d + lx, y0:y0 + d]))
+            up, down = (ix, (iy - 1) % my), (ix, (iy + 1) % my)
+            y_phase.append((Strip(carries, (ix, iy), (ALL, cols, slice(y0 - d, y0))),
+                            Strip(carries, up, (ALL, cols, slice(y0 + ly - d, y0 + ly)))))
+            y_phase.append((Strip(carries, (ix, iy), (ALL, cols, slice(y0 + ly, y0 + ly + d))),
+                            Strip(carries, down, (ALL, cols, slice(y0, y0 + d)))))
     for ix in range(mx):
         for iy in range(my):
-            c = carries[ix][iy]
-            left, right = carries[(ix - 1) % mx][iy], carries[(ix + 1) % mx][iy]
-            pairs.append((c[:, :d, ring], left[:, lx:lx + d, ring]))
-            pairs.append((c[:, d + lx:, ring], right[:, d:2 * d, ring]))
-    return pairs
+            left, right = ((ix - 1) % mx, iy), ((ix + 1) % mx, iy)
+            x_phase.append((Strip(carries, (ix, iy), (ALL, slice(0, d), ring)),
+                            Strip(carries, left, (ALL, slice(lx, lx + d), ring))))
+            x_phase.append((Strip(carries, (ix, iy), (ALL, slice(d + lx, lx + 2 * d), ring)),
+                            Strip(carries, right, (ALL, slice(d, 2 * d), ring))))
+    return y_phase, x_phase
+
+
+def row_halo_moves(panels: Blocks, depth: int) -> List[Move]:
+    """The moves that fill the x halo of every shard's ``(lx + 2*depth,)``
+    lid-density panel from its x neighbours (the x phase of
+    ``halo_moves``)."""
+    mx, my = len(panels), len(panels[0])
+    d = depth
+    lx = next(p for column in panels for p in column if p is not None).shape[0] - 2 * d
+    moves = []
+    for ix in range(mx):
+        for iy in range(my):
+            moves.append((Strip(panels, (ix, iy), (slice(0, d),)),
+                          Strip(panels, ((ix - 1) % mx, iy), (slice(lx, lx + d),))))
+            moves.append((Strip(panels, (ix, iy), (slice(d + lx, lx + 2 * d),)),
+                          Strip(panels, ((ix + 1) % mx, iy), (slice(d, 2 * d),))))
+    return moves
+
+
+def replicate_moves(rows: Blocks) -> List[Move]:
+    """The moves of each ``iy = 0`` shard's row over the others of its
+    column: the lid density is owned by the top shards (the JAX package's
+    ``psum`` over ``my``)."""
+    return [(Strip(rows, (ix, iy), (ALL,)), Strip(rows, (ix, 0), (ALL,)))
+            for ix in range(len(rows)) for iy in range(1, len(rows[0]))]
+
+
+def move_pairs(moves: List[Move]) -> List[Pair]:
+    """The (destination, source) views of moves whose ends this process
+    holds."""
+    return [(dst.view(), src.view()) for dst, src in moves]
+
+
+def halo_pairs(carries: Blocks, layout: Layout) -> List[Pair]:
+    """The (destination, source) views of ``halo_moves`` on a mesh of one
+    process, in the order they must be copied: the y phase, then the x
+    phase."""
+    y_phase, x_phase = halo_moves(carries, layout)
+    return move_pairs(y_phase + x_phase)
 
 
 def row_halo_pairs(panels: Blocks, depth: int) -> List[Pair]:
-    """The copies that fill the x halo of every shard's ``(lx + 2*depth,)``
-    lid-density panel from its x neighbours (the x phase of
-    ``halo_pairs``)."""
-    mx, my = len(panels), len(panels[0])
-    d = depth
-    lx = panels[0][0].shape[0] - 2 * d
-    pairs = []
-    for ix in range(mx):
-        for iy in range(my):
-            p = panels[ix][iy]
-            pairs.append((p[:d], panels[(ix - 1) % mx][iy][lx:lx + d]))
-            pairs.append((p[d + lx:], panels[(ix + 1) % mx][iy][d:2 * d]))
-    return pairs
+    """The (destination, source) views of ``row_halo_moves``."""
+    return move_pairs(row_halo_moves(panels, depth))
 
 
 def replicate_pairs(rows: Blocks) -> List[Pair]:
-    """The copies of each ``iy = 0`` shard's row over the others of its
-    column: the lid density is owned by the top shards (the JAX package's
-    ``psum`` over ``my``)."""
-    return [(row, column[0]) for column in rows for row in column[1:]]
+    """The (destination, source) views of ``replicate_moves``."""
+    return move_pairs(replicate_moves(rows))
 
 
 def copy_pairs(pairs: List[Pair]) -> None:
@@ -181,8 +236,62 @@ def copy_pairs(pairs: List[Pair]) -> None:
         _copy(dst, src)
 
 
+class Transfer:
+    """One phase of an exchange as this process runs it.  A move whose two
+    ends this process holds is a tensor copy (``copy_pairs``, in order);
+    the others are sends to and receives from the processes that hold the
+    other end, one batch of ``torch.distributed`` point-to-point operations.
+    The strips are views with gaps, so each goes through a contiguous
+    buffer, in host memory under ``gloo`` (which cannot send card memory:
+    the strips cross, the compute stays on the card).  Every process of a
+    mesh builds the same moves, so a send and its receive pair up by the
+    move's index as their tag.  The views and buffers are fixed here, once;
+    each call runs the phase and returns when it has landed."""
+
+    def __init__(self, mesh: Mesh, moves: List[Move]):
+        self.copies: List[Pair] = []
+        self.sends, self.recvs = [], []
+        for tag, (dst, src) in enumerate(moves):
+            if mesh.is_local(*dst.shard) and mesh.is_local(*src.shard):
+                self.copies.append((dst.view(), src.view()))
+            elif mesh.is_local(*src.shard):
+                view = src.view()
+                self.sends.append((view, _buffer(view), mesh.owner(*dst.shard), tag))
+            elif mesh.is_local(*dst.shard):
+                view = dst.view()
+                self.recvs.append((view, _buffer(view), mesh.owner(*src.shard), tag))
+
+    def __call__(self) -> None:
+        global sends, staged
+        copy_pairs(self.copies)
+        if not (self.sends or self.recvs):
+            return
+        ops = []
+        for view, buf, peer, tag in self.sends:
+            buf.copy_(view)
+            ops.append(dist.P2POp(dist.isend, buf, peer, tag=tag))
+        ops += [dist.P2POp(dist.irecv, buf, peer, tag=tag)
+                for _, buf, peer, tag in self.recvs]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        for view, buf, _, _ in self.recvs:
+            view.copy_(buf)
+        sends += len(self.sends)
+        staged += len(self.sends) + len(self.recvs)
+
+
+def _buffer(view: torch.Tensor) -> torch.Tensor:
+    """A contiguous buffer for a strip that crosses processes: in host
+    memory for a card's strip under ``gloo``, else on the strip's device."""
+    host = view.is_cuda and dist.get_backend() == "gloo"
+    return torch.empty(view.shape, dtype=view.dtype,
+                       device="cpu" if host else view.device)
+
+
 def _map_blocks(fn, blocks: Blocks) -> Blocks:
-    return tuple(tuple(fn(b) for b in column) for column in blocks)
+    """``fn`` of each block this process holds, None for the others."""
+    return tuple(tuple(None if b is None else fn(b) for b in column)
+                 for column in blocks)
 
 
 def empty_blocks(blocks: Blocks) -> Blocks:
@@ -347,12 +456,9 @@ def cs2_blocks(cfg: SimConfig, mesh: Mesh, dtype: torch.dtype) -> Optional[Block
     if not (cfg.turbulence == "smagorinsky" and cfg.van_driest):
         return None
     lx, ly = block_shape(cfg.nx, cfg.ny, cfg.mesh_shape)
-    return tuple(
-        tuple(van_driest_cs2_block(cfg.nx, cfg.ny, ix * lx, iy * ly, lx, ly,
-                                   cfg.u_lid / cfg.nu, dtype=dtype,
-                                   device=mesh.device(ix, iy))
-              for iy in range(mesh.shape[1]))
-        for ix in range(mesh.shape[0]))
+    return local_blocks(mesh, lambda ix, iy: van_driest_cs2_block(
+        cfg.nx, cfg.ny, ix * lx, iy * ly, lx, ly, cfg.u_lid / cfg.nu, dtype=dtype,
+        device=mesh.device(ix, iy)))
 
 
 def check_mesh(cfg: SimConfig, mesh: Mesh) -> Tuple[int, int]:
@@ -364,10 +470,18 @@ def check_mesh(cfg: SimConfig, mesh: Mesh) -> Tuple[int, int]:
     return block_shape(cfg.nx, cfg.ny, mesh.shape)
 
 
+def check_single_process(mesh: Mesh, what: str) -> None:
+    """Raise if ``mesh`` spans processes: ``what`` runs in one."""
+    if mesh.spans_processes:
+        raise ValueError(f"{what} runs on a mesh of one process; across processes "
+                         "use kernels.pull_sharded or kernels.tblock_sharded")
+
+
 def check_sharded_state(cfg: SimConfig, state: ShardedState, mesh: Mesh) -> None:
-    """Every block has its shard's shape, dtype and device."""
+    """Every block of this process has its shard's shape, dtype and
+    device."""
     lx, ly = block_shape(cfg.nx, cfg.ny, mesh.shape)
-    for ix, iy in mesh.shards():
+    for ix, iy in mesh.local_shards():
         dev = mesh.device(ix, iy)
         for name, t, shape in (("f", state.f[ix][iy], (9, lx, ly)),
                                ("rho_lid", state.rho_lid[ix][iy], (lx,))):
@@ -379,6 +493,7 @@ def check_sharded_state(cfg: SimConfig, state: ShardedState, mesh: Mesh) -> None
 
 def _sharded_step(cfg: SimConfig, mesh: Mesh):
     lx, ly = check_mesh(cfg, mesh)
+    check_single_process(mesh, "the plain sharded engine")
     cs2 = cs2_blocks(cfg, mesh, cfg.dtype)
 
     def step(state: ShardedState) -> ShardedState:
@@ -426,6 +541,7 @@ def sharded_observables(cfg: SimConfig, mesh: Mesh):
     boundary-corrected pre-collision ``(rho (X, Y), u (2, X, Y))``, gathered
     onto the mesh's first device."""
     check_mesh(cfg, mesh)
+    check_single_process(mesh, "the sharded observables")
 
     def obs(state: ShardedState):
         check_sharded_state(cfg, state, mesh)
@@ -454,10 +570,14 @@ def shard_state(state: State, mesh: Mesh) -> ShardedState:
                         rho_lid=shard_rows(state.rho_lid, mesh))
 
 
-def unshard_state(state: ShardedState, device: torch.device) -> State:
-    """The reverse of ``shard_state``: the global ``State`` on ``device``."""
-    return State(f=unshard_lattice(state.f, device),
-                 rho_lid=unshard_rows(state.rho_lid, device))
+def unshard_state(state: ShardedState, device: torch.device,
+                  mesh: Optional[Mesh] = None) -> Optional[State]:
+    """The reverse of ``shard_state``: the global ``State`` on ``device``
+    (on a ``mesh`` that spans processes: gathered on rank 0, None on the
+    others)."""
+    f = unshard_lattice(state.f, device, mesh)
+    rho_lid = unshard_rows(state.rho_lid, device, mesh)
+    return None if f is None else State(f=f, rho_lid=rho_lid)
 
 
 def init_sharded_state(cfg: SimConfig, mesh: Mesh) -> ShardedState:

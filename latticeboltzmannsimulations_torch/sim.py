@@ -34,8 +34,12 @@ backends asked for) the lattice is split over the mesh's devices
 
 ``device`` is one device, or with a mesh a sequence of ``mx * my`` devices
 (which may repeat one); the default ``"cuda"`` with a mesh takes the first
-``mx * my`` cards and raises with fewer.  The walls other than NEBB and the
-single-device backends refuse a mesh.
+``mx * my`` cards and raises with fewer.  A run is one process: inside a
+``torch.distributed`` group of several (``parallel.multihost``) it is
+refused, as the JAX package's ``simulate`` has no multi-process path; drive
+a mesh that spans processes with ``kernels.pull_sharded`` or
+``kernels.tblock_sharded`` (ROADMAP.md queue 1 item 1).  The walls other
+than NEBB and the single-device backends refuse a mesh.
 
 An explicit kernel backend that cannot serve a configuration, or that is
 asked for off the card, raises rather than run something else under its
@@ -55,6 +59,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import engine
 from .config import SimConfig, resolve_device
@@ -159,7 +164,12 @@ Placement = Union[torch.device, Mesh]
 def _placement(cfg: SimConfig, device) -> Placement:
     """Where a run goes: one resolved device, or with a mesh the ``Mesh`` of
     its devices (the default ``"cuda"`` takes the first ``mx * my``
-    cards)."""
+    cards).  Refused in a process group of several processes."""
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        raise ValueError(
+            "simulate runs in one process; a mesh that spans the processes of a "
+            "group runs through kernels.pull_sharded or kernels.tblock_sharded "
+            "(ROADMAP.md queue 1 item 1)")
     if isinstance(device, (str, torch.device)):
         if tuple(cfg.mesh_shape) == (1, 1):
             return resolve_device(device)

@@ -11,7 +11,9 @@ are read as they are, and a copy is rewritten for the host:
 * every ``kThreads`` is set to 1, so a block is one thread, which runs the
   block's loops serially: a valid schedule for these kernels' barriers;
 * every launch ``kernel<<<grid, block, smem, stream>>>(args)`` becomes a
-  loop over the grid's blocks; dynamic shared memory is a host buffer.
+  loop over the grid's blocks; dynamic shared memory is a host buffer;
+* ``float4`` is a 16-byte struct, and the runtime calls that enable peer
+  access do nothing.
 
 The library is called through ``ctypes`` by each wrapper's own ``_launch``,
 on CPU tensors.  It holds every kernel to its plain version at atol 2e-5
@@ -19,7 +21,9 @@ over 20 float32 steps (an independent float32 implementation), and holds
 these bit for bit on ragged shapes: ``tblock_step`` against ``pull_step``,
 the sharded one-step kernel on a mesh against ``pull_step`` on the global
 grid, and the sharded temporal-block kernel against the sharded one-step
-kernel.  A serial run cannot show a race; the card tests
+kernel; and the x-ring exchange kernel against the plain x-phase copies
+byte for byte, on ragged shapes, ``mx == 1`` (the ring copies onto itself)
+included, and on runs of every alignment.  A serial run cannot show a race; the card tests
 (``test_torch_cuda.py``) and ``chip_smoke.py`` stay for that.  Skips without
 ``g++``.
 """
@@ -37,6 +41,7 @@ from latticeboltzmannsimulations_torch.config import SimConfig
 from latticeboltzmannsimulations_torch.kernels import (
     _build,
     pull,
+    halo_rdma,
     pull_sharded,
     push,
     tblock,
@@ -70,8 +75,13 @@ struct dim3 {
 inline dim3 threadIdx(0, 0, 0), blockIdx(0, 0, 0), blockDim, gridDim;
 inline void __syncthreads() {}
 typedef void* cudaStream_t;
+struct alignas(16) float4 { float x, y, z, w; };
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1,
-                   cudaErrorInvalidConfiguration = 9 };
+                   cudaErrorInvalidConfiguration = 9,
+                   cudaErrorPeerAccessAlreadyEnabled = 704 };
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
+inline cudaError_t cudaDeviceEnablePeerAccess(int, unsigned) { return cudaSuccess; }
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class T>
 inline cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int) { return cudaSuccess; }
@@ -338,3 +348,55 @@ def test_tblock_sharded_equals_pull_sharded(lib, nx, ny, mesh_shape, k):
     s0 = halo.shard_state(_start(cfg), mesh)
     _equal(_global(_tblock_sharded_steps(lib, cfg, mesh, s0, 2, k)),
            _global(_pull_sharded_steps(lib, cfg, mesh, s0, 2 * k)))
+
+
+def _x_exchange(lib, pairs):
+    """One launch of the emulated exchange kernel on (destination, source)
+    views, through the wrapper's table rows and ``_launch``."""
+    rows = halo_rdma.strip_rows(pairs)
+    halo_rdma._launch(lib, torch.tensor(rows, dtype=torch.int64), rows, None)
+
+
+@pytest.mark.parametrize("mesh_shape, lx, ly, k", [
+    ((1, 1), 7, 5, 3),       # the ring copies onto itself
+    ((1, 2), 9, 6, 5),
+    ((2, 1), 13, 11, 5),
+    ((3, 2), 10, 7, 4),
+    ((4, 1), 33, 70, 5),     # runs long enough for several float4 per thread
+])
+def test_x_exchange_equals_plain_copies(lib, mesh_shape, lx, ly, k):
+    gen = torch.Generator().manual_seed(1)
+    lay = halo.Layout.tight(lx, ly, k)
+    mx, my = mesh_shape
+
+    def blocks(shape):
+        return tuple(tuple(torch.randn(shape, generator=gen) for _ in range(my))
+                     for _ in range(mx))
+
+    carries, panels = blocks((9, lx + 2 * k, ly + 2 * k)), blocks((lx + 2 * k,))
+    plain = [tuple(tuple(b.clone() for b in col) for col in bl) for bl in (carries, panels)]
+    halo.copy_pairs(halo.halo_pairs(plain[0], lay)[2 * mx * my:]
+                    + halo.row_halo_pairs(plain[1], k))
+    _x_exchange(lib, halo.halo_pairs(carries, lay)[2 * mx * my:]
+                + halo.row_halo_pairs(panels, k))
+    for got, want in zip((carries, panels), plain):
+        for ix, iy in ((ix, iy) for ix in range(mx) for iy in range(my)):
+            assert torch.equal(got[ix][iy].view(torch.int32), want[ix][iy].view(torch.int32))
+
+
+def test_x_exchange_runs_of_every_alignment(lib):
+    """Runs of 1 to 13 floats from and to every 4-byte phase of a 16-byte
+    line, in one launch: the float4 body, its scalar head and tail, and the
+    scalar path where the phases differ."""
+    src = torch.arange(8192, dtype=torch.float32)
+    dst = torch.full((8192,), -1.0)
+    want = dst.clone()
+    pairs, at = [], 0
+    for a in range(4):
+        for b in range(4):
+            for n in range(1, 14):
+                pairs.append((dst[at + b:at + b + n], src[at + a:at + a + n]))
+                want[at + b:at + b + n] = src[at + a:at + a + n]
+                at += 32
+    _x_exchange(lib, pairs)
+    assert torch.equal(dst, want)

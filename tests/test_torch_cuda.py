@@ -17,6 +17,7 @@ import latticeboltzmannsimulations_torch as lbt
 from latticeboltzmannsimulations_torch import engine
 from latticeboltzmannsimulations_torch.config import SimConfig
 from latticeboltzmannsimulations_torch.kernels import (
+    halo_rdma,
     pull,
     pull_sharded,
     push,
@@ -24,8 +25,10 @@ from latticeboltzmannsimulations_torch.kernels import (
     tblock_sharded,
 )
 from latticeboltzmannsimulations_torch.parallel import (
+    halo,
     make_mesh,
     make_sharded_scan_runner,
+    multihost,
     shard_state,
     unshard_state,
 )
@@ -391,3 +394,129 @@ def test_simulate_on_a_mesh_of_one_card(cuda, tmp_path, backend, kernel):
                    SimOptions(out_dir=str(tmp_path / "one"), verbose=False), device=cuda)
     assert summary.steps == one.steps == 606
     assert summary.r2_ux == pytest.approx(one.r2_ux, abs=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape, nx, ny, k", [
+    ((2, 2), 130, 98, 5),
+    ((4, 1), 200, 150, 5),
+    ((1, 1), 48, 40, 5),     # the ring copies onto itself
+    ((3, 2), 66, 46, 4),
+])
+def test_x_exchange_equals_plain_copies(cuda, mesh_shape, nx, ny, k):
+    """The exchange kernel on random carries of the tight layout: one
+    launch for the mesh of this card, equal to the plain x-phase copies
+    bit for bit, the rest of every carry untouched."""
+    mx, my = mesh_shape
+    lx, ly = nx // mx, ny // my
+    lay = halo.Layout.tight(lx, ly, k)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+
+    def blocks(*size):
+        return tuple(tuple(torch.rand(size, generator=gen, device=cuda) for _ in range(my))
+                     for _ in range(mx))
+
+    carries, panels = blocks(9, lx + 2 * k, ly + 2 * k), blocks(lx + 2 * k)
+    plain = [tuple(tuple(b.clone() for b in col) for col in bl) for bl in (carries, panels)]
+    mesh = _mesh(cuda, mesh_shape)
+    before = halo_rdma.launches
+    halo_rdma.make_x_halo_exchange(mesh, carries, panels, lay)()
+    assert halo_rdma.launches - before == 1
+    halo.Transfer(mesh, halo.halo_moves(plain[0], lay)[1]
+                  + halo.row_halo_moves(plain[1], k))()
+    torch.cuda.synchronize()
+    for got, want in zip((carries, panels), plain):
+        for ix, iy in mesh.shards():
+            assert torch.equal(got[ix][iy], want[ix][iy])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 1), (1, 1)])
+@pytest.mark.parametrize("n", [20, 23])
+def test_rdma_runner_equals_ppermute(cuda, mesh_shape, n):
+    """``halo_impl="rdma"`` against ``"ppermute"``: the same values move,
+    so the runners agree bit for bit, through the remainder too; one
+    exchange launch per block."""
+    cfg = SimConfig(nx=200, ny=160, reynolds=1000.0, collision="mrt",
+                    mesh_shape=mesh_shape)
+    mesh = _mesh(cuda, mesh_shape)
+    s0 = shard_state(engine.init_state(cfg, device=cuda), mesh)
+    before = halo_rdma.launches
+    a = unshard_state(tblock_sharded.make_sharded_runner(cfg, n, mesh, halo_impl="rdma")(s0),
+                      cuda)
+    assert halo_rdma.launches - before == n // tblock_sharded.K_STEPS
+    b = unshard_state(tblock_sharded.make_sharded_runner(cfg, n, mesh)(s0), cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(a.f, b.f) and torch.equal(a.rho_lid, b.rho_lid)
+
+
+@pytest.mark.cuda
+def test_x_exchange_refuses_what_it_cannot_copy(cuda):
+    mesh = _mesh(cuda, (2, 1))
+    lay = halo.Layout.aligned(16, 32, 5)
+    carries = tuple((lay.new(torch.empty(9, 16, 32, device=cuda)),) for _ in range(2))
+    panels = tuple((torch.zeros(26, device=cuda),) for _ in range(2))
+    with pytest.raises(ValueError, match="one contiguous run per plane"):
+        halo_rdma.make_x_halo_exchange(mesh, carries, panels, lay)
+
+
+# Meshes that span cards (skipped with fewer cards): the exchange kernel's
+# peer writes with their event ordering, and ranks of a process group.
+
+def _needs_cards(n):
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} cards")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 1), (2, 1)])
+def test_rdma_across_the_cards_of_one_process(cuda, mesh_shape):
+    """A shard per card: one exchange launch per card, each writing into
+    its neighbours' carries on the peer cards; the runner equals the
+    ``"ppermute"`` runner and the same mesh on one card bit for bit over 23
+    steps."""
+    n_cards = mesh_shape[0] * mesh_shape[1]
+    _needs_cards(n_cards)
+    cfg = SimConfig(nx=200, ny=160, reynolds=1000.0, collision="mrt",
+                    mesh_shape=mesh_shape)
+    s0 = engine.init_state(cfg, device=cuda)
+    outs = []
+    for mesh, impl in ((make_mesh(mesh_shape), "rdma"), (make_mesh(mesh_shape), "ppermute"),
+                       (_mesh(cuda, mesh_shape), "ppermute")):
+        before = halo_rdma.launches
+        outs.append(unshard_state(tblock_sharded.make_sharded_runner(
+            cfg, 23, mesh, halo_impl=impl)(shard_state(s0, mesh)), cuda))
+        assert halo_rdma.launches - before == (4 * n_cards if impl == "rdma" else 0)
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        assert torch.equal(outs[0].f, out.f) and torch.equal(outs[0].rho_lid, out.rho_lid)
+
+
+def _ranks_on_cards(rank, shape):
+    """In each process of a group with one card per rank: the sharded
+    runners on a mesh that spans the processes, gathered on rank 0, equal
+    the same runners on a mesh of rank 0's card."""
+    device = torch.device("cuda", rank)
+    torch.cuda.set_device(device)
+    cfg = SimConfig(nx=200, ny=160, reynolds=1000.0, collision="mrt", mesh_shape=shape)
+    pod = multihost.make_pod_mesh(shape, [device])
+    s0 = engine.init_state(cfg, device=device)
+    one = _mesh(device, shape)
+    for make in (lambda m: pull_sharded.make_sharded_runner(cfg, 7, m),
+                 lambda m: tblock_sharded.make_sharded_runner(cfg, 23, m),
+                 lambda m: tblock_sharded.make_sharded_runner(cfg, 23, m, halo_impl="rdma")):
+        out = unshard_state(make(pod)(shard_state(s0, pod)), device, pod)
+        if rank == 0:
+            ref = unshard_state(make(one)(shard_state(s0, one)), device)
+            assert torch.equal(out.f, ref.f) and torch.equal(out.rho_lid, ref.rho_lid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_processes_one_per_card(cuda, tmp_path, backend):
+    """Four processes, one card each, a 2x2 mesh: strips between processes
+    over NCCL (or host-staged gloo), and under ``"rdma"`` written through
+    CUDA IPC into carries on the other cards."""
+    _needs_cards(4)
+    multihost.spawn(_ranks_on_cards, 4, str(tmp_path / "store"), args=((2, 2),),
+                    backend=backend, timeout=300)
