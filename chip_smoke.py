@@ -8,8 +8,12 @@ Phases, each printed with its wall time:
 
 1. device: the card's name and ``nvidia-smi``'s name and power limit;
 2. build: ``nvcc`` builds every ``csrc/*.cu`` into one library (one process
-   per source, all started together), or finds it built;
-3. kernel vs plain, each from the same start state on the card, to
+   per source, all started together), or finds it built, and prints each
+   kernel's registers and spills (``-Xptxas -v``);
+3. exact constant division: ``lbm_cell.cuh``'s ``div_exact<b>`` against the
+   IEEE ``x / b`` over all 2^32 inputs, one launch for each b of 6, 9, 12
+   and 36: 0 mismatches;
+4. kernel vs plain, each from the same start state on the card, to
    ``atol=2e-5`` (an independent float32 implementation: the order of
    operations and FMA contraction differ):
    * ``pull_step`` against 20 plain fused steps (``engine.make_fused_step``)
@@ -17,8 +21,9 @@ Phases, each printed with its wall time:
      128^2 and MRT at 1024^2;
    * ``tblock_step`` (K=8, 20 steps: two launches and four one-step
      remainder launches) against 20 plain fused steps for SRT, TRT, MRT and
-     MRT+Smagorinsky at 128^2 and MRT at 2048^2, and against ``pull_step``
-     over 64 steps at 2048^2 (to 1e-6);
+     MRT+Smagorinsky at 128^2 and MRT at 2048^2, and (default K) against
+     ``pull_step`` over 64 steps at 2048^2, 4096^2 and the Re=100 Ghia
+     run's 128^2, which must agree exactly;
    * ``push_step`` against 20 push-oracle steps
      (``engine.make_push_oracle_step``) for the same four cases at 128^2 and
      MRT at 1024^2;
@@ -31,7 +36,7 @@ Phases, each printed with its wall time:
      2x2 mesh); ``cuda-sharded`` against ``cuda-pull`` over 64 steps at
      4096^2 on 2x2 and 1x4 meshes, which must agree exactly;
      ``tblock_sharded_step`` against ``pull_sharded_step`` over 64 steps at
-     4096^2 (to 1e-6);
+     4096^2 on 2x2 and 4x1 meshes, which must agree exactly;
    * (a) ``halo_x_exchange`` on a 4096^2 carry set of the tight layout (K=5)
      on 2x2 and 4x1 meshes of the card, filled from a seeded generator,
      against the plain x-phase copies on a copy of it: equal
@@ -39,7 +44,7 @@ Phases, each printed with its wall time:
      temporal-block sharded runner with ``halo_impl="rdma"`` against
      ``"ppermute"`` at 4096^2 MRT Re=5000 on the same meshes, over 64 and
      67 steps (the latter through the remainder): max |d| = 0;
-4. main paths, each launch counter set to 0 just before a run and read just
+5. main paths, each launch counter set to 0 just before a run and read just
    after it:
    * ``simulate`` and ``run_to_convergence`` at 1024^2 MRT float32 (the
      benchmark's cavity) and the two default-suite Ghia gates (MRT 96^2,
@@ -65,11 +70,12 @@ Phases, each printed with its wall time:
      ``"ppermute"`` runner (x strips sent through host-staged ``gloo``),
      gathered on rank 0, against the one-process mesh over 64 steps: max
      |d| = 0; and the two-process exchange's time with its host barriers;
-5. timing with CUDA events: the measured device-copy bandwidth; the
+6. timing with CUDA events: the measured device-copy bandwidth; the
    benchmark's 1024^2 MRT cavity through ``pull_step`` (MLUPS); at 1024^2
-   and 2048^2, ``pull_step`` beside ``tblock_step`` for K in {4, 5, 8, 16};
+   and 2048^2, ``pull_step`` beside ``tblock_step`` for K in ``SWEEP_K``;
    at 1024^2, 2048^2 and 4096^2, ``pull_step`` and ``tblock_step`` (default
-   K) in turns, which sets where ``auto`` takes the latter;
+   K) in turns from rest and from the state after 1 920 steps, which sets
+   where ``auto`` takes the latter;
    ``push_step`` at 1024^2; each kernel's plain version; at 4096^2 on the
    2x2 mesh: both sharded runners from rest in ``simulate``'s calls, with
    the one-step runner's pad and unpad copies timed apart; from a state
@@ -129,7 +135,9 @@ from latticeboltzmannsimulations_torch.sim import SimOptions, simulate
 from latticeboltzmannsimulations_torch.validate import compare_to_ghia
 
 ATOL = 2e-5
-TBLOCK_VS_PULL_ATOL = 1e-6
+# The temporal-block kernels do the one-step kernels' arithmetic in the same
+# order: they must agree exactly.
+TBLOCK_VS_PULL_ATOL = 0.0
 # The TPU kernel each CUDA kernel replaces, in the JAX package.
 REPLACES = {
     "pull_step": "kernels/pallas_pull.py:189 (_make_kernel)",
@@ -151,7 +159,10 @@ LARGE_N = 2048
 BENCH_CHUNK = 10_000
 BENCH_CHUNKS = 3
 SWEEP_STEPS = 1_920                # a multiple of every K of the sweep
-SWEEP_K = (4, 5, 8, 16)
+SWEEP_K = (4, 5, 6, 8, 10, 12, 16)
+# The divisors of lbm_cell.cuh's exact constant division, each checked over
+# all 2^32 inputs.
+DIVISORS = (6, 9, 12, 36)
 AHEAD_N = (1024, 2048, 4096)       # sizes where tblock_step meets pull_step
 # tblock_step counts as ahead only by more than the 1.5% spread of MLUPS
 # between calls (PERF.md): a smaller lead changed sign from call to call.
@@ -257,14 +268,39 @@ def compare_tblock(name: str, cfg: SimConfig, device) -> float:
 
 
 def compare_tblock_pull(cfg: SimConfig, device, n: int) -> float:
-    """The temporal-block kernel against the one-step kernel over n steps:
-    the same arithmetic, so they should agree far below the plain
-    tolerance."""
+    """The temporal-block kernel (default K) against the one-step
+    kernel over n steps (the remainder through the latter): the same
+    arithmetic in the same order, so they must agree exactly."""
     s0 = engine.init_state(cfg, device)
-    a = tblock.make_scan_runner(cfg, n, device, k_steps=TBLOCK_COMPARE_K)(s0)
+    a = tblock.make_scan_runner(cfg, n, device)(s0)
     b = pull.make_scan_runner(cfg, n, device)(s0)
-    return check_close(f"tblock K={TBLOCK_COMPARE_K} vs pull_step, {n} steps", cfg,
+    return check_close(f"tblock K={tblock.K_STEPS} vs pull_step, {n} steps", cfg,
                        a.f, b.f, a.rho_lid, b.rho_lid, atol=TBLOCK_VS_PULL_ATOL)
+
+
+def check_exact_division(device) -> dict:
+    """lbm_cell.cuh's div_exact<b> against the IEEE x / b over all 2^32
+    inputs, one launch per divisor: no input may differ."""
+    lib = _build.load_library()
+    found = {}
+    for b in DIVISORS:
+        mismatches = torch.zeros(1, dtype=torch.int64, device=device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        err = lib.lbm_exact_div_check(b, None, 1 << 32, mismatches.data_ptr(),
+                                      torch.cuda.current_stream(device).cuda_stream)
+        end.record()
+        torch.cuda.synchronize()
+        if err != 0:
+            raise RuntimeError(f"exact_div_check launch failed: "
+                               f"{lib.lbm_error_string(err).decode()}")
+        found[b] = mismatches.item()
+        print(f"  div_exact<{b}> vs x / {b} over all 2^32 inputs: {found[b]} "
+              f"mismatches ({start.elapsed_time(end):.1f} ms)", flush=True)
+    if any(found.values()):
+        raise AssertionError(f"the exact division differs from x / b: {found}")
+    return found
 
 
 def compare_push(name: str, cfg: SimConfig, device) -> float:
@@ -738,6 +774,9 @@ def main() -> None:
                     print(f"  ptxas: {line.strip()}", flush=True)
         _build.load_library()
 
+    with phase("exact constant division"):
+        check_exact_division(device)
+
     worst = {name: 0.0 for name in REPLACES}
     with phase("kernel vs plain"):
         small = [
@@ -764,8 +803,12 @@ def main() -> None:
                 name, SimConfig(nx=128, ny=128, **kw), device))
         worst["tblock_step"] = max(worst["tblock_step"],
                                    compare_tblock("mrt", large_cfg, device))
-        worst["tblock_step"] = max(worst["tblock_step"],
-                                   compare_tblock_pull(large_cfg, device, 64))
+        # bit for bit against the one-step kernel at the sizes the main path
+        # runs it (the large cavity, 4096^2 and the Re=100 Ghia run's 128^2)
+        for cfg in (large_cfg, dataclasses.replace(bench_cfg, nx=4096, ny=4096),
+                    SimConfig(nx=128, ny=128, reynolds=100.0, collision="mrt")):
+            worst["tblock_step"] = max(worst["tblock_step"],
+                                       compare_tblock_pull(cfg, device, 64))
         for name, kw in small:
             worst["push_step"] = max(worst["push_step"], compare_push(
                 name, SimConfig(nx=128, ny=128, **kw), device))
@@ -795,7 +838,10 @@ def main() -> None:
         for shape in (SHARDED_MESH, (1, 4)):
             compare_sharded_pull(dataclasses.replace(sharded_cfg, mesh_shape=shape),
                                  device, 64)
-        compare_tblock_sharded_pull(sharded_cfg, device, 64)
+        for shape in RDMA_MESHES:
+            worst["tblock_sharded_step"] = max(
+                worst["tblock_sharded_step"], compare_tblock_sharded_pull(
+                    dataclasses.replace(sharded_cfg, mesh_shape=shape), device, 64))
 
     with phase("kernel vs plain: x-ring exchange"):
         # at both shapes the main path gives the kernel: 4096^2 and the
@@ -1010,27 +1056,32 @@ def main() -> None:
                                                  plain_ms=plain_ms)
 
         # Where is tblock_step (default K) ahead of pull_step?  Timed in turns
-        # (pull, tblock, tblock, pull), each run from the same state after
-        # SWEEP_STEPS steps: from the state at rest both kernels run slower
-        # (tiny values in the still fluid), tblock_step more so.
+        # (pull, tblock, tblock, pull), from rest and from the state after
+        # SWEEP_STEPS steps (a flow at rest has run slower: PERF.md, section
+        # 7); it counts as ahead only where both readings put it ahead.
         ahead = []
         for n in AHEAD_N:
             cfg = dataclasses.replace(bench_cfg, nx=n, ny=n)
             runners = {"pull": pull.make_scan_runner(cfg, SWEEP_STEPS, device),
                        "tblock": tblock.make_scan_runner(cfg, SWEEP_STEPS, device)}
-            s1 = runners["pull"](engine.init_state(cfg, device))
+            s0 = engine.init_state(cfg, device)
+            s1 = runners["pull"](s0)
             runners["tblock"](s1)
-            ms = {"pull": [], "tblock": []}
-            for name in ("pull", "tblock", "tblock", "pull"):
-                ms[name].append(cuda_time_ms(lambda: runners[name](s1), 1) / SWEEP_STEPS)
-            p_ms, t_ms = sum(ms["pull"]) / 2, sum(ms["tblock"]) / 2
-            if p_ms / t_ms > AHEAD_MARGIN:
+            ratios = []
+            for label, s in (("rest", s0), ("further on", s1)):
+                ms = {"pull": [], "tblock": []}
+                for name in ("pull", "tblock", "tblock", "pull"):
+                    ms[name].append(cuda_time_ms(lambda: runners[name](s), 1) / SWEEP_STEPS)
+                p_ms, t_ms = sum(ms["pull"]) / 2, sum(ms["tblock"]) / 2
+                ratios.append(p_ms / t_ms)
+                print(f"  {n}^2 in turns from {label}: pull_step {ms['pull']} tblock_step "
+                      f"K={tblock.K_STEPS} {ms['tblock']} ms/step; "
+                      f"tblock/pull {p_ms / t_ms:.3f}x", flush=True)
+            if min(ratios) > AHEAD_MARGIN:
                 ahead.append(n)
-            print(f"  {n}^2 in turns: pull_step {ms['pull']} tblock_step "
-                  f"K={tblock.K_STEPS} {ms['tblock']} ms/step; tblock/pull "
-                  f"{p_ms / t_ms:.3f}x", flush=True)
+            del s0, s1
         print(f"  tblock_step ahead of pull_step by more than {AHEAD_MARGIN - 1:.1%} "
-              f"at {ahead}; sim.py routes auto to it from "
+              f"from rest and further on at {ahead}; sim.py routes auto to it from "
               f"{sim.TBLOCK_AUTO_MIN_CELLS} cells", flush=True)
 
         cells = BENCH_N * BENCH_N

@@ -1,6 +1,7 @@
-// Per-cell arithmetic of the D2Q9 cavity, float32, shared by the three CUDA
-// kernels of this package (pull_step.cu, tblock_step.cu, push_step.cu), so
-// that all three do the same float operations in the same order: the
+// Per-cell arithmetic of the D2Q9 cavity, float32, shared by the five step
+// kernels of this package (pull_step.cu, push_step.cu, pull_sharded_step.cu
+// and, through tblock_window.cuh, tblock_step.cu and tblock_sharded_step.cu),
+// so that all five do the same float operations in the same order: the
 // moments with the wall overrides and the lid closure, the equilibrium, the
 // Smagorinsky relaxation rate and the SRT / TRT / MRT collision, and the
 // reduced NEBB rewrite of the fused pull step.
@@ -34,6 +35,33 @@ struct Params {
   int les;            // Les
   float smag_coef;    // 18 * sqrt(2) * Cs^2 for LES_SCALAR
 };
+
+// x / b for the constant divisors of the MRT back-transform (b = 6, 9, 12,
+// 36), correctly rounded for every float x: the same bits as the IEEE
+// division x / b, at a fraction of its instructions.  A multiply by the
+// nearest float to 1/b and one Markstein correction, r = x - q b (exact in
+// an FMA) and q + r (1/b), give the correctly rounded quotient of any x
+// whose quotient is normal, because 1/b is within half an ulp and q within
+// one ulp.  A zero x gives q = x * (1/b), a zero of x's sign, as x / b
+// does (a flow at rest has many zero moments, and the IEEE division sends
+// a zero dividend down its slow path).  The rest (0 < |x| < 2^-100, where
+// the quotient or the residual may be subnormal; inf and NaN, where the
+// residual is NaN) goes to the IEEE division.  chip_smoke.py checks all
+// 2^32 inputs for each b on the card; tests/test_torch_csrc_emulated.py a
+// sample on the CPU.  __fmul_rn and __fmaf_rn keep the compiler from
+// contracting or reassociating the three operations.
+template <int kB>
+__device__ __forceinline__ float div_exact(const float x) {
+  constexpr float b = static_cast<float>(kB);
+  constexpr float rcp = 1.0f / b;
+  const float ax = fabsf(x);
+  const float q = __fmul_rn(x, rcp);
+  if (ax >= 0x1p-100f && ax <= 3.40282347e38f) {
+    const float r = __fmaf_rn(-q, b, x);
+    return __fmaf_rn(r, rcp, q);
+  }
+  return ax == 0.0f ? q : x / b;
+}
 
 constexpr float W0 = 4.0f / 9.0f;
 constexpr float WA = 1.0f / 9.0f;
@@ -142,22 +170,23 @@ __device__ __forceinline__ void cell_collide(const float g[9], const float e[9],
     pxx -= omega * (pxx - (jx2 - jy2));
     pxy -= omega * (pxy - jx * jy);
     // f = M^-1 m with exact rational coefficients.
-    const float r = m0 / 9.0f;
-    const float e36 = me / 36.0f, eps36 = meps / 36.0f;
+    // (The divisions by 6, 9, 12 and 36 are div_exact: the same bits.)
+    const float r = div_exact<9>(m0);
+    const float e36 = div_exact<36>(me), eps36 = div_exact<36>(meps);
     const float ax_e = -e36 - 2.0f * eps36;
     const float di_e = 2.0f * e36 + eps36;
-    const float jx6 = jx / 6.0f, jy6 = jy / 6.0f;
-    const float qx6 = qx / 6.0f, qy6 = qy / 6.0f;
+    const float jx6 = div_exact<6>(jx), jy6 = div_exact<6>(jy);
+    const float qx6 = div_exact<6>(qx), qy6 = div_exact<6>(qy);
     const float pxx4 = pxx / 4.0f, pxy4 = pxy / 4.0f;
     o[0] = r - 4.0f * e36 + 4.0f * eps36;
     o[1] = r + ax_e + (jx6 - qx6) + pxx4;
     o[2] = r + ax_e + (jy6 - qy6) - pxx4;
     o[3] = r + ax_e + (-jx6 + qx6) + pxx4;
     o[4] = r + ax_e + (-jy6 + qy6) - pxx4;
-    o[5] = r + di_e + (jx + jy) / 6.0f + (qx + qy) / 12.0f + pxy4;
-    o[6] = r + di_e + (-jx + jy) / 6.0f + (-qx + qy) / 12.0f - pxy4;
-    o[7] = r + di_e + (-jx - jy) / 6.0f + (-qx - qy) / 12.0f + pxy4;
-    o[8] = r + di_e + (jx - jy) / 6.0f + (qx - qy) / 12.0f - pxy4;
+    o[5] = r + di_e + div_exact<6>(jx + jy) + div_exact<12>(qx + qy) + pxy4;
+    o[6] = r + di_e + div_exact<6>(-jx + jy) + div_exact<12>(-qx + qy) - pxy4;
+    o[7] = r + di_e + div_exact<6>(-jx - jy) + div_exact<12>(-qx - qy) + pxy4;
+    o[8] = r + di_e + div_exact<6>(jx - jy) + div_exact<12>(qx - qy) - pxy4;
   }
 }
 

@@ -155,9 +155,15 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         p,                          # stream
     ]
     lib.lbm_enable_peer_access.argtypes = [i, i]   # device, peer
+    lib.lbm_exact_div_check.argtypes = [
+        i, p, ctypes.c_longlong,    # divisor, bit patterns (null: 0 .. count - 1), count
+        p,                          # mismatch counter (uint64)
+        p,                          # stream
+    ]
     for fn in (lib.lbm_pull_step, lib.lbm_tblock_step, lib.lbm_push_step,
                lib.lbm_pull_sharded_step, lib.lbm_tblock_sharded_step,
-               lib.lbm_halo_x_exchange, lib.lbm_enable_peer_access):
+               lib.lbm_halo_x_exchange, lib.lbm_enable_peer_access,
+               lib.lbm_exact_div_check):
         fn.restype = ctypes.c_int
     lib.lbm_error_string.argtypes = [ctypes.c_int]
     lib.lbm_error_string.restype = ctypes.c_char_p

@@ -27,12 +27,12 @@ from . import _build, pull
 
 launches = 0
 
-# Window edge of the kernel (csrc/tblock_step.cu: kWin): each block stages a
-# WINDOW x WINDOW window and owns its (WINDOW - 2K)^2 centre.
+# Window edge of the kernel (csrc/tblock_window.cuh: kWin): each block
+# stages a WINDOW x WINDOW window and owns its (WINDOW - 2K)^2 centre.
 WINDOW = 64
 # Steps per launch of the runners by default: the fastest of the K that
-# chip_smoke.py times (4, 5, 8, 16) at 1024^2 and 2048^2 on one H100
-# (PERF.md, section 6).
+# chip_smoke.py times (4 to 16) at 1024^2 and 2048^2 on one H100 (PERF.md,
+# section 6).
 K_STEPS = 5
 _MAX_Y_TILES = 65535  # the limit of gridDim.y
 
@@ -46,9 +46,7 @@ def unsupported_reason(cfg: SimConfig, k_steps: int = K_STEPS) -> str | None:
         return ("the temporal-block kernel has no Van Driest Cs^2 plane; "
                 "use the one-step kernel")
     if not 1 <= k_steps < WINDOW // 2:
-        return f"k_steps={k_steps} must lie in [1, {WINDOW // 2 - 1}]"
-    if cfg.nx < WINDOW or cfg.ny < WINDOW:
-        return (f"the field {cfg.nx}x{cfg.ny} is smaller than the kernel's "
+        return (f"k_steps={k_steps} must lie in [1, {WINDOW // 2 - 1}] for the "
                 f"{WINDOW}x{WINDOW} window")
     own = WINDOW - 2 * k_steps
     if -(-cfg.ny // own) > _MAX_Y_TILES:

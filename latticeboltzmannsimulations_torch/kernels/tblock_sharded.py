@@ -65,7 +65,8 @@ def unsupported_reason(cfg: SimConfig, k_steps: int = K_STEPS) -> str | None:
         return ("the sharded temporal-block kernel has no Van Driest Cs^2 "
                 "plane; use the one-step sharded kernel")
     if not 1 <= k_steps < WINDOW // 2:
-        return f"k_steps={k_steps} must lie in [1, {WINDOW // 2 - 1}]"
+        return (f"k_steps={k_steps} must lie in [1, {WINDOW // 2 - 1}] for the "
+                f"{WINDOW}x{WINDOW} window")
     lx, ly = block_shape(cfg.nx, cfg.ny, cfg.mesh_shape)
     if lx < k_steps or ly < k_steps:
         return (f"the shard {lx}x{ly} is narrower than the K={k_steps} halo; "

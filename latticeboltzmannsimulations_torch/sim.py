@@ -121,19 +121,21 @@ _NOT_PORTED = {
 
 # Fields of at least this many cells take the temporal-block kernel under
 # backend="auto" (float32 NEBB without Van Driest, on the card); None: never.
-# Set from chip_smoke.py's timing of cuda-tblock against cuda-pull in one call
-# on one H100 (PERF.md, section 6): behind it at every measured size, from
-# 1024^2 to 4096^2, and furthest behind from the state at rest.
-TBLOCK_AUTO_MIN_CELLS: Optional[int] = None
+# Set from chip_smoke.py's timing of cuda-tblock against cuda-pull in turns
+# in one call on one H100 (PERF.md, section 6): ahead by more than its
+# margin from rest and further on at 2048^2 and 4096^2, behind from rest at
+# 1024^2.
+TBLOCK_AUTO_MIN_CELLS: Optional[int] = 2048 * 2048
 
 # Meshes whose shards hold at least this many cells take the sharded
 # temporal-block kernel under backend="auto" (float32 NEBB without Van
 # Driest, on CUDA devices); None: never.  Keyed to the shard, as the JAX
 # driver's gate is.  Set only where chip_smoke.py counts it ahead of
-# cuda-sharded by more than its margin in every reading (the runners, the
-# launches alone and simulate in alternating order); at 4096^2 on a 2x2 mesh
-# of one H100, the one size measured, they disagree (PERF.md, section 6).
-SHARDED_TBLOCK_AUTO_MIN_CELLS: Optional[int] = None
+# cuda-sharded by more than its margin in every reading (the runners from
+# rest and further on, and simulate in alternating order): at 4096^2 on a
+# 2x2 mesh of one H100, the one size measured (shards of 2048^2; PERF.md,
+# section 6).
+SHARDED_TBLOCK_AUTO_MIN_CELLS: Optional[int] = 2048 * 2048
 
 BACKENDS = ("auto", "cuda-pull", "cuda-tblock", "cuda-push", "push-oracle", "torch",
             "cuda-sharded", "cuda-sharded-tblock", "sharded")

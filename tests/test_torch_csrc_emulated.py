@@ -11,19 +11,24 @@ are read as they are, and a copy is rewritten for the host:
 * every ``kThreads`` is set to 1, so a block is one thread, which runs the
   block's loops serially: a valid schedule for these kernels' barriers;
 * every launch ``kernel<<<grid, block, smem, stream>>>(args)`` becomes a
-  loop over the grid's blocks; dynamic shared memory is a host buffer;
-* ``float4`` is a 16-byte struct, and the runtime calls that enable peer
-  access do nothing.
+  loop over the grid's blocks, in four passes by the parity of their x and
+  y (a block that wrote a cell its neighbour owns would then show);
+  dynamic shared memory is a host buffer;
+* ``float4`` is a 16-byte struct, ``__fmaf_rn`` is ``std::fma``, and the
+  runtime calls that enable peer access do nothing.
 
 The library is called through ``ctypes`` by each wrapper's own ``_launch``,
 on CPU tensors.  It holds every kernel to its plain version at atol 2e-5
 over 20 float32 steps (an independent float32 implementation), and holds
-these bit for bit on ragged shapes: ``tblock_step`` against ``pull_step``,
+these bit for bit on ragged shapes: ``tblock_step`` against ``pull_step``
+(fields smaller than its window and than its halo included),
 the sharded one-step kernel on a mesh against ``pull_step`` on the global
 grid, and the sharded temporal-block kernel against the sharded one-step
 kernel; and the x-ring exchange kernel against the plain x-phase copies
 byte for byte, on ragged shapes, ``mx == 1`` (the ring copies onto itself)
-included, and on runs of every alignment.  A serial run cannot show a race; the card tests
+included, and on runs of every alignment; and ``lbm_cell.cuh``'s exact
+constant division against ``x / b`` on a sample of floats (the card checks
+all of them).  A serial run cannot show a race; the card tests
 (``test_torch_cuda.py``) and ``chip_smoke.py`` stay for that.  Skips without
 ``g++``.
 """
@@ -33,6 +38,7 @@ import re
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
@@ -58,6 +64,7 @@ _STUB = r"""
 #include <algorithm>
 #include <cmath>
 #include <cstddef>
+#include <cstring>
 #include <vector>
 #define __global__
 #define __device__
@@ -86,6 +93,15 @@ enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class T>
 inline cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline float __uint_as_float(unsigned u) { float x; std::memcpy(&x, &u, 4); return x; }
+inline unsigned __float_as_uint(float x) { unsigned u; std::memcpy(&u, &x, 4); return u; }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  const unsigned long long old = *p;
+  *p += v;
+  return old;
+}
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated error"; }
 namespace emu {
 inline std::vector<float> smem;
@@ -95,13 +111,18 @@ void launch(F body, dim3 grid, dim3 block, size_t smem_bytes = 0, void* = nullpt
   smem.assign(smem_bytes / sizeof(float) + 1, 0.0f);
   gridDim = grid;
   blockDim = block;
-  for (unsigned z = 0; z < grid.z; ++z)
-    for (unsigned y = 0; y < grid.y; ++y)
-      for (unsigned x = 0; x < grid.x; ++x) {
-        blockIdx = dim3(x, y, z);
-        threadIdx = dim3(0, 0, 0);
-        body();
-      }
+  // The blocks in four passes by the parity of x and y: a block that
+  // writes a cell its neighbour owns then runs after that neighbour on one
+  // side or the other, and the results differ.
+  for (unsigned px = 0; px < 2; ++px)
+    for (unsigned py = 0; py < 2; ++py)
+      for (unsigned z = 0; z < grid.z; ++z)
+        for (unsigned y = py; y < grid.y; y += 2)
+          for (unsigned x = px; x < grid.x; x += 2) {
+            blockIdx = dim3(x, y, z);
+            threadIdx = dim3(0, 0, 0);
+            body();
+          }
 }
 }  // namespace emu
 """
@@ -124,7 +145,7 @@ def _emulate(source: str) -> str:
                   r"float* \1 = emu::dynamic_smem();", text)
     while "<<<" in text:
         at = text.index("<<<")
-        name = re.search(r"(\w+)\s*$", text[:at]).group(1)
+        name = re.search(r"(\w+(?:<[^<>]*>)?)\s*$", text[:at]).group(1)
         head = at - len(name)
         end_cfg = text.index(">>>", at)
         config = text[at + 3:end_cfg]
@@ -290,7 +311,15 @@ def test_tblock_step_matches_plain(lib, case):
     _close(_tblock_steps(lib, cfg, s0, STEPS // 5, 5), _plain(cfg, s0, STEPS))
 
 
-@pytest.mark.parametrize("nx, ny, k", [(64, 64, 1), (100, 70, 5), (70, 130, 10)])
+@pytest.mark.parametrize("nx, ny, k", [
+    (64, 64, 1),
+    (100, 70, 5),     # ragged last tiles
+    (70, 130, 10),
+    (60, 50, 8),      # a field smaller than the window
+    (109, 109, 5),    # one past a multiple of the 54 own cells
+    (36, 20, 5),      # several lid images in one window
+    (4, 6, 5),        # a field smaller than the halo
+])
 def test_tblock_step_equals_pull_step(lib, nx, ny, k):
     cfg = _cfg(nx, ny)
     s0 = _start(cfg)
@@ -341,6 +370,7 @@ def test_tblock_sharded_matches_plain(lib, case):
     (140, 96, (2, 1), 8),    # shards wider than one tile, ragged last tiles
     (64, 40, (1, 5), 8),     # ly == K: every shard sees a wall image
     (36, 28, (1, 1), 5),     # both lid images in one window
+    (110, 218, (2, 2), 5),   # lx = 55, ly = 109: one past a multiple of 54
 ])
 def test_tblock_sharded_equals_pull_sharded(lib, nx, ny, mesh_shape, k):
     cfg = _cfg(nx, ny, mesh_shape=mesh_shape)
@@ -400,3 +430,39 @@ def test_x_exchange_runs_of_every_alignment(lib):
                 at += 32
     _x_exchange(lib, pairs)
     assert torch.equal(dst, want)
+
+
+def _division_sample() -> np.ndarray:
+    """Bit patterns of the CPU check of the exact constant division: +-0,
+    +-inf, NaNs, the largest finite floats, every subnormal bit position
+    (with its neighbours), every exponent with a few mantissas, and 2^20
+    evenly spaced patterns."""
+    pats = set()
+    for sign in (0, 1 << 31):
+        pats |= {sign | p for p in (0, 0x7F800000, 0x7F7FFFFF, 0x7F7FFFFE, 0x7F7FF000,
+                                    0x7FC00000, 0x7F800001, 0x7FFFFFFF)}
+        for i in range(23):
+            pats |= {sign | (1 << i), sign | ((1 << i) - 1), sign | ((2 << i) - 1),
+                     sign | ((1 << i) + 1)}
+        for e in range(256):
+            pats |= {sign | (e << 23) | m for m in (0, 1, 0x7FFFFF, 0x555555, 0x2AAAAA)}
+    spaced = np.arange(1 << 20, dtype=np.uint64) * (1 << 12)
+    return np.union1d(np.array(sorted(pats), dtype=np.uint64), spaced).astype(np.uint32)
+
+
+@pytest.mark.parametrize("divisor", [6, 9, 12, 36])
+def test_exact_division_equals_ieee_division(lib, divisor):
+    """lbm_cell.cuh's div_exact<b> against x / b on the sample, through the
+    emulated check entry (std::fma for the FMA): no input may differ.  The
+    sample is not one where a plain multiply by the reciprocal would do."""
+    pats = _division_sample()
+    x = pats.view(np.float32)
+    with np.errstate(all="ignore"):
+        naive = x * np.float32(1.0 / divisor)
+        want = x / np.float32(divisor)
+    assert ((naive != want) & ~np.isnan(want)).sum() > 100_000
+    patterns = torch.from_numpy(pats.view(np.int32).copy())
+    mismatches = torch.zeros(1, dtype=torch.int64)
+    assert lib.lbm_exact_div_check(divisor, patterns.data_ptr(), len(pats),
+                                   mismatches.data_ptr(), None) == 0
+    assert mismatches.item() == 0

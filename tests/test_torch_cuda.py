@@ -17,6 +17,7 @@ import latticeboltzmannsimulations_torch as lbt
 from latticeboltzmannsimulations_torch import engine
 from latticeboltzmannsimulations_torch.config import SimConfig
 from latticeboltzmannsimulations_torch.kernels import (
+    _build,
     halo_rdma,
     pull,
     pull_sharded,
@@ -175,6 +176,36 @@ def test_tblock_equals_pull_step(cuda, k_steps, n_steps):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nx, ny, k", [
+    (63, 40, 5),      # a field smaller than the window: several lid images
+    (300, 109, 5),    # one past a multiple of the 54 own cells
+    (150, 200, 15),
+])
+def test_tblock_equals_pull_step_on_small_and_ragged_fields(cuda, nx, ny, k):
+    """On fields the window did not serve before (smaller than it) and on
+    ragged ones, the kernel agrees with the one-step kernel bit for bit."""
+    cfg = SimConfig(nx=nx, ny=ny, reynolds=1000.0, collision="mrt")
+    s0 = engine.init_state(cfg, device=cuda)
+    a = tblock.make_scan_runner(cfg, 2 * k, device=cuda, k_steps=k)(s0)
+    b = pull.make_scan_runner(cfg, 2 * k, device=cuda)(s0)
+    torch.cuda.synchronize()
+    assert torch.equal(a.f, b.f) and torch.equal(a.rho_lid, b.rho_lid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("divisor", [6, 9, 12, 36])
+def test_exact_division_over_every_float(cuda, divisor):
+    """lbm_cell.cuh's div_exact<b> gives the bits of the IEEE x / b for all
+    2^32 inputs (one launch)."""
+    mismatches = torch.zeros(1, dtype=torch.int64, device=cuda)
+    err = _build.load_library().lbm_exact_div_check(
+        divisor, None, 1 << 32, mismatches.data_ptr(),
+        torch.cuda.current_stream(cuda).cuda_stream)
+    assert err == 0
+    assert mismatches.item() == 0
+
+
+@pytest.mark.cuda
 def test_tblock_refusals(cuda):
     cfg = SimConfig(nx=64, ny=64, reynolds=400.0)
     s = engine.init_state(cfg, device=cuda)
@@ -185,10 +216,10 @@ def test_tblock_refusals(cuda):
     with pytest.raises(ValueError, match="Van Driest"):
         tblock.make_block_step(SimConfig(nx=64, ny=64, turbulence="smagorinsky",
                                          van_driest=True), device=cuda)
-    with pytest.raises(ValueError, match="window"):
-        tblock.make_scan_runner(SimConfig(nx=63, ny=128), 8, device=cuda)
-    with pytest.raises(ValueError, match="window"):
-        tblock.make_scan_runner(SimConfig(nx=128, ny=40), 8, device=cuda)
+    with pytest.raises(ValueError, match="64x64 window"):
+        tblock.make_scan_runner(SimConfig(nx=63, ny=128), 8, device=cuda, k_steps=32)
+    with pytest.raises(ValueError, match="64x64 window"):
+        tblock.make_scan_runner(SimConfig(nx=128, ny=40), 8, device=cuda, k_steps=0)
 
 
 @pytest.mark.cuda

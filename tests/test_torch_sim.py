@@ -137,7 +137,7 @@ def test_backend_routing_refuses(kw, backend, exc):
     (dict(turbulence="smagorinsky", van_driest=True), "cuda-push", "Van Driest"),
     (dict(nx=64, ny=64, turbulence="smagorinsky", van_driest=True), "cuda-tblock",
      "Van Driest"),
-    (dict(nx=48, ny=48), "cuda-tblock", "window"),
+    (dict(nx=48, ny=48, boundary="nebb_tangential"), "cuda-tblock", "NEBB"),
     (dict(boundary="bounce_back", mesh_shape=(1, 2)), "push-oracle", "single-device"),
 ])
 def test_explicit_kernel_backends_refuse_on_the_card(kw, backend, match):

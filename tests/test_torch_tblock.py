@@ -95,8 +95,8 @@ def test_block_step_and_runner_on_cpu_equal_fused_steps():
     (dict(boundary="nebb_tangential"), 8, "NEBB"),
     (dict(turbulence="smagorinsky", van_driest=True), 8, "Van Driest"),
     (dict(mesh_shape=(1, 2)), 8, "one device"),
-    (dict(nx=63), 8, "window"),
-    (dict(ny=40), 8, "window"),
+    (dict(nx=63), 32, "64x64 window"),
+    (dict(ny=40), 0, "64x64 window"),
     (dict(), 0, "k_steps"),
     (dict(), 32, "k_steps"),
 ])
@@ -107,6 +107,17 @@ def test_tblock_refusals(kw, k, reason):
         tblock.make_scan_runner(cfg, 16, device="cpu", k_steps=k)
     with pytest.raises(ValueError, match=reason):
         tblock.make_block_step(cfg, k_steps=k, device="cpu")
+
+
+def test_small_fields_are_served():
+    """The window keys every cell to its wrapped global cell and carries the
+    lid density per cell, so a field smaller than the window, or than the
+    halo, is served at every K that fits the window."""
+    for nx, ny in ((63, 40), (48, 48), (5, 3)):
+        cfg = TConfig(nx=nx, ny=ny)
+        assert tblock.unsupported_reason(cfg, 31) is None
+        assert "k_steps" in tblock.unsupported_reason(cfg, 32)
+    assert "tiles" in tblock.unsupported_reason(TConfig(nx=8, ny=54 * 65_535 + 1), 5)
 
 
 def test_tblock_step_takes_cuda_tensors_only():
