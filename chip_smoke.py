@@ -37,13 +37,21 @@ Phases, each printed with its wall time:
      4096^2 on 2x2 and 1x4 meshes, which must agree exactly;
      ``tblock_sharded_step`` against ``pull_sharded_step`` over 64 steps at
      4096^2 on 2x2 and 4x1 meshes, which must agree exactly;
-   * (a) ``halo_x_exchange`` on a 4096^2 carry set of the tight layout (K=5)
-     on 2x2 and 4x1 meshes of the card, filled from a seeded generator,
-     against the plain x-phase copies on a copy of it: equal
-     (``torch.equal``), and nothing outside the x halos moved; (b) the
+   * (a) ``halo_exchange``'s whole refresh (``make_halo_exchange``: y and
+     x strips, corners from the diagonal shard, and with panels their x
+     halos and their copy from ``iy = 0``) on carry sets filled from a
+     seeded generator, at the shapes the main paths give it (tight K=5 with
+     panels at 4096^2 on 2x2 and 4x1 meshes of the card and at 128^2 on
+     2x2; aligned depth 1 without panels at 4096^2 and 128^2 on 2x2),
+     against its definition, ``halo.refresh_phases`` copied in order, on a
+     copy: equal byte for byte, one launch; its x-only table
+     (``make_x_halo_exchange``) against the x-phase copies; (b) the
      temporal-block sharded runner with ``halo_impl="rdma"`` against
-     ``"ppermute"`` at 4096^2 MRT Re=5000 on the same meshes, over 64 and
-     67 steps (the latter through the remainder): max |d| = 0;
+     ``"ppermute"`` at 4096^2 MRT Re=5000 on the same meshes and at 128^2,
+     over 64 and 67 steps (the latter through the remainder), and the
+     one-step runner against the same launches driven by the two-phase
+     copies at 4096^2 and 128^2 over 67 steps: max |d| = 0, one exchange
+     launch per block (per step) and no halo copy in the loop;
 5. main paths, each launch counter set to 0 just before a run and read just
    after it:
    * ``simulate`` and ``run_to_convergence`` at 1024^2 MRT float32 (the
@@ -58,11 +66,14 @@ Phases, each printed with its wall time:
    * the sharded cavity: ``simulate`` at 4096^2 MRT float32 Re=5000 on a
      2x2 mesh of this card with ``backend="auto"`` and through the sharded
      kernel that auto does not take there (``cuda-sharded`` or
-     ``cuda-sharded-tblock``), in the order auto, other, other, auto; the
-     Re=100 Ghia gate at 128^2 on the 2x2 mesh through ``cuda-sharded``;
-   * the x-ring exchange: the temporal-block sharded runner with
-     ``halo_impl="rdma"`` at 4096^2 on the 2x2 mesh in 500-step calls, and
-     the Re=100 Ghia gate at 128^2 on the 2x2 mesh through it;
+     ``cuda-sharded-tblock``), in the order auto, other, other, auto;
+   * the Re=100 Ghia gate at 128^2 on the 2x2 mesh through both sharded
+     routes (``cuda-sharded-tblock`` refreshes through the exchange kernel,
+     ``sim.SHARDED_TBLOCK_HALO_IMPL``), with their MLUPS; every sharded
+     run's exchange launches and halo copies checked (one launch per step
+     or block, copies only once per call);
+   * the ``"rdma"`` runner driven directly at 4096^2 on the 2x2 mesh in
+     500-step calls, with its launches and copies;
    * (c) the remote form: two processes on the card (a ``gloo`` group on a
      ``file://`` store), after a probe that CUDA IPC maps memory between
      them; on a (2, 1) mesh at 1024^2 MRT, the ``"rdma"`` runner (x strips
@@ -83,11 +94,16 @@ Phases, each printed with its wall time:
    ``pull_sharded_step`` and ``tblock_sharded_step`` (default K) with the
    halo exchange timed apart, and the two sharded runners in turns, which
    with the main path's MLUPS sets where ``auto`` takes the temporal-block
-   one; (d) at 4096^2 on the 2x2 mesh, ``halo_x_exchange`` alone, the same
-   strips by ``copy_pairs`` (its plain version and the library time), its
-   bound, and the two temporal-block runners (``"rdma"``, ``"ppermute"``)
-   in turns from the state 7 680 steps on.
-
+   one; (d) at 4096^2 on the 2x2 mesh, the whole refresh in one launch
+   and its x-only table, against the refresh's phases and the same moves by
+   ``copy_pairs``, each as device ms with the queue held busy (a sleep
+   kernel ahead of the event pair, so the calls queue and the events see
+   the device) and host us per call, beside the bound; both sharded
+   runners against their copy-driven forms in turns from the state 7 680
+   steps on; 7. at 96^2 and 128^2, the per-step device time (queue held
+   busy), host time, end-to-end time and idle share of ``cuda-pull`` and
+   ``cuda-tblock``, and on the 2x2 mesh of both sharded runners beside
+   their copy-driven forms, in turns.
 The last three lines are ``nvidia-smi``'s line, one JSON object describing
 each kernel, and ``{"ok": true, "device": {...}}``.  Any failed check raises,
 so the script exits non-zero and prints no result; so does a machine with no
@@ -98,6 +114,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -145,13 +162,13 @@ REPLACES = {
     "push_step": "kernels/pallas_push.py:65 (_make_kernel)",
     "pull_sharded_step": "kernels/pallas_pull_sharded.py:84 (_make_local_kernel)",
     "tblock_sharded_step": "kernels/pallas_pull_tblock_sharded.py:57 (_make_kernel)",
-    "halo_x_exchange": ("kernels/halo_rdma.py:137 (make_x_halo_exchange; "
-                        "_make_local_kernel :57, _make_remote_kernel :85)"),
+    "halo_exchange": ("kernels/halo_rdma.py:137 (make_x_halo_exchange; "
+                      "_make_local_kernel :57, _make_remote_kernel :85)"),
 }
 SOURCES = {name: f"latticeboltzmannsimulations_torch/csrc/{name}.cu" for name in REPLACES}
 COUNTERS = {"pull_step": pull, "tblock_step": tblock, "push_step": push,
             "pull_sharded_step": pull_sharded, "tblock_sharded_step": tblock_sharded,
-            "halo_x_exchange": halo_rdma}
+            "halo_exchange": halo_rdma}
 COMPARE_STEPS = 20
 TBLOCK_COMPARE_K = 8
 BENCH_N = 1024
@@ -182,9 +199,9 @@ SHARDED_MESH = (2, 2)
 SHARDED_COMPARE_N = 256
 SHARDED_STEPS = SWEEP_STEPS        # a multiple of the sharded tblock's K
 SHARDED_WARM_STEPS = 4 * SHARDED_STEPS   # steps before the sharded timing
-# The x-ring exchange: the meshes of the card it is checked on, the steps of
-# the runner comparison (the second runs through the remainder), the
-# two-process case, and the launches per timing.
+# The halo exchange kernel: the meshes of the card it is checked on, the
+# steps of the runner comparison (the second runs through the remainder),
+# the two-process case, and the launches per timing.
 RDMA_MESHES = (SHARDED_MESH, (4, 1))
 RDMA_COMPARE_STEPS = (64, 67)
 IPC_N = 1024
@@ -192,6 +209,15 @@ IPC_MESH = (2, 1)
 IPC_STEPS = 64
 EXCHANGE_REPS = 200
 IPC_EXCHANGE_REPS = 50
+# Small grids (host-bound): the sizes whose per-step device time is taken
+# with the queue held busy, and the steps per timed call (few enough
+# launches to queue behind the sleep: the launch queue holds about 1 000).
+SMALL_N = (96, 128)
+SMALL_STEPS = 100
+SMALL_SHARDED_STEPS = 10
+SMALL_CALL_STEPS = 2_000           # the Ghia runs' report interval
+# Steps per call of the sharded runners timed in turns at 4096^2.
+RUNNER_TURN_STEPS = 480
 
 
 @contextlib.contextmanager
@@ -203,7 +229,9 @@ def phase(name: str):
 
 
 def cuda_time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` calls, by CUDA events."""
+    """Mean time of ``fn()`` over ``reps`` calls, by CUDA events recorded
+    on an idle queue: for small launches the host's pace, not the
+    device's (``busy_time``)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -212,6 +240,49 @@ def cuda_time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+@functools.cache
+def sleep_cycles_per_ms() -> float:
+    """``torch.cuda._sleep`` cycles per ms of device time on this card,
+    measured once."""
+    torch.cuda._sleep(1_000_000)
+    return 10_000_000 / cuda_time_ms(lambda: torch.cuda._sleep(10_000_000), 3)
+
+
+def busy_time(fn, reps: int) -> tuple[float, float]:
+    """(device ms, host us) per call of ``fn()``: the host's time to issue
+    ``reps`` calls, and the device's time to run them with the queue held
+    busy ahead of the event pair (a sleep kernel longer than the issuing),
+    so the calls queue up and the events see the device, not the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    sleep_ms = 2e3 * host_s + 5.0
+    for _ in range(3):
+        torch.cuda._sleep(int(sleep_cycles_per_ms() * sleep_ms))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        issued_s = time.perf_counter() - t0
+        # the device still sleeping when the last call is issued: every call
+        # queued before the first ran
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps, host_s * 1e6 / reps
+        sleep_ms = 4e3 * issued_s + 10.0
+    raise AssertionError(f"the device began the calls before the host had issued them "
+                         f"all ({issued_s * 1e3:.2f} ms, after a {sleep_ms:.1f} ms sleep): "
+                         "the calls wait for the device, or fill its queue")
 
 
 def nvidia_smi_line() -> str:
@@ -400,42 +471,111 @@ def random_carries(device, shape, lay: halo.Layout, seed: int = 7):
     return blocks(9, width, lay.pitch), blocks(width)
 
 
-def compare_x_exchange(device, shape, n: int = SHARDED_N) -> float:
-    """(a) The exchange kernel on an n^2 carry set (K=5) against the plain
-    x-phase copies on a copy of it: equal, one launch for the whole mesh of
-    this card, and the cells and y halos untouched."""
+def compare_refresh(device, shape, n: int, k: int, layout: str,
+                    x_only: bool = False) -> float:
+    """(a) The exchange kernel's whole refresh (``make_halo_exchange``) on an
+    n^2 carry set of the ``layout`` layout, K deep (with lid panels on the
+    tight layout, as the temporal-block runner has them; without on the
+    aligned one, as the one-step runner has them), filled from a seeded
+    generator, against its definition, ``halo.refresh_phases`` copied in
+    order, on a copy: equal byte for byte (so nothing but the halos and the
+    panels of ``iy > 0`` moved), in one launch for the mesh of this card.
+    With ``x_only`` the x-only table of the JAX contract
+    (``make_x_halo_exchange``) against the x-phase copies."""
     mx, my = shape
-    k = tblock_sharded.K_STEPS
-    lay = halo.Layout.tight(n // mx, n // my, k)
+    lay = getattr(halo.Layout, layout)(n // mx, n // my, k)
     carries, panels = random_carries(device, shape, lay)
-    copies = [tuple(tuple(tuple(b.clone() for b in col) for col in blocks)
-                    for blocks in (carries, panels)) for _ in range(2)]
-    plain, orig = copies
-    exchange = halo_rdma.make_x_halo_exchange(sharded_mesh(device, shape), carries,
-                                              panels, lay)
+    if layout == "aligned":
+        panels = None
+    plain = [None if b is None else tuple(tuple(t.clone() for t in col) for col in b)
+             for b in (carries, panels)]
+    make = halo_rdma.make_x_halo_exchange if x_only else halo_rdma.make_halo_exchange
+    exchange = make(sharded_mesh(device, shape), carries, panels, lay)
     before = halo_rdma.launches
     exchange()
     launched = halo_rdma.launches - before
-    halo.copy_pairs(halo.move_pairs(halo_rdma.x_moves(*plain, lay)))
+    for phase in ([halo_rdma.x_moves(*plain, lay)] if x_only
+                  else halo.refresh_phases(*plain, lay)):
+        halo.copy_pairs(halo.move_pairs(phase))
     torch.cuda.synchronize()
-    err, equal = 0.0, True
-    for ix in range(mx):
-        for iy in range(my):
-            for got, want, was in zip((carries, panels), plain, orig):
-                a, b, c = got[ix][iy], want[ix][iy], was[ix][iy]
-                # the cells and y halos: every x position but the x halos
-                inner = (slice(k, k + lay.lx),) if a.dim() == 1 else (slice(None),
-                                                                       slice(k, k + lay.lx))
-                err = max(err, (a - b).abs().max().item())
-                equal &= torch.equal(a, b) and torch.equal(a[inner], c[inner])
-    print(f"  halo_x_exchange {n}^2 K={k} mesh {shape}: {launched} launch, "
-          f"max|d| vs the plain x-phase copies {err:.3e}, equal and nothing else "
-          f"moved: {equal}", flush=True)
+    equal = all(torch.equal(got[ix][iy].view(torch.int32), want[ix][iy].view(torch.int32))
+                for got, want in zip((carries, panels), plain) if want is not None
+                for ix in range(mx) for iy in range(my))
+    name = "x-only table" if x_only else "refresh"
+    print(f"  halo_exchange {name} {n}^2 {layout} K={k} mesh {shape}"
+          f"{' with panels' if panels is not None else ''}: {launched} launch, equal "
+          f"byte for byte to its plain version: {equal}", flush=True)
     if launched != 1:
-        raise AssertionError(f"halo_x_exchange: {launched} launches for one card, not 1")
-    if not equal or err != 0.0:
-        raise AssertionError(f"halo_x_exchange differs from the plain copies on {shape}")
-    return err
+        raise AssertionError(f"halo_exchange: {launched} launches for one card, not 1")
+    if not equal:
+        raise AssertionError(f"halo_exchange {name} differs from its plain version on "
+                             f"{shape}")
+    return 0.0
+
+
+def sharded_copies(cfg: SimConfig, n: int, runner: str) -> int:
+    """``halo.copies`` of one call of a sharded runner of ``n`` steps on
+    ``cfg``'s mesh of this card when its refresh is the exchange kernel:
+    the padding and unpadding of the blocks (and lid densities) and the
+    lid density's copies over the columns, made once per call; no halo
+    copy per step or block.  ``runner``: "pull" or "tblock"."""
+    mx, my = cfg.mesh_shape
+    shards, over_columns = mx * my, mx * (my - 1)
+    if runner == "pull":
+        return (3 * shards + over_columns) if n else 0
+    rem = n % tblock_sharded.K_STEPS
+    return (4 * shards + over_columns) * (n >= tblock_sharded.K_STEPS) + sharded_copies(
+        cfg, rem, "pull")
+
+
+def copy_driven_pull_runner(cfg: SimConfig, n: int, mesh):
+    """The one-step sharded runner with its refresh as the two-phase strip
+    copies (``halo.halo_pairs``, fixed once per buffer, as ``time_sharded``
+    builds them): the same launches, driven as before the exchange kernel
+    took the refresh."""
+    lay = pull_sharded.layout(*halo.check_mesh(cfg, mesh))
+
+    def run(state):
+        carries = [halo.pad_blocks(state.f, lay)]
+        carries.append(halo.empty_blocks(carries[0]))
+        rows = [halo.pad_rows(state.rho_lid, 0)]
+        rows.append(halo.empty_blocks(rows[0]))
+        exchange, steps = [], []
+        for src in (0, 1):
+            dst = 1 - src
+            exchange.append(halo.halo_pairs(carries[src], lay))
+            steps.append([(mesh.device(ix, iy), pull_sharded._shard_call(
+                cfg, lay, carries[src][ix][iy], rows[src][ix][iy],
+                halo.edge_flags(mesh.shape, ix, iy), None, carries[dst][ix][iy],
+                rows[dst][ix][iy])) for ix, iy in mesh.shards()])
+        for i in range(n):
+            halo.copy_pairs(exchange[i % 2])
+            pull_sharded.run_calls(steps[i % 2])
+        out = n % 2
+        halo.copy_pairs(halo.replicate_pairs(rows[out]))
+        return halo.ShardedState(halo.unpad_blocks(carries[out], lay), rows[out])
+
+    return run
+
+
+def compare_pull_copies(cfg: SimConfig, device, n: int) -> float:
+    """(b) ``cuda-sharded``'s runner (its refresh one exchange launch per
+    step) against the copy-driven runner over n steps from a seeded noisy
+    state: exact; one exchange launch and no halo copy per step."""
+    mesh = sharded_mesh(device, cfg.mesh_shape)
+    s0 = shard_state(noisy_state(cfg, device), mesh)
+    before = (halo_rdma.launches, halo.copies)
+    a = pull_sharded.make_sharded_runner(cfg, n, mesh)(s0)
+    counts = (halo_rdma.launches - before[0], halo.copies - before[1])
+    b = copy_driven_pull_runner(cfg, n, mesh)(s0)
+    a, b = unshard_state(a, device), unshard_state(b, device)
+    print(f"  cuda-sharded runner: {counts[0]} halo_exchange launches and {counts[1]} "
+          f"copies in {n} steps", flush=True)
+    if counts != (n, sharded_copies(cfg, n, "pull")):
+        raise AssertionError(f"cuda-sharded: {counts} exchange launches and copies, "
+                             f"expected {(n, sharded_copies(cfg, n, 'pull'))}")
+    return check_close(f"cuda-sharded vs its copy-driven form, {n} steps, mesh "
+                       f"{cfg.mesh_shape}", cfg, a.f, b.f, a.rho_lid, b.rho_lid, atol=0.0)
 
 
 def compare_rdma_runner(cfg: SimConfig, device, n: int) -> float:
@@ -444,14 +584,19 @@ def compare_rdma_runner(cfg: SimConfig, device, n: int) -> float:
     state: they move the same values, so they must agree exactly."""
     mesh = sharded_mesh(device, cfg.mesh_shape)
     s0 = shard_state(noisy_state(cfg, device), mesh)
-    before = halo_rdma.launches
+    before = (halo_rdma.launches, halo.copies)
     a = unshard_state(tblock_sharded.make_sharded_runner(cfg, n, mesh, halo_impl="rdma")(s0),
                       device)
-    launched = halo_rdma.launches - before
+    counts = (halo_rdma.launches - before[0], halo.copies - before[1])
     b = unshard_state(tblock_sharded.make_sharded_runner(cfg, n, mesh)(s0), device)
-    print(f"  rdma runner: {launched} halo_x_exchange launches in {n} steps", flush=True)
-    if launched != n // tblock_sharded.K_STEPS:
-        raise AssertionError("the rdma runner did not launch the exchange once per block")
+    blocks, rem = divmod(n, tblock_sharded.K_STEPS)
+    want = (blocks + rem, sharded_copies(cfg, n, "tblock"))
+    print(f"  rdma runner: {counts[0]} halo_exchange launches and {counts[1]} copies in "
+          f"{n} steps ({blocks} blocks, {rem} remainder steps)", flush=True)
+    if counts != want:
+        raise AssertionError(f"the rdma runner: {counts} exchange launches and copies, "
+                             f"expected {want} (one launch per block and per remainder "
+                             "step, no halo copy in the loop)")
     return check_close(f"tblock_sharded rdma vs ppermute, {n} steps, mesh "
                        f"{cfg.mesh_shape}", cfg, a.f, b.f, a.rho_lid, b.rho_lid, atol=0.0)
 
@@ -536,28 +681,78 @@ def run_two_processes() -> dict:
             return json.load(fh)
 
 
-def time_x_exchange(cfg: SimConfig, device, state, copy_bw: float) -> dict:
-    """(d) Device ms of one exchange on the mesh at K=5 from ``state``'s
-    carries: the kernel's one launch and the same strips by ``copy_pairs``
-    (its plain version, and the library time), in turns; and its bound."""
+def time_exchange(cfg: SimConfig, device, state) -> dict:
+    """(d) One halo refresh at K=5 on the mesh from ``state``'s carries, in
+    turns: the kernel's whole refresh (one launch), its plain version
+    (``halo.refresh_phases`` copied phase after phase), the same moves by
+    ``copy_pairs`` (the library time), and the x-only table against its
+    strips by ``copy_pairs``; each as device ms with the queue held busy and
+    host us per call (``busy_time``); and the bounds: each rectangle read
+    once and written once at the published rate."""
     mesh = sharded_mesh(device, cfg.mesh_shape)
     k = tblock_sharded.K_STEPS
     lay = halo.Layout.tight(cfg.nx // cfg.mesh_shape[0], cfg.ny // cfg.mesh_shape[1], k)
     carries, panels = halo.pad_blocks(state.f, lay), halo.pad_rows(state.rho_lid, k)
-    halo.copy_pairs(halo.halo_pairs(carries, lay) + halo.row_halo_pairs(panels, k))
-    pairs = halo.move_pairs(halo_rdma.x_moves(carries, panels, lay))
-    forms = {"kernel": halo_rdma.make_x_halo_exchange(mesh, carries, panels, lay),
-             "copies": lambda: halo.copy_pairs(pairs)}
-    ms = {name: [] for name in forms}
-    for name in ("kernel", "copies", "copies", "kernel"):
-        forms[name]()
-        ms[name].append(cuda_time_ms(forms[name], EXCHANGE_REPS))
-    strip_bytes = 2 * sum(src.numel() * src.element_size() for _, src in pairs)
-    out = dict(ms=sum(ms["kernel"]) / 2, plain_ms=sum(ms["copies"]) / 2,
-               bound_ms=strip_bytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
-               copy_bound_ms=strip_bytes / copy_bw * 1e3, strips=len(pairs),
-               strip_bytes=strip_bytes, turns=ms)
-    out["library_ms"] = out["plain_ms"]
+    phases = [halo.move_pairs(p) for p in halo.refresh_phases(carries, panels, lay)]
+    for pairs in phases:    # the rings hold the flow's values
+        halo.copy_pairs(pairs)
+    whole = halo.move_pairs(halo.refresh_moves(carries, panels, lay))
+    x_only = halo.move_pairs(halo_rdma.x_moves(carries, panels, lay))
+    # (call, calls per reading: few enough copies to queue behind the sleep)
+    forms = {
+        "kernel": (halo_rdma.make_halo_exchange(mesh, carries, panels, lay), EXCHANGE_REPS),
+        "plain": (lambda: [halo.copy_pairs(pairs) for pairs in phases], 10),
+        "library": (lambda: halo.copy_pairs(whole), 10),
+        "x kernel": (halo_rdma.make_x_halo_exchange(mesh, carries, panels, lay),
+                     EXCHANGE_REPS),
+        "x library": (lambda: halo.copy_pairs(x_only), 20),
+    }
+    turns = {name: [] for name in forms}
+    for name in list(forms) + list(forms)[::-1]:
+        fn, reps = forms[name]
+        turns[name].append(busy_time(fn, reps))
+
+    def mean(name, i):
+        return sum(t[i] for t in turns[name]) / len(turns[name])
+
+    def rect_bytes(pairs):
+        return 2 * sum(src.numel() * src.element_size() for _, src in pairs)
+
+    out = dict(ms=mean("kernel", 0), host_us=mean("kernel", 1), plain_ms=mean("plain", 0),
+               library_ms=mean("library", 0), bytes=rect_bytes(whole),
+               rects=len(whole), x_ms=mean("x kernel", 0), x_host_us=mean("x kernel", 1),
+               x_library_ms=mean("x library", 0), x_bytes=rect_bytes(x_only),
+               idle_ms=cuda_time_ms(forms["kernel"][0], EXCHANGE_REPS), turns=turns)
+    out["bound_ms"] = out["bytes"] / PEAK_BYTES_PER_S * 1e3
+    out["x_bound_ms"] = out["x_bytes"] / PEAK_BYTES_PER_S * 1e3
+    out["bound_by"] = "bytes"
+    return out
+
+
+def time_runner_pair(runners: dict, state, steps: int) -> dict:
+    """ms per step of each of two runners of ``steps`` steps from
+    ``state``, end to end on an idle queue (at small sizes the host's
+    pace), in turns (first, second, second, first)."""
+    out = {name: [] for name in runners}
+    a, b = runners
+    for name in (a, b, b, a):
+        out[name].append(cuda_time_ms(lambda: runners[name](state), 1) / steps)
+    return out
+
+
+def busy_step_pair(make, state, steps: int) -> dict:
+    """Per step of each of two runners (``make(n)``: both, of ``n`` steps
+    per call) from ``state``, with the queue held busy, in turns: the
+    device ms of a step (calls of ``2 * steps`` less calls of ``steps``, so
+    that the once-per-call padding drops out) and the host us per step of
+    the longer call."""
+    short, long = make(steps), make(2 * steps)
+    out = {name: [] for name in short}
+    a, b = short
+    for name in (a, b, b, a):
+        ms_s, _ = busy_time(lambda: short[name](state), 1)
+        ms_l, host_us = busy_time(lambda: long[name](state), 1)
+        out[name].append(((ms_l - ms_s) / steps, host_us / (2 * steps)))
     return out
 
 
@@ -590,7 +785,8 @@ def time_sharded(cfg: SimConfig, device, state, k_steps: int | None) -> dict:
         runner = pull_sharded.make_sharded_runner(cfg, SHARDED_STEPS, mesh)
         lay, per_launch = pull_sharded.layout(lx, ly), 1
     else:
-        runner = tblock_sharded.make_sharded_runner(cfg, SHARDED_STEPS, mesh, k_steps)
+        runner = tblock_sharded.make_sharded_runner(
+            cfg, SHARDED_STEPS, mesh, k_steps, halo_impl=sim.SHARDED_TBLOCK_HALO_IMPL)
         lay, per_launch = halo.Layout.tight(lx, ly, k_steps), k_steps
     runner(state)
     out = dict(full_ms=cuda_time_ms(lambda: runner(state), 1) / SHARDED_STEPS)
@@ -618,6 +814,10 @@ def time_sharded(cfg: SimConfig, device, state, k_steps: int | None) -> dict:
                 carries[dst][ix][iy], rows[dst][ix][iy], k_steps))
                 for ix, iy in mesh.shards()])
     out["exchange_ms"] = cuda_time_ms(lambda: halo.copy_pairs(exchange), n) / per_launch
+    kernel = halo_rdma.make_halo_exchange(mesh, carries[0], None if k_steps is None
+                                          else rows[0], lay)
+    ms, host_us = busy_time(kernel, EXCHANGE_REPS)
+    out["exchange_kernel_ms"], out["exchange_kernel_host_us"] = ms / per_launch, host_us
     out["fixed_ms"] = cuda_time_ms(lambda: pull_sharded.run_calls(calls[0]), n) / per_launch
 
     def both():
@@ -673,16 +873,29 @@ def run_main_path(cfg: SimConfig, device, out_dir: str, backend: str,
     s_blocks, s_rem = divmod(cfg.report_interval, tblock_sharded.K_STEPS)
     shards = cfg.mesh_shape[0] * cfg.mesh_shape[1]
     want = {name: 0 for name in COUNTERS}
+    rdma = sim.SHARDED_TBLOCK_HALO_IMPL == "rdma"
     want.update({
         "cuda-pull": {"pull_step": steps},
         "cuda-tblock": {"pull_step": chunks * rem, "tblock_step": chunks * blocks},
         "cuda-push": {"push_step": steps},
-        "cuda-sharded": {"pull_sharded_step": shards * steps},
+        # one exchange launch per step (per block) on the mesh of this card
+        "cuda-sharded": {"pull_sharded_step": shards * steps, "halo_exchange": steps},
         "cuda-sharded-tblock": {"pull_sharded_step": shards * chunks * s_rem,
-                                "tblock_sharded_step": shards * chunks * s_blocks},
+                                "tblock_sharded_step": shards * chunks * s_blocks,
+                                "halo_exchange": chunks * (s_rem + s_blocks * rdma)},
     }.get(summary.backend, {}))
     if counts != want:
         raise AssertionError(f"{summary.backend}: launches {counts}, expected {want}")
+    kind = {"cuda-sharded": "pull", "cuda-sharded-tblock": "tblock"}.get(summary.backend)
+    if kind is not None and (kind == "pull" or rdma):
+        # no halo copy per step or block: the runner's copies once per call,
+        # and the observables' padding and two-phase exchange (five copies
+        # per shard) after each call and at the end
+        copies_want = (chunks * sharded_copies(cfg, cfg.report_interval, kind)
+                       + (chunks + 1) * 5 * shards)
+        if halo.copies != copies_want:
+            raise AssertionError(f"{summary.backend}: {halo.copies} halo copies, expected "
+                                 f"{copies_want}")
     for key, (op, limit) in (gates or {}).items():
         value = getattr(summary, key)
         ok = value > limit if op == ">" else value < limit
@@ -843,18 +1056,28 @@ def main() -> None:
                 worst["tblock_sharded_step"], compare_tblock_sharded_pull(
                     dataclasses.replace(sharded_cfg, mesh_shape=shape), device, 64))
 
-    with phase("kernel vs plain: x-ring exchange"):
-        # at both shapes the main path gives the kernel: 4096^2 and the
-        # Re=100 Ghia run's 128^2
+    with phase("kernel vs plain: halo exchange"):
+        # at the shapes the main paths give the kernel: the temporal-block
+        # runner's tight K=5 carries with panels at 4096^2 (2x2, 4x1) and the
+        # Re=100 Ghia run's 128^2; the one-step runner's aligned depth-1
+        # carries at 4096^2 and 128^2; and the x-only table of the JAX contract
+        k = tblock_sharded.K_STEPS
+        errs = []
+        for shape, n, depth, layout in [(s, SHARDED_N, k, "tight") for s in RDMA_MESHES] + [
+                (SHARDED_MESH, sharded_ghia.nx, k, "tight"),
+                (SHARDED_MESH, SHARDED_N, 1, "aligned"),
+                (SHARDED_MESH, sharded_ghia.nx, 1, "aligned")]:
+            errs.append(compare_refresh(device, shape, n, depth, layout))
         for shape, n in [(s, SHARDED_N) for s in RDMA_MESHES] + [
                 (SHARDED_MESH, sharded_ghia.nx)]:
-            worst["halo_x_exchange"] = max(worst["halo_x_exchange"],
-                                           compare_x_exchange(device, shape, n))
+            errs.append(compare_refresh(device, shape, n, k, "tight", x_only=True))
         for cfg in [dataclasses.replace(sharded_cfg, mesh_shape=s) for s in RDMA_MESHES] + [
                 sharded_ghia]:
             for n in RDMA_COMPARE_STEPS:
-                worst["halo_x_exchange"] = max(worst["halo_x_exchange"],
-                                               compare_rdma_runner(cfg, device, n))
+                errs.append(compare_rdma_runner(cfg, device, n))
+        for cfg in (sharded_cfg, sharded_ghia):
+            errs.append(compare_pull_copies(cfg, device, RDMA_COMPARE_STEPS[1]))
+        worst["halo_exchange"] = max(errs)
 
     main_launches = {name: 0 for name in REPLACES}
     with phase("main path: cuda-pull"), tempfile.TemporaryDirectory() as tmp:
@@ -904,29 +1127,53 @@ def main() -> None:
         mesh_devices = [device] * (SHARDED_MESH[0] * SHARDED_MESH[1])
         sharded_run = dataclasses.replace(sharded_cfg, max_steps=2_000,
                                           report_interval=500)
-        # auto, then the sharded kernel auto did not take, in the order
-        # auto, other, other, auto (the first run of a size is slower)
-        sharded_mlups = {"auto": [], "other": []}
-        counts = run_main_path(sharded_run, mesh_devices, tmp, "auto", None,
-                               mlups=sharded_mlups["auto"])
+        # auto, the sharded kernel auto did not take, and auto's route with
+        # the other transport of the temporal-block runner's refresh
+        # (sim.SHARDED_TBLOCK_HALO_IMPL set to the other for the run), in
+        # turns forwards and backwards (the first run of a size is slower)
+        routed_impl = sim.SHARDED_TBLOCK_HALO_IMPL
+        other_impl = {"rdma": "ppermute", "ppermute": "rdma"}[routed_impl]
+        counts = run_main_path(sharded_run, mesh_devices, tmp, "auto", None)
         add_counts(main_launches, counts)
-        other = ("cuda-sharded" if counts["pull_sharded_step"] == 0
-                 else "cuda-sharded-tblock")
-        for key, backend in (("other", other), ("other", other), ("auto", "auto")):
-            add_counts(main_launches, run_main_path(
-                sharded_run, mesh_devices, tmp, backend,
-                None if backend == "auto" else other, mlups=sharded_mlups[key]))
-        auto_name = "cuda-sharded-tblock" if other == "cuda-sharded" else "cuda-sharded"
-        print(f"  {SHARDED_N}^2 mesh {SHARDED_MESH} simulate MLUPS, mean of two: "
-              f"auto ({auto_name}) {sum(sharded_mlups['auto']) / 2:.1f}, {other} "
-              f"{sum(sharded_mlups['other']) / 2:.1f}", flush=True)
-        add_counts(main_launches, run_main_path(
-            sharded_ghia, mesh_devices, tmp, "cuda-sharded", "cuda-sharded",
-            {"r2_ux": (">", 0.99), "l2_combined": ("<", 0.05)}))
+        auto_name = ("cuda-sharded-tblock" if counts["tblock_sharded_step"]
+                     else "cuda-sharded")
+        other = {"cuda-sharded": "cuda-sharded-tblock",
+                 "cuda-sharded-tblock": "cuda-sharded"}[auto_name]
+        runs = [("auto", "auto", routed_impl), (other, other, routed_impl),
+                ("cuda-sharded-tblock " + other_impl, "cuda-sharded-tblock", other_impl)]
+        sharded_mlups = {label: [] for label, _, _ in runs}
+        for label, backend, impl in runs + runs[::-1]:
+            sim.SHARDED_TBLOCK_HALO_IMPL = impl
+            try:
+                add_counts(main_launches, run_main_path(
+                    sharded_run, mesh_devices, tmp, backend,
+                    None if backend == "auto" else backend, mlups=sharded_mlups[label]))
+            finally:
+                sim.SHARDED_TBLOCK_HALO_IMPL = routed_impl
+        print(f"  {SHARDED_N}^2 mesh {SHARDED_MESH} simulate MLUPS in turns (auto is "
+              f"{auto_name}, halo_impl {routed_impl!r}): {sharded_mlups}", flush=True)
+        # the Re=100 Ghia gate at 128^2 on the 2x2 mesh through both runners,
+        # the temporal-block one with either transport, in turns
+        runs = [("cuda-sharded-tblock " + routed_impl, "cuda-sharded-tblock", routed_impl),
+                ("cuda-sharded-tblock " + other_impl, "cuda-sharded-tblock", other_impl),
+                ("cuda-sharded", "cuda-sharded", routed_impl)]
+        ghia_mlups = {label: [] for label, _, _ in runs}
+        for label, backend, impl in runs + runs[::-1]:
+            sim.SHARDED_TBLOCK_HALO_IMPL = impl
+            try:
+                add_counts(main_launches, run_main_path(
+                    sharded_ghia, mesh_devices, tmp, backend, backend,
+                    {"r2_ux": (">", 0.99), "l2_combined": ("<", 0.05)},
+                    mlups=ghia_mlups[label]))
+            finally:
+                sim.SHARDED_TBLOCK_HALO_IMPL = routed_impl
+        print(f"  {sharded_ghia.nx}^2 mesh {SHARDED_MESH} simulate MLUPS in turns: "
+              f"{ghia_mlups}", flush=True)
 
-    with phase("main path: x-ring exchange"):
-        # The runner with halo_impl="rdma" (simulate does not route to it, as
-        # the JAX package's does not), in simulate's 500-step calls.
+    with phase("main path: rdma runner"):
+        # The temporal-block runner with halo_impl="rdma" driven directly, in
+        # simulate's 500-step calls: one exchange launch per block, and no
+        # halo copy in the loop.
         reset_counters()
         halo.copies = 0
         mesh = sharded_mesh(device)
@@ -942,36 +1189,16 @@ def main() -> None:
         shards = SHARDED_MESH[0] * SHARDED_MESH[1]
         blocks = calls * (interval // tblock_sharded.K_STEPS)
         want = {name: 0 for name in COUNTERS}
-        want.update(halo_x_exchange=blocks, tblock_sharded_step=shards * blocks)
+        want.update(halo_exchange=blocks, tblock_sharded_step=shards * blocks)
+        copies_want = calls * sharded_copies(sharded_cfg, interval, "tblock")
         finite = all(bool(torch.isfinite(b).all()) for col in s.f for b in col)
         print(f"  {SHARDED_N}^2 mesh {SHARDED_MESH} rdma runner, {calls} calls of "
               f"{interval} steps: launches={counts} halo copies={halo.copies} "
-              f"finite={finite}", flush=True)
-        if counts != want or not finite:
-            raise AssertionError(f"rdma runner: launches {counts}, expected {want}")
+              f"(expected {copies_want}: per call only) finite={finite}", flush=True)
+        if counts != want or halo.copies != copies_want or not finite:
+            raise AssertionError(f"rdma runner: launches {counts}, expected {want}; "
+                                 f"copies {halo.copies}, expected {copies_want}")
         add_counts(main_launches, counts)
-        # the Re=100 Ghia gate through it, on the 2x2 mesh at 128^2
-        reset_counters()
-        chunk = sharded_ghia.report_interval
-        runner = tblock_sharded.make_sharded_runner(sharded_ghia, chunk, mesh,
-                                                    halo_impl="rdma")
-        s = shard_state(engine.init_state(sharded_ghia, device), mesh)
-        for _ in range(sharded_ghia.max_steps // chunk):
-            s = runner(s)
-        _, u = halo.sharded_observables(sharded_ghia, mesh)(s)
-        ghia = compare_to_ghia(u.cpu().numpy(), sharded_ghia.u_lid, sharded_ghia.reynolds)
-        counts = read_counters()
-        add_counts(main_launches, counts)
-        blocks = sharded_ghia.max_steps // tblock_sharded.K_STEPS   # chunk % K == 0
-        want = {name: 0 for name in COUNTERS}
-        want.update(halo_x_exchange=blocks, tblock_sharded_step=shards * blocks)
-        print(f"  {sharded_ghia.describe()} rdma runner, {sharded_ghia.max_steps} steps: "
-              f"launches={counts} r2_ux={ghia.r2_ux} r2_uy={ghia.r2_uy} "
-              f"l2={ghia.l2_combined}", flush=True)
-        if counts != want:
-            raise AssertionError(f"rdma runner at 128^2: launches {counts}, expected {want}")
-        if not (ghia.r2_ux > 0.99 and ghia.l2_combined < 0.05):
-            raise AssertionError(f"Ghia gate failed through the rdma runner: {ghia}")
         del s, runner
 
     with phase("remote form: two processes on the card"):
@@ -1105,9 +1332,14 @@ def main() -> None:
         s0 = shard_state(engine.init_state(sharded_cfg, device), mesh)
         interval = sharded_run.report_interval
         rest_ms = {}
-        for name, module in (("cuda-sharded", pull_sharded),
-                             ("cuda-sharded-tblock", tblock_sharded)):
-            chunk = module.make_sharded_runner(sharded_cfg, interval, mesh)
+        for name, make in (
+                ("cuda-sharded", lambda: pull_sharded.make_sharded_runner(
+                    sharded_cfg, interval, mesh)),
+                ("cuda-sharded-tblock", lambda: tblock_sharded.make_sharded_runner(
+                    sharded_cfg, interval, mesh, halo_impl=sim.SHARDED_TBLOCK_HALO_IMPL)),
+                ("cuda-sharded-tblock " + other_impl, lambda: tblock_sharded.make_sharded_runner(
+                    sharded_cfg, interval, mesh, halo_impl=other_impl))):
+            chunk = make()
 
             def from_rest():
                 s = s0
@@ -1149,9 +1381,10 @@ def main() -> None:
                   f"{'' if k is None else f' K={k}'}: runner {t['full_ms']:.5f} "
                   f"ms/step ({cells * 1e-3 / t['full_ms']:.1f} MLUPS); kernel launches "
                   f"alone {t['ms']:.5f} ms/step (on one fixed input "
-                  f"{t['fixed_ms']:.5f}); halo exchange alone "
+                  f"{t['fixed_ms']:.5f}); halo exchange alone by copies "
                   f"{t['exchange_ms']:.5f} ms/step ({t['exchange_ms'] / t['full_ms']:.3f} "
-                  f"of the runner); plain {t['plain_ms']:.4f} ms/step; bound "
+                  f"of the runner), by the kernel {t['exchange_kernel_ms']:.5f} ms/step "
+                  f"device, {t['exchange_kernel_host_us']:.2f} us host per launch; plain {t['plain_ms']:.4f} ms/step; bound "
                   f"{t['bound_ms']:.5f} ms/step by {t['bound_by']}", flush=True)
 
         # Is the temporal-block runner ahead of the one-step one?  In turns,
@@ -1159,7 +1392,7 @@ def main() -> None:
         runners = {
             "cuda-sharded": pull_sharded.make_sharded_runner(sharded_cfg, SHARDED_STEPS, mesh),
             "cuda-sharded-tblock": tblock_sharded.make_sharded_runner(
-                sharded_cfg, SHARDED_STEPS, mesh)}
+                sharded_cfg, SHARDED_STEPS, mesh, halo_impl=sim.SHARDED_TBLOCK_HALO_IMPL)}
         ms = {name: [] for name in runners}
         for name in ("cuda-sharded", "cuda-sharded-tblock", "cuda-sharded-tblock",
                      "cuda-sharded") * 2:
@@ -1169,25 +1402,77 @@ def main() -> None:
               f"tblock/one-step {one / blk:.3f}x; ahead by more than "
               f"{AHEAD_MARGIN - 1:.1%}: {one / blk > AHEAD_MARGIN}; sim.py routes auto "
               f"to it for shards of {sim.SHARDED_TBLOCK_AUTO_MIN_CELLS} cells", flush=True)
-        # (d) the x-ring exchange: the kernel alone against the same strips by
-        # copy_pairs, and the temporal-block runner with each x phase, in
-        # turns, from the same state
-        t = time_x_exchange(sharded_cfg, device, s1, copy_bw)
-        timing["halo_x_exchange"] = t
-        print(f"  {SHARDED_N}^2 mesh {SHARDED_MESH} K={tblock_sharded.K_STEPS} x-ring "
-              f"exchange of {t['strips']} strips, {t['strip_bytes']} B read + written: "
-              f"halo_x_exchange {t['ms']:.5f} ms, copy_pairs {t['plain_ms']:.5f} ms "
-              f"(turns {t['turns']}); bound {t['bound_ms']:.5f} ms at the published "
-              f"rate, {t['copy_bound_ms']:.5f} ms at the measured copy rate", flush=True)
-        runners = {impl: tblock_sharded.make_sharded_runner(
-            sharded_cfg, SHARDED_STEPS, mesh, halo_impl=impl) for impl in ("rdma", "ppermute")}
-        ms = {impl: [] for impl in runners}
-        for impl in ("rdma", "ppermute", "ppermute", "rdma"):
-            ms[impl].append(cuda_time_ms(lambda: runners[impl](s1), 1) / SHARDED_STEPS)
-        print(f"  {SHARDED_N}^2 mesh {SHARDED_MESH} tblock_sharded runner in turns: "
-              f"{ms} ms/step; rdma/ppermute speed "
-              f"{sum(ms['ppermute']) / sum(ms['rdma']):.4f}x", flush=True)
+        # (d) the halo refresh: the kernel's one launch against its plain
+        # version and the same moves by copy_pairs; then both runners against
+        # their copy-driven forms, in turns, from the same state
+        t = time_exchange(sharded_cfg, device, s1)
+        timing["halo_exchange"] = t
+        print(f"  {SHARDED_N}^2 mesh {SHARDED_MESH} K={tblock_sharded.K_STEPS} whole-halo "
+              f"refresh of {t['rects']} rectangles, {t['bytes']} B read + written: "
+              f"halo_exchange {t['ms']:.5f} ms device (queue held busy), "
+              f"{t['host_us']:.2f} us host per call, {t['idle_ms']:.5f} ms per call on an "
+              f"idle queue; plain (phases copied in order) {t['plain_ms']:.5f} ms, the "
+              f"same moves by copy_pairs {t['library_ms']:.5f} ms; bound "
+              f"{t['bound_ms']:.5f} ms (bytes). x-only table: {t['x_ms']:.5f} ms device, "
+              f"{t['x_host_us']:.2f} us host, copy_pairs {t['x_library_ms']:.5f} ms, bound "
+              f"{t['x_bound_ms']:.5f} ms; turns (device ms, host us) {t['turns']}",
+              flush=True)
+        steps = RUNNER_TURN_STEPS
+        for label, runners in (
+                ("cuda-sharded-tblock", {
+                    impl: tblock_sharded.make_sharded_runner(
+                        sharded_cfg, steps, mesh, halo_impl=impl)
+                    for impl in ("rdma", "ppermute")}),
+                ("cuda-sharded", {
+                    "kernel": pull_sharded.make_sharded_runner(sharded_cfg, steps, mesh),
+                    "copies": copy_driven_pull_runner(sharded_cfg, steps, mesh)})):
+            ms = time_runner_pair(runners, s1, steps)
+            a, b = runners
+            print(f"  {SHARDED_N}^2 mesh {SHARDED_MESH} {label} runner, {steps}-step calls "
+                  f"in turns: {ms} ms/step; {a}/{b} speed "
+                  f"{sum(ms[b]) / sum(ms[a]):.4f}x", flush=True)
         del s1, runners
+
+    with phase("timing: small grids"):
+        # Per-step device time (queue held busy) and host time at 96^2-128^2,
+        # single-device and on the 2x2 mesh, each runner beside its
+        # copy-driven form where it has one; idle share = 1 - device / end
+        # to end.
+        for n in SMALL_N:
+            cfg = SimConfig(nx=n, ny=n, reynolds=100.0, collision="mrt")
+            s0 = noisy_state(cfg, device)
+            for name, module in (("cuda-pull", pull), ("cuda-tblock", tblock)):
+                runner = module.make_scan_runner(cfg, SMALL_STEPS, device)
+                busy_ms, host_us = busy_time(lambda: runner(s0), 1)
+                end_ms = cuda_time_ms(lambda: runner(s0), 1)
+                print(f"  {n}^2 {name}: device {busy_ms / SMALL_STEPS:.5f} ms/step, host "
+                      f"{host_us / SMALL_STEPS:.2f} us/step, end to end "
+                      f"{end_ms / SMALL_STEPS:.5f} ms/step, idle share "
+                      f"{1 - busy_ms / end_ms:.3f}", flush=True)
+            cfg = dataclasses.replace(cfg, mesh_shape=SHARDED_MESH)
+            mesh = sharded_mesh(device)
+            s0 = shard_state(noisy_state(cfg, device), mesh)
+            for label, make in (
+                    ("cuda-sharded-tblock", lambda steps: {
+                        impl: tblock_sharded.make_sharded_runner(cfg, steps, mesh,
+                                                                 halo_impl=impl)
+                        for impl in ("rdma", "ppermute")}),
+                    ("cuda-sharded", lambda steps: {
+                        "kernel": pull_sharded.make_sharded_runner(cfg, steps, mesh),
+                        "copies": copy_driven_pull_runner(cfg, steps, mesh)})):
+                # end to end in simulate's calls at this size; the device's
+                # time per step from calls short enough to queue behind the
+                # sleep
+                end = time_runner_pair(make(SMALL_CALL_STEPS), s0, SMALL_CALL_STEPS)
+                busy = busy_step_pair(make, s0, SMALL_SHARDED_STEPS)
+                a, b = busy
+                idle = {name: 1 - sum(d for d, _ in busy[name]) / sum(end[name])
+                        for name in busy}
+                print(f"  {n}^2 mesh {SHARDED_MESH} {label} runner in turns: end to end in "
+                      f"{SMALL_CALL_STEPS}-step calls {end} ms/step ({a}/{b} speed "
+                      f"{sum(end[b]) / sum(end[a]):.3f}x); device ms/step (calls of "
+                      f"{2 * SMALL_SHARDED_STEPS} less calls of {SMALL_SHARDED_STEPS} steps) "
+                      f"and host us/step {busy}; idle share {idle}", flush=True)
 
     print(f"chip_smoke total wall time: {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -12,12 +12,12 @@
 //
 // Bound and design: tblock_window.cuh, the 64x64 window this kernel shares
 // with tblock_step.cu; the exchange between launches (tensor copies made by
-// the wrapper, or halo_x_exchange.cu) moves K-deep strips once per K steps
+// the wrapper, or halo_exchange.cu) moves K-deep strips once per K steps
 // instead of one-cell strips every step.  Here a window row is a row of the
 // shard's carry:
 // * The carry is (9, lx + 2K, ly + 2K), y contiguous, the shard's cells at
-//   [K, K + lx) x [K, K + ly), the ring filled by the exchange (y strips
-//   first, then x strips with the corners).  The block of tile (bx, by)
+//   [K, K + lx) x [K, K + ly), the ring filled by the exchange (y and x
+//   strips and the corners).  The block of tile (bx, by)
 //   reads window cell (i, j) from carry cell (bx (64 - 2K) + i,
 //   by (64 - 2K) + j); cells past the carry's edge (the last tiles of a
 //   shard that is no multiple of the tile, or a shard narrower than the

@@ -149,9 +149,10 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         i,                          # k_steps
         p,                          # stream
     ]
-    lib.lbm_halo_x_exchange.argtypes = [
-        p,                          # table of strips (int64, 6 per strip)
-        i, i, ctypes.c_longlong,    # strips, most planes, most floats per plane
+    lib.lbm_halo_exchange.argtypes = [
+        p,                          # table of rectangles (int64, 12 per rectangle)
+        i, ctypes.c_longlong,       # rectangles, slots
+        i, i,                       # device, its SMs
         p,                          # stream
     ]
     lib.lbm_enable_peer_access.argtypes = [i, i]   # device, peer
@@ -162,7 +163,7 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ]
     for fn in (lib.lbm_pull_step, lib.lbm_tblock_step, lib.lbm_push_step,
                lib.lbm_pull_sharded_step, lib.lbm_tblock_sharded_step,
-               lib.lbm_halo_x_exchange, lib.lbm_enable_peer_access,
+               lib.lbm_halo_exchange, lib.lbm_enable_peer_access,
                lib.lbm_exact_div_check):
         fn.restype = ctypes.c_int
     lib.lbm_error_string.argtypes = [ctypes.c_int]

@@ -1,16 +1,22 @@
-"""The x-ring halo exchange of the sharded temporal-block runner as a
-hand-written CUDA kernel that writes each strip straight into the carry that
-receives it.
+"""The halo refresh of the sharded runners as a hand-written CUDA kernel that
+writes each rectangle straight into the carry that receives it.
 
 Counterpart of the JAX package's ``kernels/halo_rdma.py``
-(``make_x_halo_exchange``), which ``tblock_sharded.make_sharded_runner``
-takes with ``halo_impl="rdma"`` in place of the x phase of the exchange.
-The kernel is ``csrc/halo_x_exchange.cu``: one launch per device copies
-every x strip that the device's shards send (f's 9 planes and the
-lid-density panel), from a table of strips fixed once per carry set.  Its
-plain version is the x phase of ``parallel.halo.halo_moves`` plus
-``parallel.halo.row_halo_moves``, copied in order (``parallel.halo.Transfer``,
-which across processes sends and receives over ``torch.distributed``).
+(``make_x_halo_exchange``).  The kernel is ``csrc/halo_exchange.cu``: one
+launch per card copies every rectangle that the card's shards send, from a
+table fixed once per carry set.
+
+* ``make_halo_exchange`` refreshes a mesh's whole halo: y strips, x strips,
+  corners and, with lid-density panels, each panel's x halo and its copy
+  over the column (``parallel.halo.refresh_moves``).  Its plain version is
+  ``parallel.halo.refresh_phases`` copied phase after phase
+  (``parallel.halo.Transfer``, which across processes sends and receives
+  over ``torch.distributed``).  Both sharded runners take it on CUDA
+  devices: ``tblock_sharded`` under ``halo_impl="rdma"``, ``pull_sharded``
+  on a mesh of one process.
+* ``make_x_halo_exchange`` keeps the JAX function's x-only contract (the x
+  phase of the exchange and the panels' x halos, ``x_moves``) over the same
+  kernel.
 
 A destination may be
 
@@ -24,20 +30,23 @@ A destination may be
     allocator's block offset; the handles travel with ``all_gather_object``).
     The exchange is then host-ordered: synchronise, ``barrier`` (no
     neighbour still reads a halo about to be written), launch, synchronise,
-    ``barrier`` (every strip has landed before anyone computes).  Each
+    ``barrier`` (every rectangle has landed before anyone computes).  Each
     process keeps its carries alive while the exchange lives; ``close``
     unmaps the neighbours' carries, after which the processes meet at a
     barrier, so no carry is freed while another process maps it.
 
-On CUDA devices the exchange launches the kernel or raises; on the CPU it
-runs the plain version.  There is no fallback from one to the other.
-``launches`` counts the kernel's launches in this process.
+The table, the stream and the launch arguments are fixed when the exchange
+is made (on each card's current stream then), so a call on one card is one
+``ctypes`` call.  On CUDA devices the exchange launches the kernel or
+raises; on the CPU it runs the plain version.  There is no fallback from one
+to the other.  ``launches`` counts the kernel's launches in this process.
 """
 
 from __future__ import annotations
 
+import functools
 import os
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -49,71 +58,109 @@ from . import _build
 
 launches = 0
 
-Row = Tuple[int, int, int, int, int, int]
+# A table row: source and destination addresses, planes, rows, floats per
+# row, source plane and row strides, destination plane and row strides,
+# whether the two share their 16-byte phase on every row, slots per row and
+# the first slot (csrc/halo_exchange.cu).
+Row = Tuple[int, ...]
+# Rows at least this many floats long go by 16-byte lines where both sides
+# keep one phase; shorter ones (y strips, corners) one float a slot, so that
+# a warp's lanes take neighbouring floats of neighbouring rows.
+VECTOR_MIN = 32
+_MAX_SLOTS = 2**31 - 1
+_MAX_RECTS = 227 * 1024 // (12 * 8)   # the table in a block's shared memory
 
 
-def _run(view: torch.Tensor) -> Tuple[int, int, int]:
-    """``(planes, plane stride, floats per plane)`` of a strip that is one
-    contiguous run per plane (a panel strip is one plane)."""
+def _rect(view: torch.Tensor) -> Tuple[int, int, int, int, int]:
+    """``(planes, rows, floats per row, plane stride, row stride)`` of a view
+    whose last axis is contiguous (a panel strip is one row)."""
     if view.dtype != torch.float32:
         raise ValueError(f"the exchange kernel is float32, not {view.dtype}")
-    planes, stride, plane = (1, 0, view) if view.dim() == 1 else (
-        view.shape[0], view.stride(0), view[0])
-    if not plane.is_contiguous():
-        raise ValueError("the exchange kernel takes strips that are one contiguous "
-                         "run per plane: the tight carry (halo.Layout.tight)")
-    return planes, stride, plane.numel()
+    if not 1 <= view.dim() <= 3 or view.stride(-1) != 1:
+        raise ValueError("the exchange kernel takes rectangles of up to 3 axes "
+                         f"whose last axis is contiguous, not {tuple(view.shape)} "
+                         f"with strides {view.stride()}")
+    shape = (1,) * (3 - view.dim()) + tuple(view.shape)
+    strides = (0,) * (3 - view.dim()) + view.stride()
+    return (*shape, strides[0], strides[1])
 
 
-def strip_rows(pairs: List[halo.Pair]) -> List[Row]:
-    """The kernel's table rows for (destination, source) views: source and
-    destination addresses, planes, their plane strides, floats per plane."""
-    rows = []
+def rect_rows(pairs: List[halo.Pair]) -> List[Row]:
+    """The kernel's table rows for (destination, source) views, with each
+    rectangle's first slot in the launch's flat index."""
+    rows, first = [], 0
     for dst, src in pairs:
-        planes, src_stride, count = _run(src)
-        dst_planes, dst_stride, dst_count = _run(dst)
-        if (planes, count) != (dst_planes, dst_count):
-            raise ValueError(f"a strip of {tuple(src.shape)} into one of {tuple(dst.shape)}")
-        rows.append((src.data_ptr(), dst.data_ptr(), planes, src_stride, dst_stride, count))
+        planes, nrows, count, src_plane, src_row = _rect(src)
+        d_planes, d_rows, d_count, dst_plane, dst_row = _rect(dst)
+        if (planes, nrows, count) != (d_planes, d_rows, d_count):
+            raise ValueError(f"a rectangle of {tuple(src.shape)} into one of "
+                             f"{tuple(dst.shape)}")
+        if nrows == 1 or src_row == dst_row == count:
+            # rows that follow each other on both sides: one run per plane
+            nrows, count, src_row, dst_row = 1, nrows * count, 0, 0
+        if planes * nrows * count == 0:
+            continue
+        src_at, dst_at = src.data_ptr(), dst.data_ptr()
+        vector = (count >= VECTOR_MIN and (src_at - dst_at) % 16 == 0
+                  and (planes == 1 or (src_plane - dst_plane) % 4 == 0)
+                  and (nrows == 1 or (src_row - dst_row) % 4 == 0))
+        slots = (count + 6) // 4 if vector else count
+        rows.append((src_at, dst_at, planes, nrows, count, src_plane, src_row,
+                     dst_plane, dst_row, int(vector), slots, first))
+        first += planes * nrows * slots
+    if first > _MAX_SLOTS or len(rows) > _MAX_RECTS:
+        raise ValueError(f"{len(rows)} rectangles of {first} slots exceed the exchange "
+                         f"kernel's {_MAX_RECTS} rectangles or {_MAX_SLOTS} slots")
     return rows
 
 
-def _launch(lib, table: torch.Tensor, rows: List[Row], stream: Optional[int]) -> None:
+def n_slots(rows: List[Row]) -> int:
+    """The slots of a table: the flat index the launch covers."""
+    last = rows[-1]
+    return last[11] + last[2] * last[3] * last[10]
+
+
+def _launch(lib, table_ptr: int, n_rects: int, slots: int, device: int, sms: int,
+            stream: Optional[int]) -> None:
     global launches
-    err = lib.lbm_halo_x_exchange(table.data_ptr(), len(rows), max(r[2] for r in rows),
-                                  max(r[5] for r in rows), stream)
+    err = lib.lbm_halo_exchange(table_ptr, n_rects, slots, device, sms, stream)
     if err != 0:
         raise RuntimeError(
-            f"halo_x_exchange launch failed: {lib.lbm_error_string(err).decode()}")
+            f"halo_exchange launch failed: {lib.lbm_error_string(err).decode()}")
     launches += 1
 
 
 def x_moves(carries: Blocks, panels: Blocks, layout: halo.Layout) -> List[halo.Move]:
-    """What the kernel copies, and its plain version in order: the x phase
-    of ``halo.halo_moves`` and the panels' ``halo.row_halo_moves``."""
+    """What the x-only exchange copies, and its plain version in order: the
+    x phase of ``halo.halo_moves`` and the panels' ``halo.row_halo_moves``."""
     return halo.halo_moves(carries, layout)[1] + halo.row_halo_moves(panels, layout.depth)
 
 
-class XHaloExchange:
-    """The x phase of the exchange on one set of carries and panels, with
-    its strips, tables and mappings fixed once.  Call it to run the phase;
-    ``close`` it when the carries are done with."""
+class HaloExchange:
+    """An exchange on one set of carries (and panels), with its rectangles,
+    tables, launch arguments and mappings fixed once.  ``moves()`` gives
+    what the kernel copies, in any order; ``phases()`` its plain version,
+    copied phase after phase (each made only where it runs).  Call it to
+    run the exchange; ``close`` it when the carries are done with."""
 
-    def __init__(self, mesh: Mesh, carries: Blocks, panels: Blocks,
-                 layout: halo.Layout):
-        moves = x_moves(carries, panels, layout)
+    def __init__(self, mesh: Mesh, moves: Callable[[], List[halo.Move]],
+                 phases: Callable[[], List[List[halo.Move]]], carries: Blocks,
+                 panels: Optional[Blocks]):
         local = {mesh.device(*s) for s in mesh.local_shards()}
         self._mapped: Dict[tuple, torch.Tensor] = {}
         self._groups = []
         self._plain = None
         if all(d.type == "cpu" for d in local):
-            self._plain = halo.Transfer(mesh, moves)
+            self._plain = halo.transfers(mesh, phases())
             return
         if any(d.type != "cuda" for d in local):
             raise ValueError(f"the exchange kernel takes CUDA devices, not {local}")
+        moves = moves()
         self._cross = mesh.spans_processes
         self._devices = sorted(local, key=str)
-        kinds = {id(carries): ("carry", carries), id(panels): ("panel", panels)}
+        kinds = {id(carries): ("carry", carries)}
+        if panels is not None:
+            kinds[id(panels)] = ("panel", panels)
         if self._cross:
             self._mapped = _map_neighbours(mesh, moves, kinds)
         lib = _build.load_library()
@@ -134,16 +181,27 @@ class XHaloExchange:
                 writes.add(view.device)
                 if mesh.is_local(*dst.shard):
                     peers.add(view.device)
+        self._tables = []
         for device, (pairs, writes, peers) in by_device.items():
             for other in writes:
                 err = lib.lbm_enable_peer_access(device.index, other.index)
                 if err != 0:
                     raise RuntimeError(f"{device} cannot write into {other}: "
                                        f"{lib.lbm_error_string(err).decode()}")
-            rows = strip_rows(pairs)
-            table = torch.tensor(rows, dtype=torch.int64, device=device)
-            self._groups.append((device, table, rows, sorted(peers, key=str)))
-        self._lib = lib
+            rows = rect_rows(pairs)
+            if not rows:
+                continue
+            # from pinned memory, so that the upload does not wait for the
+            # work already queued on the card
+            staged = torch.tensor(rows, dtype=torch.int64).pin_memory()
+            table = staged.to(device, non_blocking=True)
+            self._tables += [staged, table]
+            stream = torch.cuda.current_stream(device)
+            sms = torch.cuda.get_device_properties(device).multi_processor_count
+            launch = functools.partial(_launch, lib, table.data_ptr(), len(rows),
+                                       n_slots(rows), device.index, sms, stream.cuda_stream)
+            peer_streams = [torch.cuda.current_stream(p) for p in sorted(peers, key=str)]
+            self._groups.append((launch, stream, peer_streams))
 
     def __call__(self) -> None:
         if self._plain is not None:
@@ -152,15 +210,14 @@ class XHaloExchange:
         if self._cross:
             self._synchronize()
             dist.barrier()
-        for device, table, rows, peers in self._groups:
-            stream = torch.cuda.current_stream(device)
+        for launch, stream, peers in self._groups:
             for peer in peers:   # the peer's work so far, which may read its halo
-                stream.wait_event(torch.cuda.current_stream(peer).record_event())
-            with torch.cuda.device(device):
-                _launch(self._lib, table, rows, stream.cuda_stream)
-            written = stream.record_event() if peers else None
-            for peer in peers:   # the peer's next work reads what landed
-                torch.cuda.current_stream(peer).wait_event(written)
+                stream.wait_event(peer.record_event())
+            launch()
+            if peers:
+                written = stream.record_event()
+                for peer in peers:   # the peer's next work reads what landed
+                    peer.wait_event(written)
         if self._cross:
             self._synchronize()
             dist.barrier()
@@ -180,8 +237,8 @@ class XHaloExchange:
 
 
 def ipc_plan(mesh: Mesh, moves, kinds) -> Tuple[Dict[int, List[tuple]], Dict[tuple, int]]:
-    """Which tensors of this process each other process writes strips into
-    (``{writer rank: [(kind, shard), ...]}``, the offers), and on which
+    """Which tensors of this process each other process writes rectangles
+    into (``{writer rank: [(kind, shard), ...]}``, the offers), and on which
     card this process opens each tensor of another process that it writes
     into (``{(kind, shard): card index}``).  ``kinds`` maps ``id`` of the
     carries and of the panels to ``(kind, blocks)``.
@@ -205,8 +262,11 @@ def ipc_plan(mesh: Mesh, moves, kinds) -> Tuple[Dict[int, List[tuple]], Dict[tup
             raise ValueError(
                 f"the exchange kernel maps the {key[0]} of shard {key[1]} once into "
                 f"rank {writer}, but that rank writes into it from cards "
-                f"{sorted(writing)}: place the x neighbours of a shard of another "
-                "process on one card of the rank (make_pod_mesh's devices_per_rank)")
+                f"{sorted(writing)}: place every neighbour of a shard of another "
+                "process (x, y and diagonal: the refresh writes the corners straight "
+                "from the diagonal neighbour, so a layout whose x and diagonal "
+                "neighbours sit on two cards of one rank is refused too) on one card "
+                "of the rank (make_pod_mesh's devices_per_rank)")
     return offers, {key: next(iter(writing)) for (writer, key), writing in cards.items()
                     if writer == mesh.rank}
 
@@ -214,7 +274,7 @@ def ipc_plan(mesh: Mesh, moves, kinds) -> Tuple[Dict[int, List[tuple]], Dict[tup
 def _map_neighbours(mesh: Mesh, moves, kinds) -> Dict[tuple, torch.Tensor]:
     """The carries and panels of other processes that this one writes
     into, mapped into it through CUDA IPC as ``ipc_plan`` lays out: each
-    process offers the tensors it receives strips into, once to each
+    process offers the tensors it receives rectangles into, once to each
     process that writes them, and opens the ones offered to it on the card
     that writes them (CUDA maps an IPC handle into the address space of the
     card it is opened on, with peer access to the card that holds the
@@ -238,11 +298,26 @@ def _map_neighbours(mesh: Mesh, moves, kinds) -> Dict[tuple, torch.Tensor]:
     return mapped
 
 
+def make_halo_exchange(mesh: Mesh, carries: Blocks, panels: Optional[Blocks],
+                       layout: halo.Layout) -> HaloExchange:
+    """The refresh of the whole halo of ``carries`` (of ``layout``, any
+    depth, tight or aligned) and, where given, of their
+    ``(lx + 2*depth,)`` lid-density ``panels`` (their x halos and their
+    copy from each column's ``iy = 0`` shard over the rest of it), fixed
+    for this set of buffers: a runner with two buffers makes one for each.
+    On a mesh that spans processes every process makes it at once (the IPC
+    handles are exchanged here)."""
+    return HaloExchange(mesh, lambda: halo.refresh_moves(carries, panels, layout),
+                        lambda: halo.refresh_phases(carries, panels, layout), carries, panels)
+
+
 def make_x_halo_exchange(mesh: Mesh, carries: Blocks, panels: Blocks,
-                         layout: halo.Layout) -> XHaloExchange:
-    """The x phase of the exchange on ``carries`` (of the tight ``layout``,
-    K = ``layout.depth`` deep) and their ``(lx + 2K,)`` lid-density
-    ``panels``, fixed for this set of buffers: a runner with two buffers
-    makes one for each.  On a mesh that spans processes every process makes
-    it at once (the IPC handles are exchanged here)."""
-    return XHaloExchange(mesh, carries, panels, layout)
+                         layout: halo.Layout) -> HaloExchange:
+    """The x phase of the exchange on ``carries`` (of ``layout``, K =
+    ``layout.depth`` deep) and the x halos of their ``(lx + 2K,)``
+    lid-density ``panels`` (the JAX function's contract), over the same
+    kernel, fixed for this set of buffers."""
+    def moves():
+        return x_moves(carries, panels, layout)
+
+    return HaloExchange(mesh, moves, lambda: [moves()], carries, panels)

@@ -10,18 +10,24 @@ plain sharded engine (``parallel/halo.py``).  The kernel is
 Each shard carries its block inside a one-cell halo ring, in two buffers
 per shard of the layout ``layout(lx, ly)``: ``(9, lx + 2, pitch)``, the
 cells' rows starting on a 128-byte line (``parallel.halo.Layout.aligned``).
-A step is the two-phase halo exchange (four strip copies per shard,
-``parallel.halo.halo_moves``) and one launch per shard, which reads one
-buffer and writes the other's cells.  On a mesh that spans processes
-(``parallel.multihost``) each process runs its own shards, and the strips
+A step is the halo refresh and one launch per shard, which reads one
+buffer and writes the other's cells.  On a mesh of one process whose shards
+are CUDA devices the refresh is one launch per card of the exchange kernel
+(``kernels/halo_rdma.make_halo_exchange``: y and x strips and corners,
+written straight into the receiving carries); elsewhere it is the two-phase
+exchange of strip copies (``parallel.halo.halo_moves``, four per shard),
+and on a mesh that spans processes (``parallel.multihost``) the strips
 between processes travel over ``torch.distributed``
-(``parallel.halo.Transfer``), one phase at a time.  A shard on a CUDA device launches the kernel or raises; a shard
-on the CPU runs the plain version (what the CPU tests exercise).  There is
-no fallback from one to the other.
+(``parallel.halo.Transfer``), one phase at a time: a host-ordered IPC
+exchange every step would cost more than the sends.  A shard on a CUDA
+device launches the kernel or raises; a shard on the CPU runs the plain
+version (what the CPU tests exercise).  There is no fallback from one to
+the other.
 
-``launches`` counts the kernel's launches in this process; the copies of
-the exchange count in ``parallel.halo.copies``, its strips sent to other
-processes in ``parallel.halo.sends``.
+``launches`` counts the kernel's launches in this process; the exchange
+kernel's launches count in ``halo_rdma.launches``, the copies of the
+exchange in ``parallel.halo.copies``, its strips sent to other processes in
+``parallel.halo.sends``.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import torch
 from ..config import SimConfig
 from ..parallel import halo
 from ..parallel.mesh import Mesh
-from . import _build, pull
+from . import _build, halo_rdma, pull
 
 launches = 0
 
@@ -142,9 +148,18 @@ def _launch(lib, f_ptr: int, rho_ptr: int, cs2_ptr: int | None, f_out_ptr: int,
     launches += 1
 
 
+def _exchange(mesh: Mesh, carries, lay: halo.Layout):
+    """The refresh of ``carries``' one-cell halo as one call: the exchange
+    kernel on a mesh of one process on CUDA devices, else the two phases of
+    strip copies (and sends across processes)."""
+    if mesh.on_cuda and not mesh.spans_processes:
+        return halo_rdma.make_halo_exchange(mesh, carries, None, lay)
+    return halo.transfers(mesh, halo.refresh_phases(carries, None, lay))
+
+
 def make_sharded_runner(cfg: SimConfig, n_steps: int, mesh: Mesh):
     """``n_steps`` sharded steps per call on a ``ShardedState``: per step the
-    halo exchange, then one launch per shard of this process.  Each call
+    halo refresh, then one launch per shard of this process.  Each call
     pads its input into fresh buffers, fixes the views of the exchange and
     the arguments of the launches for both buffers once, and returns new
     blocks; the input is never written.  On a mesh that spans processes
@@ -164,15 +179,13 @@ def make_sharded_runner(cfg: SimConfig, n_steps: int, mesh: Mesh):
         exchange, steps = [], []
         for src in (0, 1):
             dst = 1 - src
-            exchange.append([halo.Transfer(mesh, phase)
-                             for phase in halo.halo_moves(carries[src], lay)])
+            exchange.append(_exchange(mesh, carries[src], lay))
             steps.append([(mesh.device(ix, iy), _shard_call(
                 cfg, lay, carries[src][ix][iy], rows[src][ix][iy],
                 halo.edge_flags(mesh.shape, ix, iy), None if cs2 is None else cs2[ix][iy],
                 carries[dst][ix][iy], rows[dst][ix][iy])) for ix, iy in mesh.local_shards()])
         for i in range(n_steps):
-            for phase in exchange[i % 2]:
-                phase()
+            exchange[i % 2]()
             run_calls(steps[i % 2])
         out = n_steps % 2
         halo.Transfer(mesh, halo.replicate_moves(rows[out]))()

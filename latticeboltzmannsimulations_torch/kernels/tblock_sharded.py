@@ -12,13 +12,15 @@ ring keeps the shard's own cells exact for K steps.
 
 Each shard carries its block padded with a K-deep halo ring,
 ``(9, lx + 2K, ly + 2K)``, and its lid density as an ``(lx + 2K,)`` panel,
-in two buffers each.  Every K steps the ring is refreshed by the two-phase
-exchange (``parallel.halo.halo_moves``), the panel's x halo by the same x
-phase, and each shard launches the kernel once; then the panel is copied
-from the shard that owns the lid to the rest of its column.  The x phase is
-strip copies (``halo_impl="ppermute"``, the JAX runner's default) or the
-x-ring exchange kernel, which writes the strips straight into the
-neighbours' carries (``halo_impl="rdma"``, ``kernels/halo_rdma.py``).  On a
+in two buffers each.  Every K steps the halo is refreshed and each shard
+launches the kernel once.  The refresh (``parallel.halo.refresh_phases``)
+fills each ring from the neighbours and each panel's x halo, and copies the
+panel of the shard that owns the lid over the rest of its column.  Under
+``halo_impl="ppermute"`` (the JAX runner's default) it is strip copies in
+phases; under ``halo_impl="rdma"`` one launch per card of the exchange
+kernel (``kernels/halo_rdma.py``), which writes every rectangle straight
+into the receiving carries.  A last copy of the panels over their columns
+after the final block keeps every ``iy``'s lid density the same.  On a
 mesh that spans processes (``parallel.multihost``) each process runs its
 own shards and the strips between processes travel over
 ``torch.distributed`` (or, under ``"rdma"``, through carries mapped by CUDA
@@ -175,9 +177,9 @@ def make_sharded_runner(cfg: SimConfig, n_steps: int, mesh: Mesh,
     """``n_steps`` sharded steps per call on a ``ShardedState``:
     ``n_steps // k_steps`` blocks of one exchange and one launch per shard
     of this process, then ``n_steps % k_steps`` steps of the one-step
-    sharded kernel.  ``halo_impl`` is the x phase's transport (one of
-    ``HALO_IMPLS``); the y phase and the lid panel's replication are copies
-    either way, the y phase first.  Each call pads its input into fresh
+    sharded kernel.  ``halo_impl`` is the refresh's transport (one of
+    ``HALO_IMPLS``): strip copies phase after phase, or one exchange launch
+    per card.  Each call pads its input into fresh
     buffers, fixes the exchange and the arguments of the launches for both
     buffers once, and returns new blocks; the input is never written.  On a
     mesh that spans processes every process calls it at once, with its own
@@ -198,33 +200,33 @@ def make_sharded_runner(cfg: SimConfig, n_steps: int, mesh: Mesh,
             carries.append(halo.empty_blocks(carries[0]))
             panels = [halo.pad_rows(state.rho_lid, k)]
             panels.append(halo.empty_blocks(panels[0]))
-            exchange, blocks, replicate, kernels = [], [], [], []
+            exchange, blocks, kernels = [], [], []
             try:
                 for src in (0, 1):
                     dst = 1 - src
-                    y_phase, x_phase = halo.halo_moves(carries[src], lay)
+                    # the refresh: y, x, corners, the panels' x halos and
+                    # their copy over each column
                     if halo_impl == "rdma":
-                        kernels.append(halo_rdma.make_x_halo_exchange(
+                        kernels.append(halo_rdma.make_halo_exchange(
                             mesh, carries[src], panels[src], lay))
-                        x_exchange = kernels[-1]
+                        exchange.append(kernels[-1])
                     else:
-                        x_exchange = halo.Transfer(
-                            mesh, x_phase + halo.row_halo_moves(panels[src], k))
-                    exchange.append([halo.Transfer(mesh, y_phase), x_exchange])
+                        exchange.append(halo.transfers(
+                            mesh, halo.refresh_phases(carries[src], panels[src], lay)))
                     blocks.append([(mesh.device(ix, iy), _block_call(
                         cfg, carries[src][ix][iy], panels[src][ix][iy], (ix * lx, iy * ly),
                         carries[dst][ix][iy], panels[dst][ix][iy], k))
                         for ix, iy in mesh.local_shards()])
-                    replicate.append(halo.Transfer(mesh, halo.replicate_moves(panels[dst])))
                 for i in range(n_blocks):
-                    for phase in exchange[i % 2]:   # y, then x
-                        phase()
+                    exchange[i % 2]()
                     pull_sharded.run_calls(blocks[i % 2])
-                    replicate[i % 2]()
             finally:
                 for kernel in kernels:
                     kernel.close()
             out = n_blocks % 2
+            # the launches write the lid density of the iy = 0 shards: copy
+            # it over the columns, as every refresh does before a block
+            halo.Transfer(mesh, halo.replicate_moves(panels[out]))()
             state = halo.ShardedState(halo.unpad_blocks(carries[out], lay),
                                       halo.unpad_rows(panels[out], k))
         if single is not None:

@@ -23,6 +23,12 @@ that spans processes a strip whose two ends lie in different processes is
 sent and received over ``torch.distributed`` instead (``Transfer``), one
 phase at a time; ``sends`` and ``staged`` count those strips.
 
+The refresh of a mesh's whole halo (every carry's ring and, for the
+temporal-block runner, its lid panels' x halos and their copy over each
+column) is defined by ``refresh_phases``; ``refresh_moves`` gives the same
+result as moves that may run in any order, what the halo exchange kernel
+(``kernels/halo_rdma.py``) copies in one launch per card.
+
 This module is also the plain version of the sharded CUDA kernels:
 ``local_step`` on a one-cell padded block for ``kernels/pull_sharded.py``,
 and ``masked_step`` with masks keyed to the global cell for
@@ -206,6 +212,59 @@ def replicate_moves(rows: Blocks) -> List[Move]:
             for ix in range(len(rows)) for iy in range(1, len(rows[0]))]
 
 
+def refresh_phases(carries: Blocks, panels: Optional[Blocks],
+                   layout: Layout) -> List[List[Move]]:
+    """The refresh of a mesh's whole halo, as phases of moves copied one
+    phase after the other: the y phase, then the x phase (with the x halo
+    of every ``(lx + 2*depth,)`` lid-density panel, where ``panels`` are
+    given), then each ``iy = 0`` shard's panel over the rest of its column.
+    This is the definition of the refresh; ``refresh_moves`` is the same
+    result in one set of moves."""
+    y_phase, x_phase = halo_moves(carries, layout)
+    if panels is None:
+        return [y_phase, x_phase]
+    return [y_phase, x_phase + row_halo_moves(panels, layout.depth),
+            replicate_moves(panels)]
+
+
+def refresh_moves(carries: Blocks, panels: Optional[Blocks],
+                  layout: Layout) -> List[Move]:
+    """The refresh of ``refresh_phases`` as moves that run in any order:
+    every source is a shard's own cells and every destination a halo cell
+    or the panel of a shard that does not own the lid, so no move reads
+    what another writes.  Each carry gets eight rectangles: its two y
+    strips and two x strips from its axis neighbours, and its four K x K
+    corners straight from its diagonal neighbours (where the phases carry
+    them through the x neighbour's y halo).  Each panel's x halo, and the
+    cells of a panel with ``iy > 0``, come straight from the ``iy = 0``
+    panels of the columns."""
+    mx, my = len(carries), len(carries[0])
+    d, lx, ly, y0 = layout.depth, layout.lx, layout.ly, layout.y0
+    # (destination span, source span in the neighbour, step to the neighbour)
+    xs = ((slice(0, d), slice(lx, lx + d), -1), (slice(d, d + lx), slice(d, d + lx), 0),
+          (slice(d + lx, lx + 2 * d), slice(d, 2 * d), 1))
+    ys = ((slice(y0 - d, y0), slice(y0 + ly - d, y0 + ly), -1),
+          (slice(y0, y0 + ly), slice(y0, y0 + ly), 0),
+          (slice(y0 + ly, y0 + ly + d), slice(y0, y0 + d), 1))
+    moves = []
+    for ix in range(mx):
+        for iy in range(my):
+            for x_dst, x_src, sx in xs:
+                for y_dst, y_src, sy in ys:
+                    if sx or sy:
+                        moves.append((Strip(carries, (ix, iy), (ALL, x_dst, y_dst)),
+                                      Strip(carries, ((ix + sx) % mx, (iy + sy) % my),
+                                            (ALL, x_src, y_src))))
+    if panels is not None:
+        for ix in range(mx):
+            for iy in range(my):
+                for x_dst, x_src, sx in xs:
+                    if sx or iy:
+                        moves.append((Strip(panels, (ix, iy), (x_dst,)),
+                                      Strip(panels, ((ix + sx) % mx, 0), (x_src,))))
+    return moves
+
+
 def move_pairs(moves: List[Move]) -> List[Pair]:
     """The (destination, source) views of moves whose ends this process
     holds."""
@@ -278,6 +337,17 @@ class Transfer:
             view.copy_(buf)
         sends += len(self.sends)
         staged += len(self.sends) + len(self.recvs)
+
+
+def transfers(mesh: Mesh, phases: List[List[Move]]) -> Callable[[], None]:
+    """A call that runs each phase as a ``Transfer``, one after the other."""
+    fixed = [Transfer(mesh, phase) for phase in phases]
+
+    def run() -> None:
+        for transfer in fixed:
+            transfer()
+
+    return run
 
 
 def _buffer(view: torch.Tensor) -> torch.Tensor:

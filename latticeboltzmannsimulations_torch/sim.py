@@ -27,8 +27,9 @@ backends asked for) the lattice is split over the mesh's devices
   step.  ``"auto"`` picks it for float32 NEBB on a mesh of CUDA devices.
 * ``"cuda-sharded-tblock"`` — the sharded temporal-block CUDA kernel
   (``kernels/tblock_sharded.py``), one exchange and one launch per shard per
-  ``K`` steps.  ``"auto"`` picks it for shards of at least
-  ``SHARDED_TBLOCK_AUTO_MIN_CELLS`` cells (None: never).
+  ``K`` steps, the exchange one launch per card of the exchange kernel
+  (``SHARDED_TBLOCK_HALO_IMPL``).  ``"auto"`` picks it for shards of at
+  least ``SHARDED_TBLOCK_AUTO_MIN_CELLS`` cells (None: never).
 * ``"sharded"`` — the plain sharded engine (``parallel/halo.py``), for the
   rest (float64, a mesh on the CPU).
 
@@ -137,6 +138,14 @@ TBLOCK_AUTO_MIN_CELLS: Optional[int] = 2048 * 2048
 # section 6).
 SHARDED_TBLOCK_AUTO_MIN_CELLS: Optional[int] = 2048 * 2048
 
+# The transport of cuda-sharded-tblock's halo refresh (a mesh of CUDA devices
+# in one process): "rdma", the exchange kernel's one launch per card, where
+# chip_smoke.py counts that runner ahead of the strip copies ("ppermute") in
+# every reading of the runners at 4096^2 and 128^2 on a 2x2 mesh of one H100,
+# from rest and further on, and of simulate at 128^2 (PERF.md, section 6).
+# The two give the same bits.
+SHARDED_TBLOCK_HALO_IMPL = "rdma"
+
 BACKENDS = ("auto", "cuda-pull", "cuda-tblock", "cuda-push", "push-oracle", "torch",
             "cuda-sharded", "cuda-sharded-tblock", "sharded")
 _SHARDED = ("cuda-sharded", "cuda-sharded-tblock", "sharded")
@@ -195,14 +204,19 @@ def _select_sharded(cfg: SimConfig, backend: str, mesh: Mesh) -> Backend:
     """The sharded half of the routing, as the JAX driver's sharded branch:
     ``auto`` takes the one-step kernel for float32 NEBB on CUDA devices (the
     temporal-block one for shards of ``SHARDED_TBLOCK_AUTO_MIN_CELLS``
-    cells), the plain sharded engine otherwise."""
+    cells), the plain sharded engine otherwise.  The temporal-block runner
+    refreshes its halo through ``SHARDED_TBLOCK_HALO_IMPL`` (the mesh is one
+    process on CUDA devices: ``simulate`` runs in one process and the route
+    takes only CUDA devices); the one-step runner takes the exchange kernel
+    by itself on such a mesh."""
     observe = halo.sharded_observables(cfg, mesh)
     prep = lambda s: halo.shard_state(s, mesh)  # noqa: E731
     kernels = {
         "cuda-sharded": (pull_sharded.unsupported_reason,
                          lambda n: pull_sharded.make_sharded_runner(cfg, n, mesh)),
         "cuda-sharded-tblock": (tblock_sharded.unsupported_reason,
-                                lambda n: tblock_sharded.make_sharded_runner(cfg, n, mesh)),
+                                lambda n: tblock_sharded.make_sharded_runner(
+                                    cfg, n, mesh, halo_impl=SHARDED_TBLOCK_HALO_IMPL)),
     }
     if backend == "auto" and mesh.on_cuda:
         if (SHARDED_TBLOCK_AUTO_MIN_CELLS is not None
@@ -232,7 +246,9 @@ def _select_backend(cfg: SimConfig, backend: str, device: Placement) -> Backend:
     engine for float64 and the tangential lid, and the push oracle for the
     walls only it implements.  A mesh, or a sharded backend, goes to
     ``_select_sharded``; ``device`` is then the ``Mesh`` (or, for a 1 x 1
-    mesh, its one device)."""
+    mesh, its one device), and ``cuda-sharded-tblock`` refreshes its halo
+    through ``SHARDED_TBLOCK_HALO_IMPL`` ("rdma": one exchange kernel
+    launch per card)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     if cfg.mesh_shape != (1, 1) or backend in _SHARDED:

@@ -13,9 +13,10 @@ are read as they are, and a copy is rewritten for the host:
 * every launch ``kernel<<<grid, block, smem, stream>>>(args)`` becomes a
   loop over the grid's blocks, in four passes by the parity of their x and
   y (a block that wrote a cell its neighbour owns would then show);
-  dynamic shared memory is a host buffer;
+  dynamic shared memory, of any type, is a host buffer;
 * ``float4`` is a 16-byte struct, ``__fmaf_rn`` is ``std::fma``, and the
-  runtime calls that enable peer access do nothing.
+  runtime calls that enable peer access or set a kernel's shared memory do
+  nothing.
 
 The library is called through ``ctypes`` by each wrapper's own ``_launch``,
 on CPU tensors.  It holds every kernel to its plain version at atol 2e-5
@@ -24,9 +25,13 @@ these bit for bit on ragged shapes: ``tblock_step`` against ``pull_step``
 (fields smaller than its window and than its halo included),
 the sharded one-step kernel on a mesh against ``pull_step`` on the global
 grid, and the sharded temporal-block kernel against the sharded one-step
-kernel; and the x-ring exchange kernel against the plain x-phase copies
-byte for byte, on ragged shapes, ``mx == 1`` (the ring copies onto itself)
-included, and on runs of every alignment; and ``lbm_cell.cuh``'s exact
+kernel; and the halo exchange kernel byte for byte against the refresh's
+definition (``halo.refresh_phases`` copied in order) on meshes (1, 1) to
+(4, 1), ragged shards, K of 1, 4 and 5, tight carries with lid panels and
+aligned ones without, its x-only table against the x-phase copies, and
+rectangles of rows of every 16-byte phase and of both kinds of slot (one
+float; a 16-byte line) with the grid sized for one SM and for 132; and
+``lbm_cell.cuh``'s exact
 constant division against ``x / b`` on a sample of floats (the card checks
 all of them).  A serial run cannot show a race; the card tests
 (``test_torch_cuda.py``) and ``chip_smoke.py`` stay for that.  Skips without
@@ -141,8 +146,8 @@ def _matching(text: str, start: int, open_: str, close: str) -> int:
 def _emulate(source: str) -> str:
     """A CUDA source rewritten for the serial host build."""
     text = re.sub(r"constexpr int kThreads = [^;]+;", "constexpr int kThreads = 1;", source)
-    text = re.sub(r"extern __shared__ float (\w+)\[\];",
-                  r"float* \1 = emu::dynamic_smem();", text)
+    text = re.sub(r"extern __shared__ (\w[\w ]*?) (\w+)\[\];",
+                  r"\1* \2 = reinterpret_cast<\1*>(emu::dynamic_smem());", text)
     while "<<<" in text:
         at = text.index("<<<")
         name = re.search(r"(\w+(?:<[^<>]*>)?)\s*$", text[:at]).group(1)
@@ -380,11 +385,30 @@ def test_tblock_sharded_equals_pull_sharded(lib, nx, ny, mesh_shape, k):
            _global(_pull_sharded_steps(lib, cfg, mesh, s0, 2 * k)))
 
 
-def _x_exchange(lib, pairs):
+def _exchange(lib, pairs, sms=132):
     """One launch of the emulated exchange kernel on (destination, source)
-    views, through the wrapper's table rows and ``_launch``."""
-    rows = halo_rdma.strip_rows(pairs)
-    halo_rdma._launch(lib, torch.tensor(rows, dtype=torch.int64), rows, None)
+    views, through the wrapper's table rows and ``_launch``, its grid sized
+    for ``sms`` SMs (one SM: each thread strides over several slots)."""
+    rows = halo_rdma.rect_rows(pairs)
+    table = torch.tensor(rows, dtype=torch.int64)
+    halo_rdma._launch(lib, table.data_ptr(), len(rows), halo_rdma.n_slots(rows), 0, sms,
+                      None)
+
+
+def _random_blocks(gen, mesh_shape, *size):
+    mx, my = mesh_shape
+    return tuple(tuple(torch.randn(size, generator=gen) for _ in range(my))
+                 for _ in range(mx))
+
+
+def _clone(blocks):
+    return tuple(tuple(b.clone() for b in col) for col in blocks)
+
+
+def _assert_same_bytes(got, want):
+    for col_g, col_w in zip(got, want):
+        for g, w in zip(col_g, col_w):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
 
 @pytest.mark.parametrize("mesh_shape, lx, ly, k", [
@@ -395,23 +419,73 @@ def _x_exchange(lib, pairs):
     ((4, 1), 33, 70, 5),     # runs long enough for several float4 per thread
 ])
 def test_x_exchange_equals_plain_copies(lib, mesh_shape, lx, ly, k):
+    """``make_x_halo_exchange``'s table (the x phase, full ring height, and
+    the panels' x halos) against the same moves copied in order."""
     gen = torch.Generator().manual_seed(1)
     lay = halo.Layout.tight(lx, ly, k)
-    mx, my = mesh_shape
+    carries = _random_blocks(gen, mesh_shape, 9, lx + 2 * k, ly + 2 * k)
+    panels = _random_blocks(gen, mesh_shape, lx + 2 * k)
+    plain = [_clone(carries), _clone(panels)]
+    halo.copy_pairs(halo.move_pairs(halo_rdma.x_moves(*plain, lay)))
+    _exchange(lib, halo.move_pairs(halo_rdma.x_moves(carries, panels, lay)))
+    _assert_same_bytes(carries, plain[0])
+    _assert_same_bytes(panels, plain[1])
 
-    def blocks(shape):
-        return tuple(tuple(torch.randn(shape, generator=gen) for _ in range(my))
-                     for _ in range(mx))
 
-    carries, panels = blocks((9, lx + 2 * k, ly + 2 * k)), blocks((lx + 2 * k,))
-    plain = [tuple(tuple(b.clone() for b in col) for col in bl) for bl in (carries, panels)]
-    halo.copy_pairs(halo.halo_pairs(plain[0], lay)[2 * mx * my:]
-                    + halo.row_halo_pairs(plain[1], k))
-    _x_exchange(lib, halo.halo_pairs(carries, lay)[2 * mx * my:]
-                + halo.row_halo_pairs(panels, k))
-    for got, want in zip((carries, panels), plain):
-        for ix, iy in ((ix, iy) for ix in range(mx) for iy in range(my)):
-            assert torch.equal(got[ix][iy].view(torch.int32), want[ix][iy].view(torch.int32))
+# Ragged shards per mesh, each at least 5 cells wide (the deepest K).
+REFRESH_SHARDS = {(1, 1): (7, 5), (2, 1): (13, 11), (1, 2): (9, 6), (2, 2): (10, 7),
+                  (3, 2): (6, 9), (4, 1): (33, 70)}
+
+
+@pytest.mark.parametrize("kind", ["tight", "aligned"])
+@pytest.mark.parametrize("k", [1, 4, 5])
+@pytest.mark.parametrize("mesh_shape", list(REFRESH_SHARDS))
+def test_halo_exchange_equals_plain_composition(lib, mesh_shape, k, kind):
+    """The whole refresh in one launch (``halo.refresh_moves``: corners from
+    the diagonal shard, panels from ``iy = 0``) against its definition,
+    ``halo.refresh_phases`` copied phase after phase, byte for byte, the
+    rest of every carry untouched.  Tight carries with panels, as the
+    temporal-block runner has them; aligned ones without, as the one-step
+    runner has them."""
+    gen = torch.Generator().manual_seed(2)
+    lx, ly = REFRESH_SHARDS[mesh_shape]
+    lay = getattr(halo.Layout, kind)(lx, ly, k)
+    carries = _random_blocks(gen, mesh_shape, 9, lx + 2 * k, lay.pitch)
+    panels = _random_blocks(gen, mesh_shape, lx + 2 * k) if kind == "tight" else None
+    plain = [_clone(carries), None if panels is None else _clone(panels)]
+    for phase in halo.refresh_phases(*plain, lay):
+        halo.copy_pairs(halo.move_pairs(phase))
+    _exchange(lib, halo.move_pairs(halo.refresh_moves(carries, panels, lay)))
+    _assert_same_bytes(carries, plain[0])
+    if panels is not None:
+        _assert_same_bytes(panels, plain[1])
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+def test_halo_exchange_rectangles_of_every_phase(lib, sms):
+    """Rectangles of 2 planes x 3 rows of short rows (one float a slot) and
+    long ones (16-byte lines where both sides keep one phase: the float4
+    body with its scalar head and tail), their rows starting at every
+    4-byte phase of a 16-byte line on either side, with row strides that
+    keep or shift the phase from row to row, in one launch."""
+    src = torch.arange(1 << 18, dtype=torch.float32)
+    dst = torch.full((1 << 18,), -1.0)
+    want = dst.clone()
+    pairs, at = [], 0
+    for a in range(4):
+        for b in range(4):
+            for n in (1, 5, 9, 32, 33, 35, 38):
+                for s_row, d_row in ((40, 40), (41, 41), (40, 42), (43, 40)):
+                    def rect(t, off, row):
+                        return t[at + off:at + off + 320].view(2, 160)[:, :3 * row].unflatten(
+                            1, (3, row))[:, :, :n]
+                    pairs.append((rect(dst, b, d_row), rect(src, a, s_row)))
+                    rect(want, b, d_row).copy_(rect(src, a, s_row))
+                    at += 384
+    rows = halo_rdma.rect_rows(pairs)
+    assert {r[9] for r in rows} == {0, 1}     # both kinds of slot
+    _exchange(lib, pairs, sms)
+    assert torch.equal(dst, want)
 
 
 def test_x_exchange_runs_of_every_alignment(lib):
@@ -428,7 +502,7 @@ def test_x_exchange_runs_of_every_alignment(lib):
                 pairs.append((dst[at + b:at + b + n], src[at + a:at + a + n]))
                 want[at + b:at + b + n] = src[at + a:at + a + n]
                 at += 32
-    _x_exchange(lib, pairs)
+    _exchange(lib, pairs)
     assert torch.equal(dst, want)
 
 

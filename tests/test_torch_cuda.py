@@ -6,7 +6,9 @@ card, which has no JAX; there, skip this directory's JAX conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerance atol 2e-5 over 20 float32 steps: an independent float32
-implementation, whose order of operations and FMA contraction differ."""
+implementation, whose order of operations and FMA contraction differ.  The
+halo exchange kernel and the runners it drives are held to their copies
+exactly (``torch.equal``): it only moves values."""
 
 import dataclasses
 
@@ -462,20 +464,28 @@ def test_x_exchange_equals_plain_copies(cuda, mesh_shape, nx, ny, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 1), (1, 1)])
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 1), (1, 1), (1, 2), (3, 2)])
 @pytest.mark.parametrize("n", [20, 23])
 def test_rdma_runner_equals_ppermute(cuda, mesh_shape, n):
     """``halo_impl="rdma"`` against ``"ppermute"``: the same values move,
     so the runners agree bit for bit, through the remainder too; one
-    exchange launch per block."""
-    cfg = SimConfig(nx=200, ny=160, reynolds=1000.0, collision="mrt",
-                    mesh_shape=mesh_shape)
+    exchange launch per block (and one per remainder step, through the
+    one-step runner) and no halo copy in the loop."""
+    cfg = SimConfig(nx=200 - 200 % mesh_shape[0], ny=160, reynolds=1000.0,
+                    collision="mrt", mesh_shape=mesh_shape)
     mesh = _mesh(cuda, mesh_shape)
     s0 = shard_state(engine.init_state(cfg, device=cuda), mesh)
-    before = halo_rdma.launches
+    blocks, rem = divmod(n, tblock_sharded.K_STEPS)
+    before = (halo_rdma.launches, halo.copies)
     a = unshard_state(tblock_sharded.make_sharded_runner(cfg, n, mesh, halo_impl="rdma")(s0),
                       cuda)
-    assert halo_rdma.launches - before == n // tblock_sharded.K_STEPS
+    assert halo_rdma.launches - before[0] == blocks + rem
+    # per call: pad and unpad the blocks and panels, and one copy of the
+    # panels over their columns after the last block
+    # (the remainder's runner pads and unpads the blocks, pads the lid
+    # density and copies it over the columns)
+    shards, mx = mesh_shape[0] * mesh_shape[1], mesh_shape[0]
+    assert halo.copies - before[1] == 5 * shards - mx + (4 * shards - mx if rem else 0)
     b = unshard_state(tblock_sharded.make_sharded_runner(cfg, n, mesh)(s0), cuda)
     torch.cuda.synchronize()
     assert torch.equal(a.f, b.f) and torch.equal(a.rho_lid, b.rho_lid)
@@ -484,11 +494,98 @@ def test_rdma_runner_equals_ppermute(cuda, mesh_shape, n):
 @pytest.mark.cuda
 def test_x_exchange_refuses_what_it_cannot_copy(cuda):
     mesh = _mesh(cuda, (2, 1))
-    lay = halo.Layout.aligned(16, 32, 5)
-    carries = tuple((lay.new(torch.empty(9, 16, 32, device=cuda)),) for _ in range(2))
+    lay = halo.Layout.tight(16, 32, 5)
+    carries = tuple((torch.zeros(9, 26, 42, device=cuda, dtype=torch.float64),)
+                    for _ in range(2))
     panels = tuple((torch.zeros(26, device=cuda),) for _ in range(2))
-    with pytest.raises(ValueError, match="one contiguous run per plane"):
+    with pytest.raises(ValueError, match="float32"):
         halo_rdma.make_x_halo_exchange(mesh, carries, panels, lay)
+    with pytest.raises(ValueError, match="a rectangle of"):
+        halo_rdma.rect_rows([(torch.zeros(3, device=cuda), torch.zeros(4, device=cuda))])
+
+
+def _random_blocks(gen, device, mesh_shape, *size):
+    mx, my = mesh_shape
+    return tuple(tuple(torch.rand(size, generator=gen, device=device) for _ in range(my))
+                 for _ in range(mx))
+
+
+def _check_refresh(mesh, carries, panels, lay, launches):
+    """One ``make_halo_exchange`` call against ``halo.refresh_phases``
+    copied in order on a copy: equal bit for bit, in ``launches``
+    launches."""
+    plain = [halo.empty_blocks(carries), None if panels is None else halo.empty_blocks(panels)]
+    for want, got in zip(plain, (carries, panels)):
+        if want is not None:
+            for ix, iy in mesh.shards():
+                want[ix][iy].copy_(got[ix][iy])
+    exchange = halo_rdma.make_halo_exchange(mesh, carries, panels, lay)
+    before = halo_rdma.launches
+    exchange()
+    assert halo_rdma.launches - before == launches
+    for phase in halo.refresh_phases(*plain, lay):
+        halo.copy_pairs(halo.move_pairs(phase))
+    torch.cuda.synchronize()
+    for got, want in zip((carries, panels), plain):
+        if want is not None:
+            for ix, iy in mesh.shards():
+                assert torch.equal(got[ix][iy], want[ix][iy])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tight", "aligned"])
+@pytest.mark.parametrize("mesh_shape, nx, ny, k", [
+    ((2, 2), 130, 98, 5),
+    ((4, 1), 200, 150, 5),
+    ((1, 1), 48, 40, 5),     # every neighbour is the shard itself
+    ((3, 2), 66, 46, 4),
+    ((1, 2), 64, 70, 1),
+    ((2, 1), 70, 64, 1),
+])
+def test_halo_exchange_equals_plain_composition(cuda, mesh_shape, nx, ny, k, kind):
+    """The whole refresh in one launch for the mesh of this card (y and x
+    strips, corners from the diagonal shard; with panels on the tight
+    layout, their x halos and their copy from ``iy = 0``) against its
+    definition copied in order, bit for bit."""
+    lay = getattr(halo.Layout, kind)(nx // mesh_shape[0], ny // mesh_shape[1], k)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    carries = _random_blocks(gen, cuda, mesh_shape, 9, lay.lx + 2 * k, lay.pitch)
+    panels = (_random_blocks(gen, cuda, mesh_shape, lay.lx + 2 * k)
+              if kind == "tight" else None)
+    _check_refresh(_mesh(cuda, mesh_shape), carries, panels, lay, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, steps", [(130, 20), (200, 7)])
+def test_pull_sharded_runner_equals_copy_driven_steps(cuda, n, steps):
+    """The one-step runner, whose refresh is one exchange launch per step,
+    against the same launches driven by the two-phase strip copies: equal
+    bit for bit, with no halo copy inside the loop."""
+    cfg = SimConfig(nx=n, ny=n, reynolds=1000.0, collision="mrt", mesh_shape=(2, 2))
+    mesh = _mesh(cuda, (2, 2))
+    s0 = shard_state(engine.init_state(cfg, device=cuda), mesh)
+    before = (halo_rdma.launches, halo.copies)
+    a = unshard_state(pull_sharded.make_sharded_runner(cfg, steps, mesh)(s0), cuda)
+    assert halo_rdma.launches - before[0] == steps
+    # pad and unpad the blocks, pad the lid density and copy it over the columns
+    assert halo.copies - before[1] == 3 * 4 + 2
+    lay = pull_sharded.layout(n // 2, n // 2)
+    carries = [halo.pad_blocks(s0.f, lay)]
+    carries.append(halo.empty_blocks(carries[0]))
+    rows = [halo.pad_rows(s0.rho_lid, 0)]
+    rows.append(halo.empty_blocks(rows[0]))
+    for i in range(steps):
+        src, dst = i % 2, 1 - i % 2
+        halo.copy_pairs(halo.halo_pairs(carries[src], lay))
+        pull_sharded.run_calls([(cuda, pull_sharded._shard_call(
+            cfg, lay, carries[src][ix][iy], rows[src][ix][iy],
+            halo.edge_flags(mesh.shape, ix, iy), None, carries[dst][ix][iy],
+            rows[dst][ix][iy])) for ix, iy in mesh.shards()])
+    halo.copy_pairs(halo.replicate_pairs(rows[steps % 2]))
+    b = unshard_state(halo.ShardedState(halo.unpad_blocks(carries[steps % 2], lay),
+                                        rows[steps % 2]), cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(a.f, b.f) and torch.equal(a.rho_lid, b.rho_lid)
 
 
 # Meshes that span cards (skipped with fewer cards): the exchange kernel's
@@ -512,15 +609,38 @@ def test_rdma_across_the_cards_of_one_process(cuda, mesh_shape):
                     mesh_shape=mesh_shape)
     s0 = engine.init_state(cfg, device=cuda)
     outs = []
-    for mesh, impl in ((make_mesh(mesh_shape), "rdma"), (make_mesh(mesh_shape), "ppermute"),
-                       (_mesh(cuda, mesh_shape), "ppermute")):
+    for mesh, impl, cards in ((make_mesh(mesh_shape), "rdma", n_cards),
+                              (make_mesh(mesh_shape), "ppermute", n_cards),
+                              (_mesh(cuda, mesh_shape), "ppermute", 1)):
         before = halo_rdma.launches
         outs.append(unshard_state(tblock_sharded.make_sharded_runner(
             cfg, 23, mesh, halo_impl=impl)(shard_state(s0, mesh)), cuda))
-        assert halo_rdma.launches - before == (4 * n_cards if impl == "rdma" else 0)
+        # one launch per card per block under rdma, per remainder step always
+        assert halo_rdma.launches - before == (4 * (impl == "rdma") + 3) * cards
     torch.cuda.synchronize()
     for out in outs[1:]:
         assert torch.equal(outs[0].f, out.f) and torch.equal(outs[0].rho_lid, out.rho_lid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape, kind, k", [((2, 1), "tight", 5), ((1, 2), "tight", 5),
+                                                 ((2, 1), "aligned", 1)])
+def test_halo_exchange_across_two_cards(cuda, mesh_shape, kind, k):
+    """A shard per card: one launch per card, each writing its rectangles
+    into the other card's carry and panel (peer writes, event-ordered),
+    equal bit for bit to the refresh copied in order."""
+    _needs_cards(2)
+    mesh = make_mesh(mesh_shape)
+    lay = getattr(halo.Layout, kind)(96 // mesh_shape[0], 80 // mesh_shape[1], k)
+    torch.manual_seed(5)
+
+    def blocks(*size):
+        return tuple(tuple(torch.rand(size, device=mesh.device(ix, iy))
+                           for iy in range(mesh_shape[1])) for ix in range(mesh_shape[0]))
+
+    carries = blocks(9, lay.lx + 2 * k, lay.pitch)
+    panels = blocks(lay.lx + 2 * k) if kind == "tight" else None
+    _check_refresh(mesh, carries, panels, lay, 2)
 
 
 def _ranks_on_cards(rank, shape):

@@ -41,7 +41,7 @@ def test_sources_never_name_jax_or_the_jax_package():
             "lbm_cell.cuh", "boundary.py", "mesh.py", "halo.py", "pull_sharded.py",
             "tblock_sharded.py", "pull_sharded_step.cu",
             "tblock_sharded_step.cu", "multihost.py", "halo_rdma.py",
-            "halo_x_exchange.cu"} <= names
+            "halo_exchange.cu"} <= names
     jax_import = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
     for path in files:
         text = path.read_text()

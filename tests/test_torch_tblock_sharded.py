@@ -182,6 +182,26 @@ def test_auto_takes_the_sharded_temporal_block_kernel_from_the_measured_size(n):
     assert t_sim._select_backend(cfg, "auto", mesh).name == want
 
 
+@pytest.mark.parametrize("backend, n", [("cuda-sharded-tblock", 64), ("auto", 4096)])
+def test_the_temporal_block_route_refreshes_through_the_exchange_kernel(
+        monkeypatch, backend, n):
+    """On a one-process mesh of CUDA devices the ``cuda-sharded-tblock``
+    route builds its runner with ``halo_impl="rdma"`` (the exchange kernel's
+    one launch per card, ahead of the strip copies in every reading of
+    chip_smoke.py; the same bits): the selection alone, no card needed."""
+    asked = []
+    monkeypatch.setattr(tblock_sharded, "make_sharded_runner",
+                        lambda cfg, n_steps, mesh, **kw: asked.append(kw))
+    cfg = TConfig(nx=n, ny=n, reynolds=5000.0, collision="mrt", mesh_shape=(2, 2))
+    mesh = make_mesh(cfg.mesh_shape, [CUDA] * 4)
+    assert not mesh.spans_processes
+    routed = t_sim._select_backend(cfg, backend, mesh)
+    assert routed.name == "cuda-sharded-tblock"
+    routed.make_runner(10)
+    assert t_sim.SHARDED_TBLOCK_HALO_IMPL == "rdma"
+    assert asked == [{"halo_impl": "rdma"}]
+
+
 def test_explicit_kernel_off_the_card_raises(tmp_path):
     cfg = TConfig(nx=64, ny=64, reynolds=100.0, max_steps=20, report_interval=10,
                   mesh_shape=(2, 2))
