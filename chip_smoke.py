@@ -104,6 +104,31 @@ Phases, each printed with its wall time:
    busy), host time, end-to-end time and idle share of ``cuda-pull`` and
    ``cuda-tblock``, and on the 2x2 mesh of both sharded runners beside
    their copy-driven forms, in turns.
+The sweep form of ``pull_step`` (``lbm_pull_sweep_step``: cavities stacked
+along x, each with its own omega) and the surrogate pipeline:
+
+(g) at the datagen CLI's cavity (384^2, SRT + Smagorinsky, float32) with 32
+    stacked cavities: the kernel against the plain stacked step
+    (``engine.make_stacked_step_omega``) over 20 steps from rest and from a
+    noisy state (atol 2e-5); the stack against cavities 0, 15 and 31 run
+    alone through the one-cavity form over 200 steps (max |d| = 0); a
+    cavity seeded with NaN, every other cavity finite and equal to its run
+    alone; TRT and MRT at 128^2 with 4 cavities against the plain step;
+    timing in turns against ``pull_step`` at 1024^2, per cell (ms/step,
+    MLUPS, the fraction of the 72 B/cell bound), and the one-cavity runner's
+    device time per step at 384^2 with the queue held busy;
+(h) ``ml.generate_dataset`` at 384^2 over 32 Re (100..410) through the
+    stacked kernel, 4 000 steps in 2 000-step chunks, its launches counted
+    (set to 0 just before, read just after), its steps, wall time and
+    MLUPS; the four arrays' shapes and finiteness; ``save_dataset`` /
+    ``load_dataset`` round trip; a batch of 4 through the plain engine on
+    the card against the kernel's route after 20 steps (atol 2e-5);
+(i) serving: ``cnn_eight`` at 384^2 with seeded random weights,
+    ``build_input`` on (h)'s ``feq_initial`` with ``prepare_inputs``'
+    scalers, ``predict_velocity`` on the card against the CPU (rtol 1e-4,
+    atol 1e-5, TF32 off), and a batch-20 forward pass timed with TF32 off
+    and on.
+
 The last three lines are ``nvidia-smi``'s line, one JSON object describing
 each kernel, and ``{"ok": true, "device": {...}}``.  Any failed check raises,
 so the script exits non-zero and prints no result; so does a machine with no
@@ -122,13 +147,14 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 import torch.distributed as dist
 from torch.multiprocessing.reductions import rebuild_cuda_tensor, reduce_tensor
 
 import latticeboltzmannsimulations_torch as lbt
-from latticeboltzmannsimulations_torch import engine, sim
+from latticeboltzmannsimulations_torch import engine, ml, sim
 from latticeboltzmannsimulations_torch.config import SimConfig
 from latticeboltzmannsimulations_torch.kernels import (
     _build,
@@ -148,6 +174,7 @@ from latticeboltzmannsimulations_torch.parallel import (
     shard_state,
     unshard_state,
 )
+from latticeboltzmannsimulations_torch.ml import datagen, models, predict, train
 from latticeboltzmannsimulations_torch.sim import SimOptions, simulate
 from latticeboltzmannsimulations_torch.validate import compare_to_ghia
 
@@ -164,11 +191,18 @@ REPLACES = {
     "tblock_sharded_step": "kernels/pallas_pull_tblock_sharded.py:57 (_make_kernel)",
     "halo_exchange": ("kernels/halo_rdma.py:137 (make_x_halo_exchange; "
                       "_make_local_kernel :57, _make_remote_kernel :85)"),
+    "pull_sweep_step": ("kernels/pallas_pull.py:470 (the pallas_call's sweep form: "
+                        "make_sweep_runner :560, make_scan_runner_omega :543)"),
 }
 SOURCES = {name: f"latticeboltzmannsimulations_torch/csrc/{name}.cu" for name in REPLACES}
-COUNTERS = {"pull_step": pull, "tblock_step": tblock, "push_step": push,
-            "pull_sharded_step": pull_sharded, "tblock_sharded_step": tblock_sharded,
-            "halo_exchange": halo_rdma}
+SOURCES["pull_sweep_step"] = SOURCES["pull_step"]     # a second entry of that source
+# Each kernel's launch counter: (module, attribute).
+COUNTERS = {"pull_step": (pull, "launches"), "tblock_step": (tblock, "launches"),
+            "push_step": (push, "launches"),
+            "pull_sharded_step": (pull_sharded, "launches"),
+            "tblock_sharded_step": (tblock_sharded, "launches"),
+            "halo_exchange": (halo_rdma, "launches"),
+            "pull_sweep_step": (pull, "sweep_launches")}
 COMPARE_STEPS = 20
 TBLOCK_COMPARE_K = 8
 BENCH_N = 1024
@@ -218,6 +252,27 @@ SMALL_SHARDED_STEPS = 10
 SMALL_CALL_STEPS = 2_000           # the Ghia runs' report interval
 # Steps per call of the sharded runners timed in turns at 4096^2.
 RUNNER_TURN_STEPS = 480
+# The sweep form: the datagen CLI's cavity (384^2, SRT + Smagorinsky, float32)
+# with generate_dataset's default batch of 32 stacked cavities; the cavities
+# run alone against the stack, the NaN cavity, and the small TRT/MRT case.
+SWEEP_N = 384
+SWEEP_CAV = 32
+SWEEP_SINGLES = (0, 15, 31)
+SWEEP_SINGLE_STEPS = 200
+SWEEP_NAN_CAVITY = 7
+SWEEP_NAN_STEPS = 50
+SWEEP_SMALL_N, SWEEP_SMALL_CAV = 128, 4
+# generate_dataset on the card: 32 Re from 100, two chunks of the CLI's
+# interval; the plain engine's batch and steps beside the kernel's route.
+DATAGEN_RE = np.arange(100.0, 420.0, 10.0)
+DATAGEN_MAX_STEPS = 4_000
+DATAGEN_INTERVAL = 2_000
+DATAGEN_PLAIN_BATCH = 4
+# Serving: the preset at its native grid, the Re of the input, and the
+# forward passes per timing.
+SERVE_PRESET = "cnn_eight"
+SERVE_RE = 255.0
+SERVE_REPS = 10
 
 
 @contextlib.contextmanager
@@ -387,21 +442,27 @@ def compare_push(name: str, cfg: SimConfig, device) -> float:
 
 def check_runner_ping_pong(device) -> None:
     """The scan runner's two buffers give the same trajectory as stepping
-    (an odd count ends on the second buffer), and leave the input alone."""
-    cfg = SimConfig(nx=128, ny=128, reynolds=400.0, collision="mrt")
-    s0 = engine.init_state(cfg, device)
-    f0 = s0.f.clone()
-    out = pull.make_scan_runner(cfg, 7, device)(s0)
-    step = pull.make_step(cfg, device)
-    s = s0
-    for _ in range(7):
-        s = step(s)
-    torch.cuda.synchronize()
-    if not (torch.equal(out.f, s.f) and torch.equal(out.rho_lid, s.rho_lid)):
-        raise AssertionError("scan runner and stepwise kernel differ")
-    if not torch.equal(s0.f, f0):
-        raise AssertionError("the scan runner wrote its input state")
-    print("  scan runner (7 steps) == 7 single steps, input untouched", flush=True)
+    (an odd count ends on the second buffer), and leave the input alone;
+    with Van Driest damping too (the runner keeps its Cs^2 plane alive)."""
+    for name, kw in (("mrt", dict(reynolds=400.0, collision="mrt")),
+                     ("srt+smagorinsky+van_driest", dict(
+                         reynolds=5000.0, collision="srt", turbulence="smagorinsky",
+                         van_driest=True))):
+        cfg = SimConfig(nx=128, ny=128, **kw)
+        s0 = engine.init_state(cfg, device)
+        f0 = s0.f.clone()
+        out = pull.make_scan_runner(cfg, 7, device)(s0)
+        step = pull.make_step(cfg, device)
+        s = s0
+        for _ in range(7):
+            s = step(s)
+        torch.cuda.synchronize()
+        if not (torch.equal(out.f, s.f) and torch.equal(out.rho_lid, s.rho_lid)):
+            raise AssertionError(f"{name}: scan runner and stepwise kernel differ")
+        if not torch.equal(s0.f, f0):
+            raise AssertionError(f"{name}: the scan runner wrote its input state")
+        print(f"  {name}: scan runner (7 steps) == 7 single steps, input untouched",
+              flush=True)
 
 
 def sharded_mesh(device, shape=SHARDED_MESH):
@@ -836,12 +897,12 @@ def time_sharded(cfg: SimConfig, device, state, k_steps: int | None) -> dict:
 
 
 def reset_counters() -> None:
-    for module in COUNTERS.values():
-        module.launches = 0
+    for module, attr in COUNTERS.values():
+        setattr(module, attr, 0)
 
 
 def read_counters() -> dict:
-    return {name: module.launches for name, module in COUNTERS.items()}
+    return {name: getattr(module, attr) for name, (module, attr) in COUNTERS.items()}
 
 
 def run_main_path(cfg: SimConfig, device, out_dir: str, backend: str,
@@ -949,6 +1010,84 @@ def time_plain(step, state, reps: int = 10) -> float:
         holder[0] = step(holder[0])
 
     return cuda_time_ms(once, reps)
+
+
+def sweep_config(n: int = SWEEP_N, **kw) -> SimConfig:
+    """The datagen CLI's cavity (``cli.py`` datagen: SRT + Smagorinsky,
+    float32) at ``n``^2."""
+    return SimConfig(**{"nx": n, "ny": n, "reynolds": 100.0, "collision": "srt",
+                        "turbulence": "smagorinsky", **kw}).validate()
+
+
+def sweep_start(cfg: SimConfig, n_cav: int, device, seed: int | None = None):
+    """``n_cav`` cavities stacked along x from rest (with seeded noise when
+    ``seed`` is given), and their omegas: Re from 100 in steps of 150."""
+    s = engine.init_state(cfg, device)
+    f = s.f.expand(n_cav, *s.f.shape)
+    if seed is not None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        f = f * (1.0 + 1e-3 * torch.randn(f.shape, generator=gen, device=device))
+    state = engine.stack_cavities(engine.State(f, s.rho_lid.expand(n_cav, *s.rho_lid.shape)))
+    omegas = [dataclasses.replace(cfg, reynolds=100.0 + 150.0 * c).omega
+              for c in range(n_cav)]
+    return state, omegas
+
+
+def cavity(state: engine.State, nx: int, c: int) -> engine.State:
+    return engine.State(state.f[:, c * nx:(c + 1) * nx].contiguous(),
+                        state.rho_lid[c * nx:(c + 1) * nx].clone())
+
+
+def compare_sweep(name: str, cfg: SimConfig, n_cav: int, device,
+                  seed: int | None) -> float:
+    """20 sweep-kernel steps against 20 plain stacked steps."""
+    s0, omegas = sweep_start(cfg, n_cav, device, seed)
+    plain = engine.make_stacked_step_omega(cfg, n_cav)
+    om = torch.tensor(omegas, dtype=torch.float32, device=device)
+    s_p = s0
+    for _ in range(COMPARE_STEPS):
+        s_p = plain(s_p, om)
+    s_k = pull.make_sweep_runner(cfg, n_cav, COMPARE_STEPS, device)(s0, omegas)
+    start = "rest" if seed is None else "noisy"
+    return check_close(f"sweep x{n_cav} {name} from {start}", cfg, s_k.f, s_p.f,
+                       s_k.rho_lid, s_p.rho_lid)
+
+
+def compare_sweep_singles(cfg: SimConfig, device) -> None:
+    """The stack of SWEEP_CAV against cavities SWEEP_SINGLES run alone
+    through the one-cavity form (the same entry and table) over
+    SWEEP_SINGLE_STEPS steps: they must agree exactly."""
+    s0, omegas = sweep_start(cfg, SWEEP_CAV, device, seed=3)
+    out = pull.make_sweep_runner(cfg, SWEEP_CAV, SWEEP_SINGLE_STEPS, device)(s0, omegas)
+    single = pull.make_scan_runner_omega(cfg, SWEEP_SINGLE_STEPS, device)
+    for c in SWEEP_SINGLES:
+        alone = single(cavity(s0, cfg.nx, c), omegas[c])
+        check_close(f"sweep x{SWEEP_CAV} cavity {c} vs alone, {SWEEP_SINGLE_STEPS} steps",
+                    cfg, cavity(out, cfg.nx, c).f, alone.f, cavity(out, cfg.nx, c).rho_lid,
+                    alone.rho_lid, atol=0.0)
+
+
+def check_sweep_nan(cfg: SimConfig, device) -> None:
+    """One cavity seeded with NaN: every other cavity stays finite and
+    equals its run alone."""
+    s0, omegas = sweep_start(cfg, SWEEP_CAV, device, seed=4)
+    c_nan = SWEEP_NAN_CAVITY
+    s0.f[:, c_nan * cfg.nx:(c_nan + 1) * cfg.nx] = float("nan")
+    out = pull.make_sweep_runner(cfg, SWEEP_CAV, SWEEP_NAN_STEPS, device)(s0, omegas)
+    single = pull.make_scan_runner_omega(cfg, SWEEP_NAN_STEPS, device)
+    if not bool(torch.isnan(cavity(out, cfg.nx, c_nan).f).all()):
+        raise AssertionError("the NaN cavity did not stay NaN")
+    for c in range(SWEEP_CAV):
+        if c == c_nan:
+            continue
+        got, alone = cavity(out, cfg.nx, c), single(cavity(s0, cfg.nx, c), omegas[c])
+        if not (bool(torch.isfinite(got.f).all()) and torch.equal(got.f, alone.f)
+                and torch.equal(got.rho_lid, alone.rho_lid)):
+            raise AssertionError(f"cavity {c} beside the NaN cavity {c_nan} differs from "
+                                 "its run alone")
+    print(f"  sweep x{SWEEP_CAV} {cfg.nx}x{cfg.ny}: NaN in cavity {c_nan}; the other "
+          f"{SWEEP_CAV - 1} finite and equal to their runs alone after {SWEEP_NAN_STEPS} "
+          "steps", flush=True)
 
 
 def bound(cells: int, nx: int, k_steps: int = 1) -> tuple[float, str]:
@@ -1078,6 +1217,18 @@ def main() -> None:
         for cfg in (sharded_cfg, sharded_ghia):
             errs.append(compare_pull_copies(cfg, device, RDMA_COMPARE_STEPS[1]))
         worst["halo_exchange"] = max(errs)
+
+    with phase("kernel vs plain: sweep form"):
+        sweep_cfg = sweep_config()
+        errs = [compare_sweep("srt+smagorinsky", sweep_cfg, SWEEP_CAV, device, seed)
+                for seed in (None, 1)]
+        for name in ("trt", "mrt"):
+            errs.append(compare_sweep(name, sweep_config(SWEEP_SMALL_N, collision=name,
+                                                         turbulence="none"),
+                                      SWEEP_SMALL_CAV, device, 2))
+        compare_sweep_singles(sweep_cfg, device)
+        check_sweep_nan(sweep_cfg, device)
+        worst["pull_sweep_step"] = max(errs)
 
     main_launches = {name: 0 for name in REPLACES}
     with phase("main path: cuda-pull"), tempfile.TemporaryDirectory() as tmp:
@@ -1211,6 +1362,94 @@ def main() -> None:
         if remote["rdma"]["launches"] == 0 or remote["ppermute"]["sends"] == 0:
             raise AssertionError("the two-process runs did not cross processes")
 
+    with phase("main path: generate_dataset"), tempfile.TemporaryDirectory() as tmp:
+        gen_cfg = sweep_config(max_steps=DATAGEN_MAX_STEPS, report_interval=DATAGEN_INTERVAL)
+        reason = datagen.sweep_kernel_reason(gen_cfg, device)
+        if reason is not None:
+            raise AssertionError(f"generate_dataset would not take the sweep kernel: {reason}")
+        steps_run = []
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ds = ml.generate_dataset(gen_cfg, re_values=DATAGEN_RE, batch_size=SWEEP_CAV,
+                                 progress=lambda msg: print(f"  {msg}", flush=True),
+                                 on_batch=lambda *a: steps_run.append(a[3]), device=device)
+        wall_s = time.perf_counter() - t0
+        counts = read_counters()
+        want = {name: 0 for name in COUNTERS}
+        want["pull_sweep_step"] = sum(steps_run)
+        cells = SWEEP_CAV * SWEEP_N * SWEEP_N
+        print(f"  generate_dataset {len(DATAGEN_RE)} Re {DATAGEN_RE[0]:g}..{DATAGEN_RE[-1]:g} "
+              f"at {SWEEP_N}^2 in batches of {SWEEP_CAV}: route cuda-sweep "
+              f"(pull.make_sweep_runner), steps per batch {steps_run}, launches={counts}, "
+              f"wall {wall_s:.3f} s, {cells * sum(steps_run) * 1e-6 / wall_s:.1f} MLUPS end "
+              f"to end", flush=True)
+        if counts != want:
+            raise AssertionError(f"generate_dataset: launches {counts}, expected {want}")
+        n = len(DATAGEN_RE)
+        shapes = {"re_range": (n,), "feq_initial": (9, SWEEP_N, SWEEP_N),
+                  "f_final": (n, 9, SWEEP_N, SWEEP_N), "u_final": (n, 2, SWEEP_N, SWEEP_N)}
+        for name, shape in shapes.items():
+            a = getattr(ds, name)
+            if a.shape != shape or not np.isfinite(a).all():
+                raise AssertionError(f"generate_dataset: {name} {a.shape}, expected a finite "
+                                     f"{shape}")
+        if ds.failed.any():
+            raise AssertionError(f"generate_dataset: cavities failed: {DATAGEN_RE[ds.failed]}")
+        ml.save_dataset(ds, tmp)
+        back = ml.load_dataset(tmp)
+        if not all(np.array_equal(getattr(back, k), getattr(ds, k)) for k in shapes) \
+                or back.failed is not None:
+            raise AssertionError("save_dataset / load_dataset do not round-trip")
+        add_counts(main_launches, counts)
+        # a batch of 4 through the plain engine on the card, against the kernel's route
+        short = dataclasses.replace(gen_cfg, max_steps=COMPARE_STEPS,
+                                    report_interval=COMPARE_STEPS)
+        res = DATAGEN_RE[:DATAGEN_PLAIN_BATCH]
+        kern = ml.generate_dataset(short, re_values=res, batch_size=DATAGEN_PLAIN_BATCH,
+                                   device=device)
+        plain = datagen._generate_batched(short, res, DATAGEN_PLAIN_BATCH, None, None, device)
+        worst["pull_sweep_step"] = max(worst["pull_sweep_step"], *(
+            check_close(f"generate_dataset kernel vs plain engine, {name}", short,
+                        torch.from_numpy(getattr(kern, name)),
+                        torch.from_numpy(getattr(plain, name)))
+            for name in ("f_final", "u_final")))
+
+    with phase("main path: serving"):
+        preset = models.PRESETS[SERVE_PRESET]
+        data = train.prepare_inputs(ds, preset, u_lid=gen_cfg.u_lid)
+        fnet, aux = predict.build_input(SERVE_PRESET, SERVE_RE, ds.feq_initial, data.scalers,
+                                        u_lid=gen_cfg.u_lid)
+        model_x = models.make_model(SERVE_PRESET, seed=0)
+        model_y = models.make_model(SERVE_PRESET, seed=1)
+        u_card = predict.predict_velocity(SERVE_PRESET, model_x, model_y, fnet, aux,
+                                          data.scalers, device=device)
+        u_cpu = predict.predict_velocity(SERVE_PRESET, model_x, model_y, fnet, aux,
+                                         data.scalers, device="cpu")
+        if u_card.shape != (2, SWEEP_N, SWEEP_N) or not np.isfinite(u_card).all():
+            raise AssertionError(f"predict_velocity: {u_card.shape}, not a finite "
+                                 f"(2, {SWEEP_N}, {SWEEP_N})")
+        err = float(np.abs(u_card - u_cpu).max())
+        print(f"  {SERVE_PRESET} {SWEEP_N}^2 Re={SERVE_RE:g}: card vs CPU max|du|={err:.3e} "
+              f"(max|u| {np.abs(u_cpu).max():.3e}; rtol 1e-4, atol 1e-5, TF32 off)",
+              flush=True)
+        np.testing.assert_allclose(u_card, u_cpu, rtol=1e-4, atol=1e-5)
+        model = model_x.to(device)
+        batch = preset.batch_size
+        xb = torch.from_numpy(np.repeat(fnet, batch, axis=0)).to(device)
+        auxb = torch.from_numpy(np.repeat(aux, batch, axis=0)).to(device)
+        serve_ms = {}
+        with torch.no_grad():
+            for tf32 in (False, True, True, False):
+                model.allow_tf32 = tf32
+                model(xb, auxb)
+                serve_ms.setdefault(f"tf32={tf32}", []).append(
+                    cuda_time_ms(lambda: model(xb, auxb), SERVE_REPS))
+        model.allow_tf32 = False
+        print(f"  {SERVE_PRESET} forward, batch {batch} at {SWEEP_N}^2 in turns: "
+              f"{serve_ms} ms", flush=True)
+        del model, xb, auxb
+
     print(f"  launches on the main paths: {main_launches}", flush=True)
     for name, n in main_launches.items():
         if n == 0:
@@ -1322,6 +1561,49 @@ def main() -> None:
         print(f"  {BENCH_N}^2 push_step {ms:.5f} ms/step ({cells * 1e-3 / ms:.1f} "
               f"MLUPS); plain {timing['push_step']['plain_ms']:.4f} ms/step; bound "
               f"{b_ms:.5f} ms/step by {b_by}", flush=True)
+
+    with phase("timing: sweep form"):
+        # In turns with pull_step at 1024^2 (pull, sweep, sweep, pull), per
+        # cell: the sweep at the datagen cavity with SWEEP_CAV cavities.
+        cells = {"pull": BENCH_N * BENCH_N, "sweep": SWEEP_CAV * SWEEP_N * SWEEP_N}
+        s_sweep, omegas = sweep_start(sweep_cfg, SWEEP_CAV, device)
+        runners = {
+            "pull": functools.partial(pull.make_scan_runner(bench_cfg, SWEEP_STEPS, device),
+                                      engine.init_state(bench_cfg, device)),
+            "sweep": functools.partial(pull.make_sweep_runner(sweep_cfg, SWEEP_CAV,
+                                                              SWEEP_STEPS, device),
+                                       s_sweep, omegas)}
+        for run in runners.values():
+            run()
+        ms = {"pull": [], "sweep": []}
+        for name in ("pull", "sweep", "sweep", "pull"):
+            ms[name].append(cuda_time_ms(runners[name], 1) / SWEEP_STEPS)
+        bound_mlups = copy_bw / BYTES_PER_CELL * 1e-6
+        for name in ("pull", "sweep"):
+            t = sum(ms[name]) / 2
+            print(f"  {name} {cells[name]} cells: {ms[name]} ms/step, "
+                  f"{cells[name] * 1e-3 / t:.1f} MLUPS, {cells[name] * 1e-3 / t / bound_mlups:.3f} "
+                  f"of the measured 72 B/cell copy bound", flush=True)
+        b_ms, b_by = bound(cells["sweep"], SWEEP_CAV * SWEEP_N)
+        plain = engine.make_stacked_step_omega(sweep_cfg, SWEEP_CAV)
+        om = torch.tensor(omegas, dtype=torch.float32, device=device)
+        timing["pull_sweep_step"] = dict(
+            ms=sum(ms["sweep"]) / 2, bound_ms=b_ms, bound_by=b_by,
+            plain_ms=time_plain(lambda s: plain(s, om), s_sweep, reps=3))
+        print(f"  pull_sweep_step x{SWEEP_CAV} {SWEEP_N}^2: {timing['pull_sweep_step']['ms']:.5f} "
+              f"ms/step; bound {b_ms:.5f} ms/step by {b_by} (published), "
+              f"{BYTES_PER_CELL * cells['sweep'] / copy_bw * 1e3:.5f} at the measured copy "
+              f"rate; plain {timing['pull_sweep_step']['plain_ms']:.4f} ms/step", flush=True)
+        # the one-cavity form at 384^2: device time per step with the queue
+        # held busy, host time per step
+        one = pull.make_scan_runner_omega(sweep_cfg, SMALL_STEPS, device)
+        s1 = engine.init_state(sweep_cfg, device)
+        busy_ms, host_us = busy_time(lambda: one(s1, omegas[0]), 1)
+        end_ms = cuda_time_ms(lambda: one(s1, omegas[0]), 1)
+        print(f"  one-cavity form {SWEEP_N}^2: device {busy_ms / SMALL_STEPS:.5f} ms/step, "
+              f"host {host_us / SMALL_STEPS:.2f} us/step, end to end "
+              f"{end_ms / SMALL_STEPS:.5f} ms/step", flush=True)
+        del s_sweep, runners
 
     with phase("timing: sharded"):
         mesh = sharded_mesh(device)

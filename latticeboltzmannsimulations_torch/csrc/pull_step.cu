@@ -4,7 +4,10 @@
 //
 // Replaces the TPU kernel of the JAX package:
 //   kernels/pallas_pull.py::_make_kernel (:189), built by make_step (:394),
-//   launched by the pl.pallas_call at :470.
+//   launched by the pl.pallas_call at :470; and its sweep form (the same
+//   pallas_call with a traced omega and n_cav cavities stacked along x,
+//   make_scan_runner_omega :543, make_sweep_runner :560) as a second entry,
+//   lbm_pull_sweep_step, over the same cell routine.
 // It computes exactly engine.make_fused_step for boundary="nebb": wrap gather
 // -> reduced NEBB (left, right, bottom, lid) -> macros with the wall
 // overrides and the lid closure -> feq -> SRT / TRT / MRT, with Smagorinsky
@@ -40,18 +43,22 @@ namespace {
 
 using lbm::Params;
 
-// The step at one cell (x, y): the gather here, the rest in lbm_cell.cuh.
+// The step at one cell (x, y) of a field `width` columns wide: the gather
+// here, the rest in lbm_cell.cuh.  x is the field's column, xl the column
+// within the cell's cavity (the same for one cavity; in the sweep form the
+// cavities are stacked along x, each p.nx wide).  The gather wraps over the
+// whole field; the walls are keyed to xl; the lid densities to x.
 __device__ __forceinline__ void
 pull_cell(const float* __restrict__ f, const float* __restrict__ rho_lid_prev,
           const float* __restrict__ cs2_plane, float* __restrict__ f_out,
-          float* __restrict__ rho_lid_out, const Params& p, const int x,
-          const int y) {
-  const int nx = p.nx, ny = p.ny;
-  const size_t plane = (size_t)nx * ny;
+          float* __restrict__ rho_lid_out, const Params& p, const int width,
+          const int x, const int xl, const int y) {
+  const int ny = p.ny;
+  const size_t plane = (size_t)width * ny;
 
   // Pull gather g_k(x, y) = f_k(x - cx_k, y + cy_k), wrapping at the edges.
-  const int xm = x == 0 ? nx - 1 : x - 1;
-  const int xp = x == nx - 1 ? 0 : x + 1;
+  const int xm = x == 0 ? width - 1 : x - 1;
+  const int xp = x == width - 1 ? 0 : x + 1;
   const int ym = y == 0 ? ny - 1 : y - 1;
   const int yp = y == ny - 1 ? 0 : y + 1;
   const size_t r0 = (size_t)x * ny, rm = (size_t)xm * ny, rp = (size_t)xp * ny;
@@ -66,7 +73,7 @@ pull_cell(const float* __restrict__ f, const float* __restrict__ rho_lid_prev,
   g[7] = f[7 * plane + rp + ym];
   g[8] = f[8 * plane + rm + ym];
 
-  const bool left = x == 0, right = x == nx - 1;
+  const bool left = xl == 0, right = xl == p.nx - 1;
   const bool lid = y == 0;
   const float rlp = (lid && !(left || right)) ? rho_lid_prev[x] : 0.0f;
   const size_t c = r0 + y;
@@ -91,9 +98,41 @@ pull_step_kernel(const float* __restrict__ f,
   const int x = blockIdx.x;
   for (int y = blockIdx.y * blockDim.x + threadIdx.x; y < p.ny;
        y += gridDim.y * blockDim.x) {
-    pull_cell(f, rho_lid_prev, cs2_plane, f_out, rho_lid_out, p, x, y);
+    pull_cell(f, rho_lid_prev, cs2_plane, f_out, rho_lid_out, p, p.nx, x, x, y);
   }
 }
+
+// The sweep form: gridDim.z cavities, each p.nx x p.ny, stacked along x in
+// one field (index k*W*Y + x*Y + y with W = gridDim.z * p.nx), cavity
+// blockIdx.z at columns blockIdx.z * p.nx + blockIdx.x.  Each cavity takes
+// its own (omega, tau0, tau0^2, omega^-) from `cav`, one float4 per cavity;
+// the rest of p is shared.  Every population the gather takes across a
+// cavity boundary (or the field's wrap) lands in a side wall's populations,
+// which the NEBB rewrite overwrites by assignment before anything reads them,
+// so the stack advances each cavity exactly as it would alone, and a NaN in
+// one cavity reaches no other.
+__global__ void __launch_bounds__(kThreads)
+pull_sweep_kernel(const float* __restrict__ f,
+                  const float* __restrict__ rho_lid_prev,
+                  float* __restrict__ f_out,
+                  float* __restrict__ rho_lid_out,
+                  const Params p, const float4* __restrict__ cav) {
+  Params q = p;
+  const float4 c = cav[blockIdx.z];
+  q.omega = c.x;
+  q.tau0 = c.y;
+  q.tau0_sq = c.z;
+  q.omega_minus = c.w;
+  const int width = gridDim.z * p.nx;
+  const int xl = blockIdx.x;
+  const int x = blockIdx.z * p.nx + xl;
+  for (int y = blockIdx.y * blockDim.x + threadIdx.x; y < p.ny;
+       y += gridDim.y * blockDim.x) {
+    pull_cell(f, rho_lid_prev, nullptr, f_out, rho_lid_out, q, width, x, xl, y);
+  }
+}
+
+constexpr int kMaxCavities = 65535;  // the limit of gridDim.z
 
 }  // namespace
 
@@ -117,6 +156,35 @@ extern "C" int lbm_pull_step(const void* f, const void* rho_lid_prev,
       static_cast<const float*>(f), static_cast<const float*>(rho_lid_prev),
       static_cast<const float*>(cs2_plane), static_cast<float*>(f_out),
       static_cast<float*>(rho_lid_out), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One step of n_cav stacked cavities (f, rho_lid_prev) -> (f_out,
+// rho_lid_out) on `stream`: f is (9, n_cav * nx, ny), rho_lid (n_cav * nx),
+// `cav` a device table of n_cav float4 rows (omega, tau0, tau0^2, omega^-),
+// computed on the host by kernels/pull.py::cavity_table.  Takes no Van
+// Driest plane (its Cs^2 depends on Re).  Returns cudaGetLastError() after
+// the launch.
+extern "C" int lbm_pull_sweep_step(const void* f, const void* rho_lid_prev,
+                                   void* f_out, void* rho_lid_out, int n_cav,
+                                   const void* cav, int nx, int ny, float u_lid,
+                                   float lid_mom, float omega_e,
+                                   float omega_eps, float omega_q,
+                                   int collision, int les, float smag_coef,
+                                   void* stream) {
+  const Params p{nx, ny, u_lid, lid_mom, 0.0f, 0.0f, 0.0f, 0.0f,
+                 omega_e, omega_eps, omega_q, collision, les, smag_coef};
+  if (nx < 1 || ny < 1 || n_cav < 1 || n_cav > kMaxCavities ||
+      (long long)n_cav * nx > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (les == lbm::LES_PLANE) return static_cast<int>(cudaErrorInvalidValue);
+  const int y_blocks = (ny + kThreads - 1) / kThreads;
+  const dim3 grid(nx, y_blocks < kMaxYBlocks ? y_blocks : kMaxYBlocks, n_cav);
+  pull_sweep_kernel<<<grid, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(f), static_cast<const float*>(rho_lid_prev),
+      static_cast<float*>(f_out), static_cast<float*>(rho_lid_out), p,
+      static_cast<const float4*>(cav));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -297,6 +297,52 @@ def make_fused_step_omega(cfg: SimConfig) -> Callable[[State, float], State]:
     return step
 
 
+def make_batched_step_omega(cfg: SimConfig) -> Callable[[State, torch.Tensor], State]:
+    """The fused step of a batch of independent cavities, each with its own
+    relaxation rate: ``f (B, 9, X, Y)``, ``rho_lid (B, X)`` and ``omegas
+    (B,)`` (the JAX package's ``jax.vmap(make_fused_step_omega(cfg))``).  A
+    loop over the batch: the plain version of the sweep kernel."""
+    step = make_fused_step_omega(cfg)
+
+    def run(state: State, omegas: torch.Tensor) -> State:
+        outs = [step(State(f, lid), om)
+                for f, lid, om in zip(state.f, state.rho_lid, omegas)]
+        return State(torch.stack([o.f for o in outs]),
+                     torch.stack([o.rho_lid for o in outs]))
+
+    return run
+
+
+def unstack_cavities(state: State, n_cav: int) -> State:
+    """The batch ``(n_cav, 9, nx, ny)``, ``(n_cav, nx)`` of a state that
+    stacks ``n_cav`` cavities along x (``f (9, n_cav * nx, ny)``,
+    ``rho_lid (n_cav * nx,)``), as views."""
+    q, width, ny = state.f.shape
+    nx = width // n_cav
+    return State(state.f.reshape(q, n_cav, nx, ny).transpose(0, 1),
+                 state.rho_lid.reshape(n_cav, nx))
+
+
+def stack_cavities(state: State) -> State:
+    """The reverse of ``unstack_cavities``: a batch stacked along x."""
+    b, q, nx, ny = state.f.shape
+    return State(state.f.transpose(0, 1).reshape(q, b * nx, ny),
+                 state.rho_lid.reshape(b * nx))
+
+
+def make_stacked_step_omega(cfg: SimConfig, n_cav: int) -> Callable[[State, torch.Tensor], State]:
+    """The fused step of ``n_cav`` independent cavities stacked along x,
+    each with its own relaxation rate (``omegas (n_cav,)``): the state of
+    the JAX package's ``pallas_pull.make_sweep_runner``, and the plain
+    version of the sweep form of ``csrc/pull_step.cu``."""
+    step = make_batched_step_omega(cfg)
+
+    def run(state: State, omegas: torch.Tensor) -> State:
+        return stack_cavities(step(unstack_cavities(state, n_cav), omegas))
+
+    return run
+
+
 # ---------------------------------------------------------------------------
 # Observables & runners
 # ---------------------------------------------------------------------------
@@ -307,6 +353,15 @@ def observables(cfg: SimConfig, state: State):
     (reference: MRTTiledPull.py:454-472)."""
     g = _fused_bc(cfg, state.f, state.rho_lid)
     return _fused_macros(cfg, g)
+
+
+def batched_observables(cfg: SimConfig, state: State):
+    """``observables`` of each cavity of a batch (``f (B, 9, X, Y)``,
+    ``rho_lid (B, X)``; ``unstack_cavities`` gives a stacked state's):
+    ``rho (B, X, Y)`` and ``u (B, 2, X, Y)``, as the JAX package's
+    ``jax.vmap(observables)``."""
+    obs = [observables(cfg, State(f, lid)) for f, lid in zip(state.f, state.rho_lid)]
+    return torch.stack([r for r, _ in obs]), torch.stack([u for _, u in obs])
 
 
 def make_scan_runner(cfg: SimConfig, n_steps: int, device="cuda"):

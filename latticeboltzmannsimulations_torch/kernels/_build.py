@@ -124,6 +124,14 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         *scalars,
         p,                          # stream
     ]
+    lib.lbm_pull_sweep_step.argtypes = [
+        p, p, p, p,                 # f, rho_lid_prev, f_out, rho_lid_out
+        i, p,                       # n_cav, table of n_cav float4 (pull.cavity_table)
+        i, i, fl, fl,               # nx, ny, u_lid, lid_mom
+        fl, fl, fl,                 # omega_e, omega_eps, omega_q
+        i, i, fl,                   # collision, les, smag_coef
+        p,                          # stream
+    ]
     lib.lbm_tblock_step.argtypes = [
         p, p, p, p,                 # f, rho_lid_prev, f_out, rho_lid_out
         *scalars,
@@ -161,8 +169,8 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         p,                          # mismatch counter (uint64)
         p,                          # stream
     ]
-    for fn in (lib.lbm_pull_step, lib.lbm_tblock_step, lib.lbm_push_step,
-               lib.lbm_pull_sharded_step, lib.lbm_tblock_sharded_step,
+    for fn in (lib.lbm_pull_step, lib.lbm_pull_sweep_step, lib.lbm_tblock_step,
+               lib.lbm_push_step, lib.lbm_pull_sharded_step, lib.lbm_tblock_sharded_step,
                lib.lbm_halo_exchange, lib.lbm_enable_peer_access,
                lib.lbm_exact_div_check):
         fn.restype = ctypes.c_int

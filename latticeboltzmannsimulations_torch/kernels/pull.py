@@ -5,33 +5,50 @@ Counterpart of the JAX package's ``kernels/pallas_pull.py`` (``make_step``,
 out.  The kernel is ``csrc/pull_step.cu``; its plain PyTorch version is the
 fused engine step, ``engine.make_fused_step``.
 
+The sweep form (``make_step_omega``, ``make_scan_runner_omega``,
+``make_sweep_runner``: the JAX ``make_step(traced_omega=True, n_cav=...)``)
+takes the relaxation rate as an argument and advances ``n_cav`` independent
+cavities stacked along x, each with its own rate, in one launch per step:
+the entry ``lbm_pull_sweep_step`` of the same source, over the same cell
+routine.  Its plain version is ``engine.make_stacked_step_omega``.
+
 A step on CUDA tensors launches the kernel or raises; a step on CPU tensors
 runs the plain version (that is what the CPU tests exercise).  There is no
 fallback from one to the other.
 
-``launches`` counts the kernel's launches in this process, so a run can show
-that its steps went through the kernel.
+``launches`` counts the one-cavity kernel's launches in this process and
+``sweep_launches`` the sweep form's, so a run can show that its steps went
+through the kernel.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..config import SimConfig, resolve_device
-from ..engine import State, make_fused_step
+from ..engine import State, make_fused_step, make_stacked_step_omega
 from ..ops.collision import van_driest_cs2
 from . import _build
 
 launches = 0
+sweep_launches = 0
 
 _COLLISION = {"srt": 0, "trt": 1, "mrt": 2}
 _LES_NONE, _LES_SCALAR, _LES_PLANE = 0, 1, 2
 
 
-def unsupported_reason(cfg: SimConfig) -> str | None:
-    """Why the kernel cannot run this configuration, or None if it can."""
+# The limits of the sweep form: cavities on gridDim.z, columns in an int.
+MAX_CAVITIES = 65535
+MAX_COLUMNS = 2**31 - 1
+
+
+def unsupported_reason(cfg: SimConfig, traced_omega: bool = False,
+                       n_cav: int = 1) -> str | None:
+    """Why the kernel cannot run this configuration, or None if it can;
+    ``traced_omega`` and ``n_cav`` ask for the sweep form."""
     if cfg.precision != "float32":
         return "the CUDA kernel is float32; use the plain engine for float64"
     if cfg.boundary != "nebb":
@@ -39,12 +56,22 @@ def unsupported_reason(cfg: SimConfig) -> str | None:
                 f"{cfg.boundary!r}")
     if cfg.mesh_shape != (1, 1):
         return "the CUDA kernel runs on one device"
+    if n_cav > 1 and not traced_omega:
+        return "stacked cavities (n_cav > 1) need a traced omega"
+    if traced_omega and cfg.turbulence == "smagorinsky" and cfg.van_driest:
+        return ("Van Driest damping depends on the Reynolds number through the "
+                "viscous length, so it cannot ride a traced-omega sweep")
+    if not 1 <= n_cav <= MAX_CAVITIES:
+        return f"the sweep form takes 1 to {MAX_CAVITIES} cavities, not {n_cav}"
+    if n_cav * cfg.nx > MAX_COLUMNS:
+        return (f"{n_cav} cavities of {cfg.nx} columns exceed the kernel's "
+                f"{MAX_COLUMNS} columns")
     return None
 
 
-def _check_cfg(cfg: SimConfig) -> None:
+def _check_cfg(cfg: SimConfig, traced_omega: bool = False, n_cav: int = 1) -> None:
     cfg.validate()
-    reason = unsupported_reason(cfg)
+    reason = unsupported_reason(cfg, traced_omega, n_cav)
     if reason is not None:
         raise ValueError(reason)
 
@@ -71,11 +98,12 @@ def _check_tensor(name: str, t: torch.Tensor, shape: tuple,
 
 
 def _check_state(cfg: SimConfig, f: torch.Tensor, rho_lid: torch.Tensor,
-                 device: torch.device) -> None:
+                 device: torch.device, n_cav: int = 1) -> None:
     """What the kernel takes, checked on either device, so the CPU path
-    holds a caller to the same contract as the card."""
-    _check_tensor("f", f, (9, cfg.nx, cfg.ny), device)
-    _check_tensor("rho_lid", rho_lid, (cfg.nx,), device)
+    holds a caller to the same contract as the card (``n_cav`` cavities
+    stacked along x for the sweep form)."""
+    _check_tensor("f", f, (9, n_cav * cfg.nx, cfg.ny), device)
+    _check_tensor("rho_lid", rho_lid, (n_cav * cfg.nx,), device)
 
 
 def _scalars(cfg: SimConfig) -> tuple:
@@ -164,8 +192,10 @@ def make_scan_runner(cfg: SimConfig, n_steps: int, device="cuda"):
     _check_cfg(cfg)
     device = resolve_device(device)
     plain = make_fused_step(cfg)
+    # The runner holds the Van Driest plane itself, not only its address:
+    # a plane freed after the runner is built would leave the kernel reading
+    # whatever the allocator puts there next.
     cs2 = _cs2_plane(cfg, device) if device.type == "cuda" else None
-    cs2_ptr = cs2.data_ptr() if cs2 is not None else None
     scalars = _scalars(cfg)
 
     def run(state: State) -> State:
@@ -176,6 +206,7 @@ def make_scan_runner(cfg: SimConfig, n_steps: int, device="cuda"):
             return state
         if n_steps == 0:
             return state
+        cs2_ptr = None if cs2 is None else cs2.data_ptr()
         lib = _build.load_library()
         bufs = [State(torch.empty_like(state.f), torch.empty_like(state.rho_lid))
                 for _ in range(2)]
@@ -190,3 +221,119 @@ def make_scan_runner(cfg: SimConfig, n_steps: int, device="cuda"):
         return bufs[(n_steps - 1) % 2]
 
     return run
+
+
+def cavity_table(cfg: SimConfig, omegas) -> np.ndarray:
+    """The sweep form's per-cavity scalars, one float32 row ``(omega, tau0,
+    tau0^2, omega^-)`` per cavity, from each cavity's omega rounded to
+    float32: ``tau0 = 1 / omega`` and the TRT ``omega^-`` from the base
+    ``tau0`` (also under LES), in float32 arithmetic, as the JAX package's
+    traced-omega kernel computes them from its float32 SMEM vector.  The
+    one-cavity and the stacked forms both read this table, so a stack
+    equals its cavities run one at a time bit for bit."""
+    om = np.asarray(omegas, dtype=np.float32).reshape(-1)
+    one, half = np.float32(1.0), np.float32(0.5)
+    tau0 = one / om
+    omega_minus = one / (half + np.float32(cfg.trt_magic) / (tau0 - half))
+    return np.stack([om, tau0, tau0 * tau0, omega_minus], axis=1)
+
+
+def _sweep_scalars(cfg: SimConfig) -> tuple:
+    """``lbm_pull_sweep_step``'s scalars after the table: ``_scalars``
+    without the four per-cavity values."""
+    s = _scalars(cfg)
+    return (*s[:4], *s[8:])
+
+
+def _launch_sweep(lib, f_ptr: int, rho_ptr: int, f_out_ptr: int, rho_out_ptr: int,
+                  n_cav: int, table_ptr: int, scalars: tuple, stream: int) -> None:
+    global sweep_launches
+    err = lib.lbm_pull_sweep_step(f_ptr, rho_ptr, f_out_ptr, rho_out_ptr, n_cav,
+                                  table_ptr, *scalars, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"pull_sweep_step launch failed: {lib.lbm_error_string(err).decode()}"
+        )
+    sweep_launches += 1
+
+
+def _host_omegas(omegas, n_cav: int) -> np.ndarray:
+    """The omegas as host values: a number, a sequence, an array or a
+    tensor (one on the card is copied to the host, which waits for it)."""
+    if isinstance(omegas, torch.Tensor):
+        omegas = omegas.detach().cpu().numpy()
+    om = np.asarray(omegas, dtype=np.float64).reshape(-1)
+    if om.shape != (n_cav,):
+        raise ValueError(f"{om.size} omegas for {n_cav} cavities")
+    return om
+
+
+def make_sweep_runner(cfg: SimConfig, n_cav: int, n_steps: int, device="cuda"):
+    """``n_steps`` steps of ``n_cav`` independent cavities stacked along x,
+    ``run(state, omegas) -> state``, each cavity with its own omega: ``f (9,
+    n_cav * nx, ny)``, ``rho_lid (n_cav * nx,)``, as the JAX package's
+    ``make_sweep_runner``.  On the card one launch per step, two buffers
+    allocated once per call and the input never written, as
+    ``make_scan_runner``; the cavity table goes up once per call, from
+    pinned memory (a pageable upload waits for the queued work), and is kept
+    for the next call with the same omegas.  On the CPU the plain version,
+    ``engine.make_stacked_step_omega``."""
+    _check_cfg(cfg, traced_omega=True, n_cav=n_cav)
+    device = resolve_device(device)
+    plain = make_stacked_step_omega(cfg, n_cav)
+    scalars = _sweep_scalars(cfg)
+    cached = {"key": None, "table": None}
+
+    def upload(table: np.ndarray) -> torch.Tensor:
+        key = table.tobytes()
+        if cached["key"] != key:
+            host = torch.from_numpy(table).pin_memory()
+            cached["table"] = host.to(device, non_blocking=True)
+            cached["key"] = key
+        return cached["table"]
+
+    def run(state: State, omegas) -> State:
+        _check_state(cfg, state.f, state.rho_lid, device, n_cav)
+        table = cavity_table(cfg, _host_omegas(omegas, n_cav))
+        if device.type == "cpu":
+            om = torch.from_numpy(table[:, 0].copy())
+            for _ in range(n_steps):
+                state = plain(state, om)
+            return state
+        if n_steps == 0:
+            return state
+        lib = _build.load_library()
+        with torch.cuda.device(device):
+            table_ptr = upload(table).data_ptr()
+            bufs = [State(torch.empty_like(state.f), torch.empty_like(state.rho_lid))
+                    for _ in range(min(2, n_steps))]
+            ptrs = [(b.f.data_ptr(), b.rho_lid.data_ptr()) for b in bufs]
+            src = (state.f.data_ptr(), state.rho_lid.data_ptr())
+            stream = torch.cuda.current_stream(device).cuda_stream
+            for i in range(n_steps):
+                dst = ptrs[i % 2]
+                _launch_sweep(lib, *src, *dst, n_cav, table_ptr, scalars, stream)
+                src = dst
+        return bufs[(n_steps - 1) % 2]
+
+    return run
+
+
+def make_scan_runner_omega(cfg: SimConfig, n_steps: int, device="cuda"):
+    """``n_steps`` steps of one cavity with omega as an argument, ``run(state,
+    omega) -> state``: one kernel build for every Reynolds number of a sweep
+    (the JAX package's ``make_scan_runner_omega``).  The sweep form with one
+    cavity."""
+    sweep = make_sweep_runner(cfg, 1, n_steps, device)
+
+    def run(state: State, omega) -> State:
+        return sweep(state, [omega])
+
+    return run
+
+
+def make_step_omega(cfg: SimConfig, device="cuda"):
+    """One step ``(state, omega) -> state`` of one cavity, the same
+    trajectory as ``engine.make_fused_step_omega`` with a float32 omega (the
+    JAX package's ``make_step(traced_omega=True)``)."""
+    return make_scan_runner_omega(cfg, 1, device)

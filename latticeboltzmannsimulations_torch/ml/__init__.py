@@ -1,0 +1,26 @@
+"""ML surrogate pipeline (layer L6): Reynolds-sweep dataset generation and
+the encoder-decoder CNN family that predicts steady-state cavity velocity
+fields from (feq, Re, BC) inputs (reference: ``MRT_GPU_datagen.py`` +
+``CNN_One`` ... ``CNN_Ten``), as the JAX package's ``ml/`` has them.
+
+``generate_dataset`` runs the sweep on the card through the sweep form of
+the CUDA pull kernel; ``predict`` serves the CNN.  Training waits for a
+later slice (ROADMAP.md queue 1 item 2)."""
+
+from .datagen import (
+    generate_dataset, save_dataset, load_dataset, drop_failed, DatasetArrays,
+)
+from .models import CavityCNN, PRESETS, make_model
+from .scaling import MinMaxScaler
+
+__all__ = [
+    "generate_dataset",
+    "save_dataset",
+    "load_dataset",
+    "drop_failed",
+    "DatasetArrays",
+    "CavityCNN",
+    "PRESETS",
+    "make_model",
+    "MinMaxScaler",
+]

@@ -112,11 +112,11 @@ class SimSummary:
 # Options of the JAX driver that this package does not run yet, with the
 # ROADMAP.md item (queue 1) that ports each.
 _NOT_PORTED = {
-    "save_plots": "queue 1 item 6 (viz)",
-    "save_vtk": "queue 1 item 6 (io/vtk)",
-    "checkpoint_every": "queue 1 item 3 (io/checkpoint)",
-    "resume_from": "queue 1 item 3 (io/checkpoint)",
-    "profile_dir": "queue 1 item 6 (profiler traces)",
+    "save_plots": "queue 1 item 7 (viz)",
+    "save_vtk": "queue 1 item 7 (io/vtk)",
+    "checkpoint_every": "queue 1 item 4 (io/checkpoint)",
+    "resume_from": "queue 1 item 4 (io/checkpoint)",
+    "profile_dir": "queue 1 item 7 (profiler traces)",
 }
 
 

@@ -39,6 +39,7 @@ all of them).  A serial run cannot show a race; the card tests
 """
 
 import ctypes
+import dataclasses
 import re
 import shutil
 import subprocess
@@ -232,6 +233,53 @@ def _pull_steps(lib, cfg, state, n):
     return src
 
 
+# The sweep form: Reynolds numbers of the stacked cavities, and the cases
+# (no Van Driest: its Cs^2 depends on Re, so the sweep form refuses it).
+SWEEP_RE = (150.0, 900.0, 2500.0)
+SWEEP_CASES = {"srt_smagorinsky": dict(collision="srt", turbulence="smagorinsky"),
+               "trt": CASES["trt"], "mrt": CASES["mrt"]}
+
+
+def _sweep_cfg(case):
+    return SimConfig(nx=37, ny=29, **SWEEP_CASES[case])
+
+
+def _omegas(cfg, n_cav):
+    return np.array([dataclasses.replace(cfg, reynolds=r).omega
+                     for r in SWEEP_RE[:n_cav]], dtype=np.float32)
+
+
+def _stacked_start(cfg, n_cav):
+    """n_cav cavities stacked along x, each from the start state with its
+    own seeded noise."""
+    s = engine.init_state(cfg, "cpu")
+    gens = [torch.Generator().manual_seed(10 + c) for c in range(n_cav)]
+    return engine.stack_cavities(engine.State(
+        torch.stack([s.f * (1.0 + 1e-3 * torch.randn(s.f.shape, generator=g))
+                     for g in gens]),
+        torch.stack([s.rho_lid] * n_cav)))
+
+
+def _sweep_steps(lib, cfg, state, omegas, n):
+    """``pull.make_sweep_runner``'s loop, launching the emulated sweep entry
+    through the wrapper's ``_launch_sweep`` and ``cavity_table``."""
+    n_cav = len(omegas)
+    table = torch.from_numpy(pull.cavity_table(cfg, omegas))
+    src = state
+    for _ in range(n):
+        dst = engine.State(torch.empty_like(src.f), torch.empty_like(src.rho_lid))
+        pull._launch_sweep(lib, src.f.data_ptr(), src.rho_lid.data_ptr(),
+                           dst.f.data_ptr(), dst.rho_lid.data_ptr(), n_cav,
+                           table.data_ptr(), pull._sweep_scalars(cfg), None)
+        src = dst
+    return src
+
+
+def _cavity(state, cfg, c):
+    return engine.State(state.f[:, c * cfg.nx:(c + 1) * cfg.nx].contiguous(),
+                        state.rho_lid[c * cfg.nx:(c + 1) * cfg.nx].clone())
+
+
 def _tblock_steps(lib, cfg, state, n_blocks, k):
     src = state
     for _ in range(n_blocks):
@@ -307,6 +355,49 @@ def test_pull_step_matches_plain(lib, case):
     cfg = _cfg(70, 46, case)
     s0 = _start(cfg)
     _close(_pull_steps(lib, cfg, s0, STEPS), _plain(cfg, s0, STEPS))
+
+
+@pytest.mark.parametrize("n_cav", [1, 3])
+@pytest.mark.parametrize("case", list(SWEEP_CASES))
+def test_sweep_step_matches_plain(lib, case, n_cav):
+    """The sweep entry against the plain stacked step, each cavity with its
+    own omega, on a ragged shape."""
+    cfg = _sweep_cfg(case)
+    s0 = _stacked_start(cfg, n_cav)
+    om = _omegas(cfg, n_cav)
+    plain = engine.make_stacked_step_omega(cfg, n_cav)
+    s_plain = s0
+    for _ in range(STEPS):
+        s_plain = plain(s_plain, torch.from_numpy(om))
+    _close(_sweep_steps(lib, cfg, s0, om, STEPS), s_plain)
+
+
+@pytest.mark.parametrize("case", list(SWEEP_CASES))
+def test_sweep_stack_equals_single_cavities(lib, case):
+    """Three stacked cavities against each run alone through the one-cavity
+    form (the same entry, n_cav = 1, the same table): bit for bit."""
+    cfg = _sweep_cfg(case)
+    s0 = _stacked_start(cfg, 3)
+    om = _omegas(cfg, 3)
+    out = _sweep_steps(lib, cfg, s0, om, STEPS)
+    for c in range(3):
+        _equal(_cavity(out, cfg, c), _sweep_steps(lib, cfg, _cavity(s0, cfg, c),
+                                                  om[c:c + 1], STEPS))
+
+
+def test_sweep_nan_cavity_leaks_into_no_other(lib):
+    """A cavity filled with NaN: its neighbours on both sides stay finite
+    and equal to their runs alone."""
+    cfg = _sweep_cfg("mrt")
+    s0 = _stacked_start(cfg, 3)
+    s0.f[:, cfg.nx:2 * cfg.nx] = float("nan")
+    om = _omegas(cfg, 3)
+    out = _sweep_steps(lib, cfg, s0, om, STEPS)
+    assert torch.isnan(_cavity(out, cfg, 1).f).all()
+    for c in (0, 2):
+        alone = _sweep_steps(lib, cfg, _cavity(s0, cfg, c), om[c:c + 1], STEPS)
+        assert torch.isfinite(alone.f).all()
+        _equal(_cavity(out, cfg, c), alone)
 
 
 @pytest.mark.parametrize("case", ["srt", "trt", "mrt", "mrt_smagorinsky"])

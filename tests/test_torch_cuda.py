@@ -88,6 +88,24 @@ def test_scan_runner_equals_stepping(cuda, n_steps):
 
 
 @pytest.mark.cuda
+def test_scan_runner_with_van_driest_matches_plain(cuda):
+    """The runner keeps its Van Driest Cs^2 plane alive: built and then
+    called (its buffers allocated after the plane's last other reference is
+    gone), 20 steps against the plain step (atol 2e-5 as above)."""
+    cfg = SimConfig(nx=128, ny=128, reynolds=5000.0, collision="srt",
+                    turbulence="smagorinsky", van_driest=True)
+    s0 = engine.init_state(cfg, device=cuda)
+    out = pull.make_scan_runner(cfg, 20, device=cuda)(s0)
+    plain = engine.make_fused_step(cfg)
+    s = s0
+    for _ in range(20):
+        s = plain(s)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.f, s.f, rtol=0, atol=ATOL)
+    torch.testing.assert_close(out.rho_lid, s.rho_lid, rtol=0, atol=ATOL)
+
+
+@pytest.mark.cuda
 def test_wrapper_refuses_in_place_and_other_devices(cuda):
     cfg = SimConfig(nx=32, ny=32, reynolds=400.0)
     s = engine.init_state(cfg, device=cuda)
@@ -132,6 +150,105 @@ def test_kernel_reaches_every_cell_of_long_fields(cuda, nx, ny):
     torch.cuda.synchronize()
     torch.testing.assert_close(s_k.f, s_p.f, rtol=0, atol=ATOL)
     torch.testing.assert_close(s_k.rho_lid, s_p.rho_lid, rtol=0, atol=ATOL)
+
+
+SWEEP_CASES = {
+    "srt_smagorinsky": dict(collision="srt", turbulence="smagorinsky"),
+    "trt": dict(collision="trt"),
+    "mrt": dict(collision="mrt"),
+}
+SWEEP_RE = (100.0, 150.0, 900.0, 2500.0, 5000.0)
+
+
+def _sweep_start(cfg, n_cav, device, seed=0):
+    """n_cav cavities stacked along x, each from rest with its own noise,
+    and their float32 omegas."""
+    s = engine.init_state(cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    noise = 1.0 + 1e-3 * torch.randn((n_cav, *s.f.shape), generator=gen, device=device)
+    state = engine.stack_cavities(engine.State(
+        s.f * noise, s.rho_lid.expand(n_cav, *s.rho_lid.shape)))
+    omegas = [dataclasses.replace(cfg, reynolds=r).omega for r in SWEEP_RE[:n_cav]]
+    return state, omegas
+
+
+def _cavity(state, nx, c):
+    return engine.State(state.f[:, c * nx:(c + 1) * nx].contiguous(),
+                        state.rho_lid[c * nx:(c + 1) * nx].clone())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cav", [1, 4])
+@pytest.mark.parametrize("case", list(SWEEP_CASES))
+def test_sweep_kernel_matches_plain(cuda, case, n_cav):
+    """The sweep form against the plain stacked step, each cavity with its
+    own omega, 20 steps (atol 2e-5 as above), one launch per step."""
+    cfg = SimConfig(nx=100, ny=70, **SWEEP_CASES[case])
+    s0, omegas = _sweep_start(cfg, n_cav, cuda)
+    plain = engine.make_stacked_step_omega(cfg, n_cav)
+    om = torch.tensor(omegas, dtype=torch.float32, device=cuda)
+    s_p = s0
+    for _ in range(20):
+        s_p = plain(s_p, om)
+    before = pull.sweep_launches
+    s_k = pull.make_sweep_runner(cfg, n_cav, 20, device=cuda)(s0, omegas)
+    torch.cuda.synchronize()
+    assert pull.sweep_launches - before == 20
+    torch.testing.assert_close(s_k.f, s_p.f, rtol=0, atol=ATOL)
+    torch.testing.assert_close(s_k.rho_lid, s_p.rho_lid, rtol=0, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SWEEP_CASES))
+def test_sweep_stack_equals_single_cavities(cuda, case):
+    """Five stacked cavities against each alone through the one-cavity form
+    (``make_scan_runner_omega``: the same entry and table), 60 steps in two
+    calls of the cached table: bit for bit."""
+    cfg = SimConfig(nx=64, ny=48, **SWEEP_CASES[case])
+    s0, omegas = _sweep_start(cfg, 5, cuda)
+    sweep = pull.make_sweep_runner(cfg, 5, 30, device=cuda)
+    out = sweep(sweep(s0, omegas), omegas)
+    single = pull.make_scan_runner_omega(cfg, 60, device=cuda)
+    for c, om in enumerate(omegas):
+        alone = single(_cavity(s0, cfg.nx, c), om)
+        got = _cavity(out, cfg.nx, c)
+        assert torch.equal(got.f, alone.f) and torch.equal(got.rho_lid, alone.rho_lid)
+
+
+@pytest.mark.cuda
+def test_sweep_nan_cavity_leaks_into_no_other(cuda):
+    cfg = SimConfig(nx=64, ny=48, collision="mrt")
+    s0, omegas = _sweep_start(cfg, 3, cuda)
+    s0.f[:, cfg.nx:2 * cfg.nx] = float("nan")
+    out = pull.make_sweep_runner(cfg, 3, 40, device=cuda)(s0, omegas)
+    single = pull.make_scan_runner_omega(cfg, 40, device=cuda)
+    assert torch.isnan(_cavity(out, cfg.nx, 1).f).all()
+    for c in (0, 2):
+        alone = single(_cavity(s0, cfg.nx, c), omegas[c])
+        assert torch.isfinite(alone.f).all()
+        assert torch.equal(_cavity(out, cfg.nx, c).f, alone.f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch_size", [1, 2])
+def test_generate_dataset_takes_the_sweep_kernel(cuda, batch_size):
+    """On the card the sweep launches once per step for a batch (padded
+    short batch included) or per cavity, and the dataset agrees with the
+    CPU's plain batched route after 20 steps (atol 2e-5 as above)."""
+    from latticeboltzmannsimulations_torch.ml import datagen
+
+    cfg = SimConfig(nx=64, ny=64, collision="srt", turbulence="smagorinsky",
+                    max_steps=20, report_interval=20)
+    res = [100.0, 400.0, 1600.0]
+    before = pull.sweep_launches
+    ds = datagen.generate_dataset(cfg, re_values=res, batch_size=batch_size, device=cuda)
+    batches = len(res) if batch_size == 1 else 2
+    assert pull.sweep_launches - before == 20 * batches
+    want = datagen.generate_dataset(cfg, re_values=res, batch_size=batch_size, device="cpu")
+    assert not ds.failed.any()
+    for name in ("f_final", "u_final"):
+        torch.testing.assert_close(torch.from_numpy(getattr(ds, name)),
+                                   torch.from_numpy(getattr(want, name)), rtol=0, atol=ATOL)
 
 
 CASES = {
