@@ -127,7 +127,28 @@ along x, each with its own omega) and the surrogate pipeline:
     ``build_input`` on (h)'s ``feq_initial`` with ``prepare_inputs``'
     scalers, ``predict_velocity`` on the card against the CPU (rtol 1e-4,
     atol 1e-5, TF32 off), and a batch-20 forward pass timed with TF32 off
-    and on.
+    and on;
+(j) training ``cnn_eight`` at 384^2 with its batch of 20 on (h)'s 32
+    cavities (26 training, 6 validation): components x and y for 3 epochs
+    (finite losses); the first minibatch's gradients on the card against
+    the CPU's from the same weights with TF32 off (the weights of the
+    layers after the last ReLU masks, per tensor ||dg|| <= 2e-5 ||g||), and
+    the same backward in TF32 missing that tolerance; one step from the
+    same weights against the CPU (loss rel 1e-5, per tensor ||dp|| <= 1e-2
+    of the update); a run resumed after 2 of 3 epochs against the
+    uninterrupted one under ``cudnn.deterministic`` (bit for bit); the
+    (2, 1) mesh of the card against one device (loss rel 1e-4, parameters
+    rtol 2e-4, atol 1e-6); ``save_weights`` / ``load_weights`` through
+    ``predict_velocity`` (equal); a training step timed with CUDA events,
+    TF32 off and on in turns, and an epoch with its validation pass; no
+    kernel of the port launched;
+(k) ``generate_dataset`` over 8 Re in one batch on a (2, 1) mesh of the
+    card, 20 steps: equal to one stack bit for bit, 2 sweep launches per
+    step (counted);
+(l) ``simulate`` at 256^2 MRT with checkpoints every 1 000 of 3 000 steps,
+    then resumed from step 2 000, on ``cuda-pull`` and on ``cuda-sharded``
+    (2x2 mesh of the card): the final checkpoints equal bit for bit, the
+    resumed run's launches counted and its MLUPS over the steps it ran.
 
 The last three lines are ``nvidia-smi``'s line, one JSON object describing
 each kernel, and ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -142,6 +163,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -273,6 +295,37 @@ DATAGEN_PLAIN_BATCH = 4
 SERVE_PRESET = "cnn_eight"
 SERVE_RE = 255.0
 SERVE_REPS = 10
+# Training (j): the same preset at 384^2 with its batch of 20, on (h)'s 32
+# cavities (26 training, 6 validation: one step per epoch), with the
+# tolerances of its card-against-CPU checks.  Gradients: per tensor
+# ||g_card - g_cpu|| <= GRAD_RTOL ||g_cpu|| for the weights of the layers
+# after the last ReLU masks but head0's (TAIL_LAYERS), pure float32
+# rounding there (1e-6 to 4e-6 on an H100); a bias's gradient is a sum
+# over every pixel of the batch, which no TF32 product enters and whose
+# float32 rounding reaches 6e-5; deeper, a unit whose pre-activation lies within
+# rounding of zero passes or blocks its whole upstream gradient on one side
+# only, which float32 on the CPU shows against float64 too (up to 4e-4 of
+# a tensor; the check prints both against the CPU's float64 gradients), so
+# those layers are printed, not held.  A TF32 backward (10-bit
+# inputs) leaves 1e-4 to 3e-4 in every tail layer.  After one step from the
+# same weights: per tensor ||p_card - p_cpu|| <= STEP_RTOL ||p_cpu - p0||
+# (RMSprop's update keeps a gradient's relative error or saturates), the
+# loss to rel 1e-5.
+TAIL_LAYERS = ("head0", "dec_a_deconv4", "dec_b_deconv4")
+GRAD_RTOL = 2e-5
+STEP_RTOL = 1e-2
+TRAIN_EPOCHS = 3
+TRAIN_REPS = 10
+# generate_dataset on a mesh (k): 8 Re in one batch over a (2, 1) mesh of the
+# card, 20 steps.
+MESH_RE = np.arange(100.0, 500.0, 50.0)
+MESH_STEPS = 20
+# Checkpoint and resume (l): 256^2 MRT, checkpoints every 1 000 of 3 000
+# steps, the run resumed from the middle one.
+CKPT_N = 256
+CKPT_STEPS = 3_000
+CKPT_INTERVAL = 500
+CKPT_EVERY = 1_000
 
 
 @contextlib.contextmanager
@@ -1090,6 +1143,267 @@ def check_sweep_nan(cfg: SimConfig, device) -> None:
           "steps", flush=True)
 
 
+def max_param_err(a: dict, b: dict) -> float:
+    """max |a - b| over every tensor of two state dicts."""
+    return max(float((a[k].cpu() - b[k].cpu()).abs().max()) for k in a)
+
+
+def rel_errors(a: dict, b: dict, base: dict | None = None) -> dict:
+    """Per tensor, ||a - b|| / ||b - base|| (``base`` absent: zero)."""
+    return {k: float((a[k].cpu() - b[k].cpu()).norm())
+            / (float((b[k].cpu() - (0 if base is None else base[k].cpu())).norm()) or 1.0)
+            for k in b}
+
+
+def check_training_gradients(data, device) -> None:
+    """The first minibatch's gradients on the card against the CPU's from
+    the same weights, TF32 off (the backward under the model's switch), and
+    the same backward under cuDNN's global default (TF32 on), for contrast;
+    beside them each one's spread from the CPU's float64 gradients, which
+    shows the float32 rounding that the deeper layers carry on the CPU
+    too."""
+    tr_idx, _ = train.train_val_split(len(data.fnet))
+    bi = np.random.default_rng(0).permutation(tr_idx)[:models.PRESETS[SERVE_PRESET].batch_size]
+    xb, auxb = torch.from_numpy(data.fnet[bi]), torch.from_numpy(data.aux[bi])
+    yb = torch.from_numpy(np.ascontiguousarray(data.targets["x"][bi]))
+    cpu_model = models.make_model(SERVE_PRESET, seed=0)
+    card_model = models.make_model(SERVE_PRESET, seed=0).to(device)
+    f64_model = models.make_model(SERVE_PRESET, compute_dtype=torch.float64,
+                                  seed=0).to(torch.float64)
+    args = [t.to(device) for t in (xb, auxb, yb)]
+
+    def grads(model):
+        return {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+    loss_cpu = float(train.loss_and_grads([cpu_model], xb, auxb, yb))
+    loss_card = float(train.loss_and_grads([card_model], *args))
+    train.loss_and_grads([f64_model], *(t.to(torch.float64) for t in (xb, auxb, yb)))
+    g_cpu, g_card, g_f64 = grads(cpu_model), grads(card_model), grads(f64_model)
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        card_model.zero_grad(set_to_none=True)
+        train._mse(card_model, *args).backward()
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    g_tf32 = grads(card_model)
+    errs, tf32_errs = rel_errors(g_card, g_cpu), rel_errors(g_tf32, g_cpu)
+    tail = [f"{layer}.weight" for layer in TAIL_LAYERS]
+    worst, tf32_best = max(errs[k] for k in tail), min(tf32_errs[k] for k in tail)
+    print(f"  gradients card vs CPU from the same weights: loss {loss_card:.9e} / "
+          f"{loss_cpu:.9e}; per tensor ||dg|| / ||g|| in {TAIL_LAYERS}: TF32 off at most "
+          f"{worst:.3e} (weights; tolerance {GRAD_RTOL:g}), the backward in TF32 at least "
+          f"{tf32_best:.3e}; every tensor, TF32 off "
+          f"{ {k: float(f'{v:.2e}') for k, v in errs.items()} }", flush=True)
+    f64 = {name: rel_errors({k: v.double() for k, v in g.items()}, g_f64)
+           for name, g in (("CPU float32", g_cpu), ("card", g_card),
+                           ("card, backward in TF32", g_tf32))}
+    print("  against the CPU's float64 gradients, per tensor ||dg|| / ||g|| at most "
+          "(in the tail weights, in every tensor): " + "; ".join(
+              f"{name} {max(e[k] for k in tail):.3e}, {max(e.values()):.3e}"
+              for name, e in f64.items()), flush=True)
+    if not abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu):
+        raise AssertionError(f"training loss card {loss_card} vs CPU {loss_cpu}")
+    if not worst <= GRAD_RTOL:
+        raise AssertionError(f"training gradients: card vs CPU {errs}")
+    if not tf32_best > GRAD_RTOL:
+        raise AssertionError("the TF32 backward meets the float32 tolerance: the check "
+                             f"cannot tell the two apart ({tf32_errs})")
+
+
+def run_training(ds, u_lid: float, device, tmp: str) -> dict:
+    """(j): ``ml.train`` of ``cnn_eight`` at 384^2, batch 20, on the card:
+    both components; one step against the CPU; a resume against the
+    uninterrupted run; the (2, 1) mesh of the card against one device; the
+    weight files through ``predict_velocity``; and the training step's and
+    an epoch's time."""
+    preset = models.PRESETS[SERVE_PRESET]
+    data = train.prepare_inputs(ds, preset, u_lid=u_lid)
+    tr_idx, va_idx = train.train_val_split(len(data.fnet))
+    print(f"  {SERVE_PRESET} at {SWEEP_N}^2, batch {preset.batch_size}, "
+          f"{preset.optimizer}: {len(tr_idx)} training and {len(va_idx)} validation "
+          f"samples", flush=True)
+    kw = dict(epochs=TRAIN_EPOCHS, device=device)
+    results = {}
+    for comp, seed in (("x", 0), ("y", 1)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = train.train(SERVE_PRESET, data, component=comp, seed=seed, **kw)
+        wall = time.perf_counter() - t0
+        print(f"  train {comp}: loss {r.history['loss']} val {r.history['val_loss']} "
+              f"({wall:.2f} s)", flush=True)
+        if not np.isfinite(r.history["loss"] + r.history["val_loss"]).all():
+            raise AssertionError(f"train {comp}: non-finite losses {r.history}")
+        results[comp] = r
+
+    check_training_gradients(data, device)
+
+    init = results["x"].params
+    step = {d: train.train(SERVE_PRESET, data, epochs=1, init_params=init, device=d)
+            for d in (device, "cpu")}
+    loss_err = abs(step[device].history["loss"][0] - step["cpu"].history["loss"][0])
+    p_err = max(rel_errors(step[device].params, step["cpu"].params, init).values())
+    print(f"  one step from the same weights, card vs CPU (TF32 off): |dloss| {loss_err:.3e} "
+          f"(loss {step['cpu'].history['loss'][0]:.6e}), per tensor ||dp|| / ||update|| at "
+          f"most {p_err:.3e} (tolerance {STEP_RTOL:g}), max|dp| "
+          f"{max_param_err(step[device].params, step['cpu'].params):.3e}", flush=True)
+    if not (loss_err <= 1e-5 * step["cpu"].history["loss"][0] and p_err <= STEP_RTOL):
+        raise AssertionError("train: one step on the card differs from the CPU's")
+
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        full = train.train(SERVE_PRESET, data, **kw)
+        ckpt = os.path.join(tmp, "train.ckpt")
+        train.train(SERVE_PRESET, data, epochs=2, checkpoint_path=ckpt, checkpoint_every=1,
+                    device=device)
+        resumed = train.train(SERVE_PRESET, data, checkpoint_path=ckpt, **kw)
+    finally:
+        torch.backends.cudnn.deterministic = before
+    same = resumed.history == full.history and max_param_err(resumed.params, full.params) == 0
+    print(f"  resume after 2 of {TRAIN_EPOCHS} epochs (cudnn.deterministic): "
+          f"{'equal bit for bit' if same else 'DIFFERS'}", flush=True)
+    if not same:
+        raise AssertionError("train: the resumed run differs from the uninterrupted one")
+
+    dp = train.train(SERVE_PRESET, data, mesh=make_mesh((2, 1), [device] * 2),
+                     epochs=TRAIN_EPOCHS)
+    single = results["x"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(dp.history["loss"],
+                                                        single.history["loss"]))
+    worst = max(float(((dp.params[k] - w).abs() - 2e-4 * w.abs()).max())
+                for k, w in single.params.items())
+    off = sum(int(((dp.params[k] - w).abs() > 1e-6 + 2e-4 * w.abs()).sum())
+              for k, w in single.params.items())
+    print(f"  mesh (2, 1) of the card vs one device: loss rel {loss_rel:.3e} (1e-4), "
+          f"max(|dp| - 2e-4 |p|) {worst:.3e} (1e-6), {off} elements outside", flush=True)
+    if not (loss_rel <= 1e-4 and worst <= 1e-6):
+        raise AssertionError("train(mesh=...) differs from the single-device run")
+
+    for r in results.values():
+        train.save_weights(r, tmp, scalers=data.scalers)
+    (px, meta), (py, _) = (train.load_weights(SERVE_PRESET, c, tmp, device=device)
+                           for c in ("x", "y"))
+    fnet, aux = predict.build_input(SERVE_PRESET, SERVE_RE, ds.feq_initial, meta["scalers"],
+                                    u_lid=u_lid)
+    u_mem = predict.predict_velocity(SERVE_PRESET, results["x"].params, results["y"].params,
+                                     fnet, aux, data.scalers, device=device)
+    u_file = predict.predict_velocity(SERVE_PRESET, px, py, fnet, aux, meta["scalers"],
+                                      device=device)
+    print(f"  save_weights / load_weights / predict_velocity: max|du| "
+          f"{float(np.abs(u_file - u_mem).max()):.3e}", flush=True)
+    if not np.array_equal(u_file, u_mem):
+        raise AssertionError("weights through their files predict another field")
+
+    model = models.make_model(SERVE_PRESET, seed=0).to(device)
+    opt = train.Optimizer(preset, model.parameters(), 1e-3)
+    bi = torch.from_numpy(tr_idx[:preset.batch_size]).to(device)
+    xb, auxb = (torch.from_numpy(a).to(device)[bi] for a in (data.fnet, data.aux))
+    yb = torch.from_numpy(np.ascontiguousarray(data.targets["x"])).to(device)[bi]
+
+    def one_step():
+        train.loss_and_grads([model], xb, auxb, yb)
+        opt.step()
+
+    step_ms = {}
+    for tf32 in (False, True, True, False):
+        model.allow_tf32 = tf32
+        one_step()
+        step_ms.setdefault(f"tf32={tf32}", []).append(cuda_time_ms(one_step, TRAIN_REPS))
+    del model, opt, xb, auxb, yb
+    wall = {}
+    for epochs in (1, 1 + TRAIN_EPOCHS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train.train(SERVE_PRESET, data, epochs=epochs, device=device)
+        wall[epochs] = time.perf_counter() - t0
+    epoch_ms = (wall[1 + TRAIN_EPOCHS] - wall[1]) / TRAIN_EPOCHS * 1e3
+    print(f"  training step (forward, backward, RMSprop update), batch {preset.batch_size} "
+          f"at {SWEEP_N}^2, in turns: {step_ms} ms; one epoch ({len(tr_idx) // preset.batch_size}"
+          f" step and the validation forward over {len(va_idx)}, TF32 off): "
+          f"{epoch_ms:.2f} ms (a {1 + TRAIN_EPOCHS}-epoch call less a 1-epoch call)",
+          flush=True)
+
+
+def run_datagen_mesh(device) -> dict:
+    """(k): ``generate_dataset`` over a (2, 1) mesh of the card against one
+    stack; returns the mesh run's launch counts."""
+    cfg = sweep_config(max_steps=MESH_STEPS, report_interval=MESH_STEPS)
+    one = ml.generate_dataset(cfg, re_values=MESH_RE, batch_size=len(MESH_RE), device=device)
+    reset_counters()
+    two = ml.generate_dataset(cfg, re_values=MESH_RE, batch_size=len(MESH_RE),
+                              mesh=make_mesh((2, 1), [device] * 2))
+    torch.cuda.synchronize()
+    counts = read_counters()
+    same = all(np.array_equal(getattr(two, k), getattr(one, k))
+               for k in ("f_final", "u_final", "failed"))
+    print(f"  generate_dataset {len(MESH_RE)} Re at {SWEEP_N}^2, one batch over a (2, 1) mesh "
+          f"of the card, {MESH_STEPS} steps: launches={counts}, against one stack: "
+          f"{'equal bit for bit' if same else 'DIFFERS'}", flush=True)
+    want = {name: 0 for name in COUNTERS}
+    want["pull_sweep_step"] = 2 * MESH_STEPS
+    if counts != want:
+        raise AssertionError(f"generate_dataset on a mesh: launches {counts}, expected {want}")
+    if not same or two.failed.any() or not np.isfinite(two.u_final).all():
+        raise AssertionError("generate_dataset on a mesh differs from one stack")
+    return counts
+
+
+def ckpt_config(mesh_shape=(1, 1)) -> SimConfig:
+    """The cavity of (l): 256^2 MRT at Re 1000, run without a convergence
+    stop."""
+    return SimConfig(nx=CKPT_N, ny=CKPT_N, reynolds=1000.0, collision="mrt",
+                     max_steps=CKPT_STEPS, report_interval=CKPT_INTERVAL,
+                     convergence_tol=0.0, mesh_shape=mesh_shape)
+
+
+def run_checkpoint_resume(device, tmp: str) -> dict:
+    """(l): ``simulate`` with checkpoints at 256^2 MRT, then resumed from
+    the middle checkpoint, on ``cuda-pull`` and on ``cuda-sharded`` (a 2x2
+    mesh of the card): the final checkpoints equal bit for bit.  Returns
+    the launch counts of all four runs."""
+    total = {name: 0 for name in COUNTERS}
+    middle = CKPT_STEPS - CKPT_EVERY
+    for backend, mesh_shape, dev in (("cuda-pull", (1, 1), device),
+                                     ("cuda-sharded", SHARDED_MESH, [device] * 4)):
+        cfg = ckpt_config(mesh_shape)
+        runs = {}
+        for name, resume in (("full", None),
+                             ("resumed", os.path.join(tmp, backend, "full", "ckpt",
+                                                      f"ckpt_{middle:08d}.npz"))):
+            reset_counters()
+            summary = simulate(cfg, SimOptions(out_dir=os.path.join(tmp, backend, name),
+                                               verbose=False, backend=backend,
+                                               checkpoint_every=CKPT_EVERY,
+                                               resume_from=resume), device=dev)
+            torch.cuda.synchronize()
+            counts = read_counters()
+            add_counts(total, counts)
+            runs[name] = summary, counts
+        (full, _), (resumed, counts) = runs["full"], runs["resumed"]
+        ran = CKPT_STEPS - middle
+        shards = mesh_shape[0] * mesh_shape[1]
+        want = {name: 0 for name in COUNTERS}
+        want.update({"pull_step": ran} if backend == "cuda-pull" else
+                    {"pull_sharded_step": shards * ran, "halo_exchange": ran})
+        final = f"ckpt_{CKPT_STEPS:08d}.npz"
+        with np.load(os.path.join(tmp, backend, "full", "ckpt", final)) as a, \
+                np.load(os.path.join(tmp, backend, "resumed", "ckpt", final)) as b:
+            same = all(np.array_equal(a[k], b[k]) for k in ("f", "rho_lid", "step"))
+            finite = bool(np.isfinite(b["f"]).all())
+        print(f"  {backend} {cfg.describe()}: checkpoints every {CKPT_EVERY}, "
+              f"{full.steps} steps at {full.mlups:.1f} MLUPS; resumed at step {middle}: "
+              f"routed to {resumed.backend}, {resumed.steps} steps, launches={counts}, "
+              f"{resumed.mlups:.1f} MLUPS over the {ran} steps it ran; final checkpoint "
+              f"{'equal bit for bit' if same else 'DIFFERS'}", flush=True)
+        if resumed.backend != backend or counts != want:
+            raise AssertionError(f"resume on {backend}: {resumed.backend}, launches {counts}, "
+                                 f"expected {want}")
+        if not (same and finite and math.isfinite(resumed.mlups)):
+            raise AssertionError(f"resume on {backend}: the final checkpoint differs")
+    return total
+
+
 def bound(cells: int, nx: int, k_steps: int = 1) -> tuple[float, str]:
     """Least ms per step for the work of one fused step, at the published
     peaks: the 9 planes read once and written once (plus the lid densities)
@@ -1149,6 +1463,9 @@ def main() -> None:
         large_cfg = dataclasses.replace(bench_cfg, nx=LARGE_N, ny=LARGE_N)
         worst["pull_step"] = max(worst["pull_step"],
                                  compare_case("mrt", bench_cfg, device))
+        # the shape the checkpoint-and-resume path (l) gives the kernel
+        worst["pull_step"] = max(worst["pull_step"],
+                                 compare_case("mrt re=1000", ckpt_config(), device))
         check_runner_ping_pong(device)
         for name, kw in small:
             worst["tblock_step"] = max(worst["tblock_step"], compare_tblock(
@@ -1199,13 +1516,15 @@ def main() -> None:
         # at the shapes the main paths give the kernel: the temporal-block
         # runner's tight K=5 carries with panels at 4096^2 (2x2, 4x1) and the
         # Re=100 Ghia run's 128^2; the one-step runner's aligned depth-1
-        # carries at 4096^2 and 128^2; and the x-only table of the JAX contract
+        # carries at 4096^2, 128^2 and the resume path's 256^2; and the
+        # x-only table of the JAX contract
         k = tblock_sharded.K_STEPS
         errs = []
         for shape, n, depth, layout in [(s, SHARDED_N, k, "tight") for s in RDMA_MESHES] + [
                 (SHARDED_MESH, sharded_ghia.nx, k, "tight"),
                 (SHARDED_MESH, SHARDED_N, 1, "aligned"),
-                (SHARDED_MESH, sharded_ghia.nx, 1, "aligned")]:
+                (SHARDED_MESH, sharded_ghia.nx, 1, "aligned"),
+                (SHARDED_MESH, CKPT_N, 1, "aligned")]:
             errs.append(compare_refresh(device, shape, n, depth, layout))
         for shape, n in [(s, SHARDED_N) for s in RDMA_MESHES] + [
                 (SHARDED_MESH, sharded_ghia.nx)]:
@@ -1220,8 +1539,9 @@ def main() -> None:
 
     with phase("kernel vs plain: sweep form"):
         sweep_cfg = sweep_config()
-        errs = [compare_sweep("srt+smagorinsky", sweep_cfg, SWEEP_CAV, device, seed)
-                for seed in (None, 1)]
+        # the stacks of the datagen path (h) and of its mesh form (k)
+        errs = [compare_sweep("srt+smagorinsky", sweep_cfg, n_cav, device, seed)
+                for n_cav in (SWEEP_CAV, len(MESH_RE) // 2) for seed in (None, 1)]
         for name in ("trt", "mrt"):
             errs.append(compare_sweep(name, sweep_config(SWEEP_SMALL_N, collision=name,
                                                          turbulence="none"),
@@ -1408,7 +1728,8 @@ def main() -> None:
         res = DATAGEN_RE[:DATAGEN_PLAIN_BATCH]
         kern = ml.generate_dataset(short, re_values=res, batch_size=DATAGEN_PLAIN_BATCH,
                                    device=device)
-        plain = datagen._generate_batched(short, res, DATAGEN_PLAIN_BATCH, None, None, device)
+        plain = datagen._generate_batches(short, res, DATAGEN_PLAIN_BATCH, None, None, [device],
+                                          stacked=False)
         worst["pull_sweep_step"] = max(worst["pull_sweep_step"], *(
             check_close(f"generate_dataset kernel vs plain engine, {name}", short,
                         torch.from_numpy(getattr(kern, name)),
@@ -1449,6 +1770,18 @@ def main() -> None:
         print(f"  {SERVE_PRESET} forward, batch {batch} at {SWEEP_N}^2 in turns: "
               f"{serve_ms} ms", flush=True)
         del model, xb, auxb
+
+    with phase("main path: training"), tempfile.TemporaryDirectory() as tmp:
+        reset_counters()
+        run_training(ds, gen_cfg.u_lid, device, tmp)
+        if any(read_counters().values()):
+            raise AssertionError(f"training launched a kernel of the port: {read_counters()}")
+
+    with phase("main path: generate_dataset on a mesh"):
+        add_counts(main_launches, run_datagen_mesh(device))
+
+    with phase("main path: checkpoint and resume"), tempfile.TemporaryDirectory() as tmp:
+        add_counts(main_launches, run_checkpoint_resume(device, tmp))
 
     print(f"  launches on the main paths: {main_launches}", flush=True)
     for name, n in main_launches.items():

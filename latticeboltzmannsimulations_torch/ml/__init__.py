@@ -4,8 +4,9 @@ fields from (feq, Re, BC) inputs (reference: ``MRT_GPU_datagen.py`` +
 ``CNN_One`` ... ``CNN_Ten``), as the JAX package's ``ml/`` has them.
 
 ``generate_dataset`` runs the sweep on the card through the sweep form of
-the CUDA pull kernel; ``predict`` serves the CNN.  Training waits for a
-later slice (ROADMAP.md queue 1 item 2)."""
+the CUDA pull kernel (over the cards of a mesh, one stack each);
+``train`` trains the CNN with optax's update rules (data-parallel over a
+mesh, resumable from its checkpoints); ``predict`` serves it."""
 
 from .datagen import (
     generate_dataset, save_dataset, load_dataset, drop_failed, DatasetArrays,

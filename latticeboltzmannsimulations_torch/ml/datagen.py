@@ -21,14 +21,15 @@ one launch per step for the whole batch, or, with a batch of one, one
 cavity at a time through its one-cavity form (``make_scan_runner_omega``).
 Everything else (float64, the other walls, Van Driest, the CPU) runs a
 batch of cavities through the plain engine (``engine.make_batched_step_omega``)
-on the given device.
+on the given device.  With a mesh, a batch is split over the mesh's first
+axis, one stack (or plain batch) per entry.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +37,7 @@ import torch
 from .. import engine
 from ..config import SimConfig, resolve_device
 from ..kernels import pull
+from ..parallel.mesh import Mesh
 
 
 @dataclasses.dataclass
@@ -57,16 +59,18 @@ def _omega(cfg: SimConfig, re: float) -> float:
 def _mean_u(u: torch.Tensor) -> np.ndarray:
     """Per-cavity mean of a batch of velocity fields, reduced on the host in
     float64 (at float32 the device mean's rounding sits near the 1e-8
-    convergence tolerance)."""
-    return u.cpu().numpy().mean(axis=(1, 2, 3), dtype=np.float64)
+    convergence tolerance), each cavity on its own."""
+    return np.array([c.mean(dtype=np.float64) for c in u.cpu().numpy()])
 
 
 def _renormed(state: engine.State, rho_b: torch.Tensor) -> engine.State:
     """Per-cavity mass renormalisation of a batch (``f (B, 9, X, Y)``) or of
     cavities stacked along x (``f (9, B * X, Y)``), given each cavity's
     density ``rho_b (B, X, Y)``: its f and lid densities scaled by the
-    inverse of its mean density (velocity is invariant under it)."""
-    scale = (1.0 / rho_b.mean(dim=(1, 2))).to(state.f.dtype)
+    inverse of its mean density (velocity is invariant under it).  Each
+    cavity's mean is its own reduction, so a cavity's bits do not depend on
+    the batch or stack it runs in."""
+    scale = (1.0 / torch.stack([r.mean() for r in rho_b])).to(state.f.dtype)
     n_cav = len(scale)
     if state.f.dim() == 4:
         f = state.f * scale[:, None, None, None]
@@ -101,68 +105,122 @@ def _zero_failed(f_c: np.ndarray, u_c: np.ndarray, fail_b: np.ndarray):
     return f_c, u_c
 
 
-def _generate_stacked(cfg, re_values, n_cav, progress, on_batch, device):
-    """The batched sweep on the card: ``n_cav`` cavities stacked along x
-    advance through one launch of the sweep kernel per step, each with its
-    own omega; the convergence check and the per-cavity mass
-    renormalisation run on the stack every ``report_interval`` steps.  A
-    short last batch is padded with repeats of its last Re, whose results
-    are discarded."""
-    n = len(re_values)
-    nx, ny = cfg.nx, cfg.ny
-    state0 = engine.init_state(cfg, device)
-    feq_initial = state0.f.cpu().numpy()
-    chunk = max(1, cfg.report_interval)
-    runner = pull.make_sweep_runner(cfg, n_cav, chunk, device)
+def _parts(b: int, n_dev: int) -> List[Tuple[int, int, int]]:
+    """``(lo, hi, device index)`` of each part of a batch of ``b`` cavities:
+    ``n_dev`` equal parts, one per device, when they divide the batch, else
+    the whole batch on the first device (as the JAX package leaves a batch
+    that does not divide unsharded)."""
+    if n_dev > 1 and b % n_dev == 0:
+        per = b // n_dev
+        return [(i * per, (i + 1) * per, i) for i in range(n_dev)]
+    return [(0, b, 0)]
 
-    f_final = np.empty((n, 9, nx, ny), dtype=feq_initial.dtype)
-    u_final = np.empty((n, 2, nx, ny), dtype=feq_initial.dtype)
+
+class _Part:
+    """The cavities ``[lo, hi)`` of a batch on one device, padded to
+    ``size`` cavities by repeats of the last (their results discarded)."""
+
+    def __init__(self, state0, omegas: np.ndarray, lo: int, hi: int, size: int,
+                 device, stacked: bool, dtype):
+        self.lo, self.hi, self.size, self.device, self.stacked = lo, hi, size, device, stacked
+        om = np.concatenate([omegas[lo:hi], np.repeat(omegas[hi - 1:hi], size - (hi - lo))])
+        f0, lid0 = state0.f.to(device), state0.rho_lid.to(device)
+        state = engine.State(f0.expand(size, *f0.shape), lid0.expand(size, *lid0.shape))
+        # the sweep runner takes host omegas; the plain step a device vector
+        self.omegas = om if stacked else torch.tensor(om, dtype=dtype, device=device)
+        self.state = engine.stack_cavities(state) if stacked else state
+
+    def batch(self) -> engine.State:
+        return engine.unstack_cavities(self.state, self.size) if self.stacked else self.state
+
+
+def _generate_batches(cfg, re_values, batch_size, progress, on_batch, devices, stacked):
+    """The sweep in batches of ``batch_size`` cavities, each batch split over
+    ``devices`` (``_parts``), every part advancing ``report_interval`` steps
+    per chunk, all parts' chunks issued before any result is read (so the
+    devices run at once).  ``stacked``: a part's cavities stacked along x
+    through the sweep kernel's runner (``pull.make_sweep_runner``, one
+    launch per step per part; on the CPU its plain stacked step), a part
+    that is a whole batch padded to ``batch_size`` cavities so that one
+    runner serves every batch; else a part is a batch through the plain
+    engine (``engine.make_batched_step_omega``, the JAX package's vmapped
+    step).  The convergence check, the per-cavity mass renormalisation and
+    the quarantine act on each cavity of the whole batch every chunk, as on
+    one device."""
+    n = len(re_values)
+    state0 = engine.init_state(cfg, devices[0])
+    feq_initial = state0.f.cpu().numpy()  # initial equilibrium (datagen :281)
+    chunk = max(1, cfg.report_interval)
+    step = engine.make_batched_step_omega(cfg)
+    runners = {}
+
+    def advance(part: _Part) -> engine.State:
+        if not part.stacked:
+            state = part.state
+            for _ in range(chunk):
+                state = step(state, part.omegas)
+            return state
+        key = (part.size, part.device)
+        if key not in runners:
+            runners[key] = pull.make_sweep_runner(cfg, part.size, chunk, part.device)
+        return runners[key](part.state, part.omegas)
+
+    f_final = np.empty((n, 9, cfg.nx, cfg.ny), dtype=feq_initial.dtype)
+    u_final = np.empty((n, 2, cfg.nx, cfg.ny), dtype=feq_initial.dtype)
     failed = np.zeros(n, dtype=bool)
 
-    for lo in range(0, n, n_cav):
-        hi = min(lo + n_cav, n)
+    for lo in range(0, n, batch_size):
+        hi = min(lo + batch_size, n)
         res = re_values[lo:hi]
         b = hi - lo
-        res_pad = np.concatenate([res, np.repeat(res[-1:], n_cav - b)])
-        omegas = np.array([_omega(cfg, r) for r in res_pad])
-        state = engine.stack_cavities(engine.State(
-            state0.f.expand(n_cav, *state0.f.shape),
-            state0.rho_lid.expand(n_cav, *state0.rho_lid.shape)))
-        mean_past = np.full(n_cav, np.inf)
-        hits = np.zeros(n_cav, dtype=int)
-        fail_b = np.zeros(n_cav, dtype=bool)
+        omegas = np.array([_omega(cfg, r) for r in res])
+        parts = [_Part(state0, omegas, plo, phi,
+                       batch_size if stacked and phi - plo == b else phi - plo,
+                       devices[d], stacked, cfg.dtype)
+                 for plo, phi, d in _parts(b, len(devices))]
+        mean_past = np.full(b, np.inf)
+        hits = np.zeros(b, dtype=int)
+        fail_b = np.zeros(b, dtype=bool)
         steps = 0
         while steps < cfg.max_steps:
-            state = runner(state, omegas)
+            for part in parts:
+                part.state = advance(part)
             steps += chunk
-            rho_b, u_b = engine.batched_observables(
-                cfg, engine.unstack_cavities(state, n_cav))
-            state = _renormed(state, rho_b)
-            mean_u = _mean_u(u_b)
-            # Quarantine diverged cavities: the stacked cavities are isolated
-            # (cross-boundary gathers land only in wall-rewritten
+            mean_u = []
+            for part in parts:
+                rho_b, u_b = engine.batched_observables(cfg, part.batch())
+                # per-run mass renormalization (see sim.SimOptions.mass_correction)
+                part.state = _renormed(part.state, rho_b)
+                mean_u.append(_mean_u(u_b)[:part.hi - part.lo])
+            mean_u = np.concatenate(mean_u)
+            # Quarantine diverged cavities: they are independent (in a stack,
+            # cross-boundary gathers land only in wall-rewritten
             # populations), so a NaN slot cannot leak; mark it failed and let
             # the rest of the batch run on.
             newly = ~np.isfinite(mean_u) & ~fail_b
-            if np.any(newly[:b]):
+            if np.any(newly):
                 fail_b |= newly
-                _quarantine(progress, res, newly[:b], steps)
+                _quarantine(progress, res, newly, steps)
             done = np.abs(mean_u - mean_past) / cfg.u_lid < cfg.convergence_tol
             hits = np.where(done, hits + 1, 0)
             mean_past = mean_u
-            if np.all((hits[:b] > cfg.convergence_hits) | fail_b[:b]):
+            if np.all((hits > cfg.convergence_hits) | fail_b):
                 break
         # Final observables from the converged (renormed) state.
-        batch = engine.unstack_cavities(state, n_cav)
-        _, u_b = engine.batched_observables(cfg, batch)
-        f_c, u_c = _zero_failed(batch.f[:b].cpu().numpy(), u_b[:b].cpu().numpy(),
-                                fail_b[:b])
+        f_c, u_c = [], []
+        for part in parts:
+            batch = part.batch()
+            _, u_b = engine.batched_observables(cfg, batch)
+            real = part.hi - part.lo
+            f_c.append(batch.f[:real].cpu().numpy())
+            u_c.append(u_b[:real].cpu().numpy())
+        f_c, u_c = _zero_failed(np.concatenate(f_c), np.concatenate(u_c), fail_b)
         f_final[lo:hi], u_final[lo:hi] = f_c, u_c
-        failed[lo:hi] = fail_b[:b]
-        converged = hits[:b] > cfg.convergence_hits
-        _batch_report(progress, lo, hi, res, steps, converged, fail_b[:b])
+        failed[lo:hi] = fail_b
+        converged = hits > cfg.convergence_hits
+        _batch_report(progress, lo, hi, res, steps, converged, fail_b)
         if on_batch is not None:
-            on_batch(res, f_final[lo:hi], u_final[lo:hi], steps, converged, fail_b[:b])
+            on_batch(res, f_final[lo:hi], u_final[lo:hi], steps, converged, fail_b)
     return DatasetArrays(re_range=re_values, feq_initial=feq_initial,
                          f_final=f_final, u_final=u_final, failed=failed)
 
@@ -221,70 +279,6 @@ def _generate_sequential(cfg, re_values, progress, on_batch, device):
                          f_final=f_final, u_final=u_final, failed=failed)
 
 
-def _generate_batched(cfg, re_values, batch_size, progress, on_batch, device):
-    """The sweep through the plain engine on ``device``: ``batch_size``
-    independent cavities per batch (``engine.make_batched_step_omega``, the
-    JAX package's vmapped step), each renormalised and checked every
-    ``report_interval`` steps."""
-    n = len(re_values)
-    state0 = engine.init_state(cfg, device)
-    feq_initial = state0.f.cpu().numpy()  # initial equilibrium (datagen :281)
-
-    chunk = max(1, cfg.report_interval)
-    step = engine.make_batched_step_omega(cfg)
-
-    f_final = np.empty((n, 9, cfg.nx, cfg.ny), dtype=feq_initial.dtype)
-    u_final = np.empty((n, 2, cfg.nx, cfg.ny), dtype=feq_initial.dtype)
-    failed = np.zeros(n, dtype=bool)
-
-    for lo in range(0, n, batch_size):
-        hi = min(lo + batch_size, n)
-        res = re_values[lo:hi]
-        omegas = torch.tensor([_omega(cfg, r) for r in res], dtype=cfg.dtype,
-                              device=device)
-        b = hi - lo
-        state = engine.State(f=state0.f.expand(b, *state0.f.shape),
-                             rho_lid=state0.rho_lid.expand(b, *state0.rho_lid.shape))
-        mean_past = np.full(b, np.inf)
-        hits = np.zeros(b, dtype=int)
-        fail_b = np.zeros(b, dtype=bool)
-        steps = 0
-        while steps < cfg.max_steps:
-            for _ in range(chunk):
-                state = step(state, omegas)
-            steps += chunk
-            rho_b, u = engine.batched_observables(cfg, state)
-            # per-run mass renormalization (see sim.SimOptions.mass_correction)
-            state = _renormed(state, rho_b)
-            mean_u = _mean_u(u)
-            # Quarantine diverged runs (the batch's cavities are independent).
-            newly = ~np.isfinite(mean_u) & ~fail_b
-            if np.any(newly):
-                fail_b |= newly
-                _quarantine(progress, res, newly, steps)
-            done = np.abs(mean_u - mean_past) / cfg.u_lid < cfg.convergence_tol
-            hits = np.where(done, hits + 1, 0)
-            mean_past = mean_u
-            if np.all((hits > cfg.convergence_hits) | fail_b):
-                break
-        converged = hits > cfg.convergence_hits
-        _batch_report(progress, lo, hi, res, steps, converged, fail_b)
-        _, u_b = engine.batched_observables(cfg, state)
-        f_c, u_c = _zero_failed(state.f.cpu().numpy(), u_b.cpu().numpy(), fail_b)
-        f_final[lo:hi], u_final[lo:hi] = f_c, u_c
-        failed[lo:hi] = fail_b
-        if on_batch is not None:
-            on_batch(res, f_final[lo:hi], u_final[lo:hi], steps, converged, fail_b)
-
-    return DatasetArrays(
-        re_range=re_values,
-        feq_initial=feq_initial,
-        f_final=f_final,
-        u_final=u_final,
-        failed=failed,
-    )
-
-
 def sweep_kernel_reason(cfg: SimConfig, device) -> Optional[str]:
     """Why ``generate_dataset`` does not take the sweep kernel for ``cfg``
     on ``device`` (the plain batched engine runs instead), or None if it
@@ -301,7 +295,7 @@ def generate_dataset(
     batch_size: int = 32,
     progress: Optional[Callable[[str], None]] = None,
     on_batch: Optional[Callable] = None,
-    mesh=None,
+    mesh: Optional[Mesh] = None,
     device="cuda",
 ) -> DatasetArrays:
     """Run the sweep and return the dataset arrays.
@@ -318,25 +312,42 @@ def generate_dataset(
     is quarantined — marked in ``failed`` with zeroed fields — and the rest
     of the sweep continues.
 
-    ``mesh`` (the JAX package's spread of batches over devices) is not
-    ported yet: it raises ``NotImplementedError``.
+    ``mesh`` (``parallel.make_mesh((dp, 1), devices)``; devices may repeat)
+    spreads each batch of independent cavities over the mesh's first axis:
+    a batch of ``b`` cavities with ``b % dp == 0`` runs as ``dp`` parts, one
+    per entry (on cards one stack each through the sweep kernel, all issued
+    before any is read), a batch that does not divide on the first entry's
+    device.  There is no communication besides the host's convergence
+    reads, and each cavity's arithmetic is the same wherever it runs, so
+    the result equals ``mesh=None``'s.  With a mesh its devices take the
+    place of ``device``; a mesh that spans processes, or whose first axis
+    mixes device types, raises.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "generate_dataset(mesh=...) is not ported yet: ROADMAP.md queue 1 "
-            "item 3 (datagen's data parallelism)")
-    device = resolve_device(device)
+        if mesh.spans_processes:
+            raise NotImplementedError(
+                "generate_dataset(mesh=...) runs in one process; a mesh that spans "
+                "processes is not ported (ROADMAP.md queue 1)")
+        devices = [mesh.device(ix, 0) for ix in range(mesh.shape[0])]
+        if len({d.type for d in devices}) > 1:
+            # one route serves every part: the cards' parts would take the
+            # plain engine in place of the sweep kernel
+            raise ValueError(f"generate_dataset(mesh=...): the mesh's first axis mixes "
+                             f"device types ({[str(d) for d in devices]})")
+    else:
+        devices = [resolve_device(device)]
     if re_values is None:
         re_values = np.arange(100, 5100, 10, dtype=np.float64)  # 500 runs
     re_values = np.asarray(re_values, dtype=np.float64)
     n = len(re_values)
 
-    if sweep_kernel_reason(cfg, device) is None:
+    if all(sweep_kernel_reason(cfg, d) is None for d in devices):
         if n > 1 and batch_size > 1:
-            return _generate_stacked(cfg, re_values, min(batch_size, n), progress,
-                                     on_batch, device)
-        return _generate_sequential(cfg, re_values, progress, on_batch, device)
-    return _generate_batched(cfg, re_values, batch_size, progress, on_batch, device)
+            return _generate_batches(cfg, re_values, min(batch_size, n), progress,
+                                     on_batch, devices, stacked=True)
+        return _generate_sequential(cfg, re_values, progress, on_batch, devices[0])
+    return _generate_batches(cfg, re_values, batch_size, progress, on_batch, devices,
+                             stacked=False)
 
 
 def bit_reversed_batches(values: np.ndarray, batch_size: int) -> np.ndarray:

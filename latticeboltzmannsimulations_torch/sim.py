@@ -46,9 +46,13 @@ An explicit kernel backend that cannot serve a configuration, or that is
 asked for off the card, raises rather than run something else under its
 name.
 
-Outputs the JAX driver has and this one does not yet (plots, VTK,
-checkpoints, resume, profiler traces) raise ``NotImplementedError`` naming
-the ``ROADMAP.md`` item that ports them.
+``SimOptions.checkpoint_every`` writes checkpoints of the global state
+(``io.checkpoint``, the JAX package's format) and arms a one-shot restore of
+the last good one after a blow-up; ``resume_from`` continues a run from a
+checkpoint, on any backend (a mesh shards the loaded state).  Outputs the
+JAX package's ``simulate`` has and this one does not yet (plots, VTK,
+profiler traces) raise ``NotImplementedError`` naming the ``ROADMAP.md``
+item that ports them.
 """
 
 from __future__ import annotations
@@ -64,6 +68,7 @@ import torch.distributed as dist
 
 from . import engine
 from .config import SimConfig, resolve_device
+from .io.checkpoint import Checkpointer, load_checkpoint
 from .io.metrics import MetricsLogger, mlups
 from .kernels import pull, pull_sharded, push, tblock, tblock_sharded
 from .parallel import halo
@@ -114,8 +119,6 @@ class SimSummary:
 _NOT_PORTED = {
     "save_plots": "queue 1 item 7 (viz)",
     "save_vtk": "queue 1 item 7 (io/vtk)",
-    "checkpoint_every": "queue 1 item 4 (io/checkpoint)",
-    "resume_from": "queue 1 item 4 (io/checkpoint)",
     "profile_dir": "queue 1 item 7 (profiler traces)",
 }
 
@@ -325,6 +328,14 @@ def _scaled(state, s: float):
     return engine.State(f=state.f * s, rho_lid=state.rho_lid * s)
 
 
+def _global_state(state, device: torch.device) -> engine.State:
+    """The run's state as one ``engine.State``: a sharded one gathered onto
+    ``device``."""
+    if isinstance(state, halo.ShardedState):
+        return halo.unshard_state(state, device)
+    return state
+
+
 def simulate(cfg: SimConfig, opts: Optional[SimOptions] = None,
              device="cuda") -> SimSummary:
     """Run a cavity simulation to convergence with full diagnostics.
@@ -341,22 +352,33 @@ def simulate(cfg: SimConfig, opts: Optional[SimOptions] = None,
     where = _placement(cfg, device)
     routed = _select_backend(cfg, opts.backend, where)
     backend = routed.name
+    first = _first_device(where)
     os.makedirs(opts.out_dir, exist_ok=True)
     chunk = max(1, cfg.report_interval)
     runner = routed.make_runner(chunk)
-    state = routed.prep(engine.init_state(cfg, _first_device(where)))
+    if opts.resume_from:
+        state, start_step = load_checkpoint(opts.resume_from, cfg, first)
+    else:
+        state, start_step = engine.init_state(cfg, first), 0
+    state = routed.prep(state)
     np_dtype = {torch.float32: np.float32, torch.float64: np.float64}[cfg.dtype]
 
     metrics = MetricsLogger(
         os.path.join(opts.out_dir, f"{opts.project}_metrics.jsonl")
         if opts.metrics_jsonl else None
     )
+    ckpt = (
+        Checkpointer(os.path.join(opts.out_dir, "ckpt"), cfg,
+                     every=opts.checkpoint_every, start_step=start_step, device=first)
+        if opts.checkpoint_every else None
+    )
     if opts.verbose:
         print(f"[{backend}] {cfg.describe()}")
 
     mean_past, hits = np.inf, 0
     converged = False
-    step = 0
+    step = start_step
+    restores = 0
     t0 = time.perf_counter()
     while step < cfg.max_steps:
         state = runner(state)
@@ -365,6 +387,17 @@ def simulate(cfg: SimConfig, opts: Optional[SimOptions] = None,
         rho_h, u_h = rho.cpu().numpy(), u.cpu().numpy()
         mean_u = float(u_h.mean(dtype=np.float64))
         if not np.isfinite(mean_u):
+            # One restore gives transient blow-ups (bad resume file, cosmic
+            # ray, preempted write) a second chance; identical dynamics that
+            # diverge deterministically must not loop forever.
+            if ckpt is not None and ckpt.last_good and restores < 1:
+                restores += 1
+                if opts.verbose:
+                    print(f"blow-up at step {step}; restoring {ckpt.last_good}")
+                restored, step = ckpt.restore_last_good()
+                state = routed.prep(restored)
+                mean_past, hits = np.inf, 0
+                continue
             raise FloatingPointError(f"simulation diverged at step {step}")
 
         if opts.mass_correction:
@@ -384,6 +417,12 @@ def simulate(cfg: SimConfig, opts: Optional[SimOptions] = None,
             extra = f" R2={rec['r2_ux']:.4f}" if "r2_ux" in rec else ""
             print(f"  step {step}: mean_u={mean_u:.3e}{extra}")
 
+        if ckpt is not None and ckpt.due(step):
+            # the global (f, rho_lid), gathered only when it is saved; on the
+            # push route rho_lid is the placeholder f[0, :, 0], as the JAX
+            # package's simulate saves it
+            ckpt(step, _global_state(state, first), rho_h, u_h)
+
         if abs(mean_u - mean_past) / cfg.u_lid < cfg.convergence_tol:
             hits += 1
             if hits > cfg.convergence_hits:
@@ -402,7 +441,7 @@ def simulate(cfg: SimConfig, opts: Optional[SimOptions] = None,
         r2, r2_uy, l2 = cmp_.r2_ux, cmp_.r2_uy, cmp_.l2_combined
     summary = SimSummary(
         steps=step, converged=converged, elapsed_s=elapsed,
-        mlups=mlups(cfg.nx, cfg.ny, step, elapsed),
+        mlups=mlups(cfg.nx, cfg.ny, step - start_step, elapsed),
         r2_ux=r2, l2_combined=l2, out_dir=opts.out_dir, backend=backend,
         r2_uy=r2_uy,
     )

@@ -788,3 +788,135 @@ def test_processes_one_per_card(cuda, tmp_path, backend):
     _needs_cards(4)
     multihost.spawn(_ranks_on_cards, 4, str(tmp_path / "store"), args=((2, 2),),
                     backend=backend, timeout=300)
+
+
+# --- the training path, datagen over a mesh, checkpoints ------------------------
+
+def _train_data(res=48, n=10, seed=5):
+    import numpy as np
+
+    from latticeboltzmannsimulations_torch.ml import datagen, models, train
+
+    rng = np.random.default_rng(seed)
+    ds = datagen.DatasetArrays(
+        re_range=np.linspace(100.0, 2000.0, n),
+        feq_initial=rng.uniform(0.0, 0.5, (9, res, res)).astype(np.float32),
+        f_final=np.zeros((n, 9, res, res), np.float32),
+        u_final=(0.05 * rng.standard_normal((n, 2, res, res))).astype(np.float32))
+    return train.prepare_inputs(ds, models.PRESETS["cnn_eight" if res % 192 == 0 else "cnn_one"])
+
+
+# Per tensor, max |g_card - g_cpu| <= GRAD_RTOL * max |g_cpu|: float32 sums
+# of up to ~7e4 products (a weight gradient over batch x pixels) reordered,
+# about sqrt(7e4) * 2^-24 of the terms' size; TF32 rounds each product's
+# inputs to 10 bits (2^-11), some hundred times more.
+GRAD_RTOL = 1e-4
+
+
+def _grad_errors(model_cpu, model_card):
+    """Per tensor, max |g_card - g_cpu| / max |g_cpu|."""
+    return {name: float((q.grad.cpu() - p.grad).abs().max()) / (float(p.grad.abs().max()) or 1.0)
+            for (name, p), q in zip(model_cpu.named_parameters(), model_card.parameters())}
+
+
+@pytest.mark.cuda
+def test_training_backward_runs_without_tf32(cuda):
+    """One float32 step of ``cnn_eight`` at 192^2: the gradients of
+    ``train.loss_and_grads`` on the card equal the CPU's to GRAD_RTOL, the
+    backward under the model's TF32 switch.  The same backward under
+    cuDNN's global default (TF32 on), as a backward outside the switch
+    would take it, misses that tolerance."""
+    from latticeboltzmannsimulations_torch.ml import models, train
+
+    data = _train_data(res=192, n=4)
+    xb = torch.from_numpy(data.fnet[:2])
+    auxb = torch.from_numpy(data.aux[:2])
+    yb = torch.from_numpy(data.targets["x"][:2].copy())
+    cpu_model = models.make_model("cnn_eight", seed=3)
+    card_model = models.make_model("cnn_eight", seed=3).to(cuda)
+    args = [t.to(cuda) for t in (xb, auxb, yb)]
+    loss_cpu = train.loss_and_grads([cpu_model], xb, auxb, yb)
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        loss_card = train.loss_and_grads([card_model], *args)
+        assert torch.backends.cudnn.allow_tf32  # the switch is restored
+        errs = _grad_errors(cpu_model, card_model)
+        card_model.zero_grad(set_to_none=True)
+        train._mse(card_model, *args).backward()  # outside the switch: TF32
+        tf32_errs = _grad_errors(cpu_model, card_model)
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    assert float(loss_card) == pytest.approx(float(loss_cpu), rel=1e-5)
+    assert max(errs.values()) <= GRAD_RTOL, errs
+    assert max(tf32_errs.values()) > GRAD_RTOL, tf32_errs
+
+
+@pytest.mark.cuda
+def test_training_resume_equals_the_uninterrupted_run_on_the_card(cuda, tmp_path):
+    from latticeboltzmannsimulations_torch.ml import train
+
+    data = _train_data()
+    kw = dict(component="x", batch_size=2, schedule="inverse", optimizer="adam", device=cuda)
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        full = train.train("cnn_one", data, epochs=3, **kw)
+        ckpt = str(tmp_path / "leg.ckpt")
+        train.train("cnn_one", data, epochs=2, checkpoint_path=ckpt, checkpoint_every=1, **kw)
+        resumed = train.train("cnn_one", data, epochs=3, checkpoint_path=ckpt, **kw)
+    finally:
+        torch.backends.cudnn.deterministic = before
+    assert resumed.history == full.history
+    for name, w in full.params.items():
+        assert torch.equal(resumed.params[name], w), name
+
+
+@pytest.mark.cuda
+def test_generate_dataset_on_a_mesh_of_the_card_equals_one_stack(cuda):
+    """Eight cavities in one batch split over a (2, 1) mesh of the card: two
+    stacks of four, one sweep launch per stack per step, the result equal
+    to the single stack's bit for bit."""
+    import numpy as np
+
+    from latticeboltzmannsimulations_torch.ml import datagen
+
+    cfg = SimConfig(nx=64, ny=64, collision="srt", turbulence="smagorinsky",
+                    max_steps=20, report_interval=10)
+    res = np.arange(100.0, 900.0, 100.0)
+    before = pull.sweep_launches
+    one = datagen.generate_dataset(cfg, re_values=res, batch_size=8, device=cuda)
+    assert pull.sweep_launches - before == 20
+    before = pull.sweep_launches
+    two = datagen.generate_dataset(cfg, re_values=res, batch_size=8,
+                                   mesh=make_mesh((2, 1), [cuda] * 2))
+    assert pull.sweep_launches - before == 2 * 20
+    for name in ("f_final", "u_final", "failed"):
+        assert np.array_equal(getattr(two, name), getattr(one, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape, backend", [((1, 1), "cuda-pull"),
+                                                  ((2, 2), "cuda-sharded")])
+def test_simulate_resumes_on_the_card(cuda, tmp_path, mesh_shape, backend):
+    """A run resumed from its middle checkpoint writes the uninterrupted
+    run's final checkpoint bit for bit, through the kernel."""
+    import numpy as np
+
+    cfg = SimConfig(nx=64, ny=64, reynolds=100.0, collision="mrt", max_steps=600,
+                    report_interval=100, convergence_tol=0.0, mesh_shape=mesh_shape)
+    device = cuda if mesh_shape == (1, 1) else [cuda] * 4
+
+    def run(out, **kw):
+        return simulate(cfg, SimOptions(out_dir=str(tmp_path / out), verbose=False,
+                                        checkpoint_every=200, **kw), device=device)
+
+    assert run("full").backend == backend
+    before = pull.launches
+    resumed = run("resumed", resume_from=str(tmp_path / "full" / "ckpt" / "ckpt_00000400.npz"))
+    if backend == "cuda-pull":
+        assert pull.launches - before == 200
+    assert resumed.steps == 600
+    with np.load(tmp_path / "full" / "ckpt" / "ckpt_00000600.npz") as a, \
+            np.load(tmp_path / "resumed" / "ckpt" / "ckpt_00000600.npz") as b:
+        assert np.array_equal(a["f"], b["f"]) and np.array_equal(a["rho_lid"], b["rho_lid"])

@@ -1,5 +1,5 @@
-"""The port and chip_smoke.py import neither JAX (nor flax) nor the JAX
-package: the machine with the card has none of them."""
+"""The port and chip_smoke.py import neither JAX (nor flax or optax) nor the
+JAX package: the machine with the card has none of them."""
 
 import os
 import re
@@ -18,8 +18,8 @@ for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     importlib.import_module(m.name)
 import chip_smoke
 bad = sorted(k for k in sys.modules
-             if k in ("jax", "flax") or k.startswith(("jax.", "jaxlib", "flax.",
-                                                      "{JAX_PACKAGE}")))
+             if k in ("jax", "flax", "optax") or k.startswith(("jax.", "jaxlib", "flax.",
+                                                               "optax.", "{JAX_PACKAGE}")))
 print("imported:", bad)
 sys.exit(1 if bad else 0)
 """
@@ -43,8 +43,8 @@ def test_sources_never_name_jax_or_the_jax_package():
             "tblock_sharded.py", "pull_sharded_step.cu",
             "tblock_sharded_step.cu", "multihost.py", "halo_rdma.py",
             "halo_exchange.cu", "datagen.py", "models.py", "predict.py",
-            "scaling.py"} <= names
-    jax_import = re.compile(r"^\s*(import|from)\s+(jax|flax)\b", re.M)
+            "scaling.py", "train.py", "checkpoint.py"} <= names
+    jax_import = re.compile(r"^\s*(import|from)\s+(jax|flax|optax)\b", re.M)
     for path in files:
         text = path.read_text()
         assert JAX_PACKAGE not in text, path

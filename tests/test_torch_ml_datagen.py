@@ -21,12 +21,14 @@ from latticeboltzmannsimulations_torch import engine
 from latticeboltzmannsimulations_torch.config import SimConfig
 from latticeboltzmannsimulations_torch.kernels import pull
 from latticeboltzmannsimulations_torch.ml import datagen
+from latticeboltzmannsimulations_torch.parallel.mesh import Mesh, make_mesh
 from latticeboltzmannsimulations_tpu import engine as jengine
 from latticeboltzmannsimulations_tpu.config import SimConfig as JConfig
 from latticeboltzmannsimulations_tpu.kernels import pallas_pull
 from latticeboltzmannsimulations_tpu.ml import datagen as jdatagen
 
 ATOL = 2e-5
+CPU = torch.device("cpu")
 SWEEP_RE = (150.0, 900.0, 2500.0)
 DATASET_RE = np.array([100.0, 150.0, 200.0])
 DATASET_CFG = dict(nx=32, ny=32, reynolds=100.0, collision="srt", max_steps=300,
@@ -187,9 +189,9 @@ def test_stacked_and_sequential_routes_on_cpu_match_the_batched_route():
     res = np.array([100.0, -50.0, 200.0])
     want = datagen.generate_dataset(cfg, re_values=res, batch_size=2, device="cpu")
     calls = []
-    stacked = datagen._generate_stacked(cfg, res, 2, None,
+    stacked = datagen._generate_batches(cfg, res, 2, None,
                                         lambda *a: calls.append(a[0].tolist()),
-                                        torch.device("cpu"))
+                                        [torch.device("cpu")], stacked=True)
     assert calls == [[100.0, -50.0], [200.0]]
     for name in ("f_final", "u_final", "failed"):
         np.testing.assert_array_equal(getattr(stacked, name), getattr(want, name))
@@ -200,10 +202,74 @@ def test_stacked_and_sequential_routes_on_cpu_match_the_batched_route():
 
 
 def test_generate_dataset_routes_the_card_and_refuses_a_mesh():
+    """The card's route needs a CUDA device; a mesh that spans the processes
+    of a group is refused."""
     cfg = SimConfig(**DATASET_CFG)
     assert datagen.sweep_kernel_reason(cfg, "cpu") == "not on a CUDA device"
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        datagen.generate_dataset(cfg, re_values=DATASET_RE, device="cpu", mesh=object())
+    cpu = torch.device("cpu")
+    spanning = Mesh((2, 1), ((cpu,), (cpu,)), ranks=((0,), (1,)), rank=0)
+    assert spanning.spans_processes
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+        datagen.generate_dataset(cfg, re_values=DATASET_RE, mesh=spanning)
+
+
+def test_generate_dataset_refuses_a_mesh_that_mixes_device_types():
+    """One route serves every part, so a mesh of the CPU and a card is
+    refused before anything runs (the card's part would take the plain
+    engine)."""
+    cfg = SimConfig(**DATASET_CFG)
+    with pytest.raises(ValueError, match="mixes device types"):
+        datagen.generate_dataset(cfg, re_values=DATASET_RE,
+                                 mesh=make_mesh((2, 1), ["cpu", "cuda:0"]))
+
+
+MESH_RE = np.array([100.0, 150.0, 200.0, 250.0, 300.0])  # batches of 2, 2 and 1
+
+
+def test_generate_dataset_on_a_mesh_matches_jax_mesh_and_no_mesh():
+    """A (2, 1) mesh of the CPU, in float64: each batch of 2 split into one
+    cavity per entry, the last batch of 1 (which does not divide) on the
+    first; against ``mesh=None`` bit for bit and against JAX's mesh path
+    over two of its virtual CPU devices to 1e-12, the callback's flags
+    equal."""
+    cfg, jcfg = _both(**DATASET_CFG, precision="float64")
+    flags, jflags, plain_flags = [], [], []
+
+    def record(out):
+        return lambda *a: out.append((a[0].tolist(), a[3], np.asarray(a[4]).tolist(),
+                                      np.asarray(a[5]).tolist()))
+
+    ds = datagen.generate_dataset(cfg, re_values=MESH_RE, batch_size=2, on_batch=record(flags),
+                                  mesh=make_mesh((2, 1), ["cpu"] * 2))
+    plain = datagen.generate_dataset(cfg, re_values=MESH_RE, batch_size=2,
+                                     on_batch=record(plain_flags), device="cpu")
+    jmesh = jax.sharding.Mesh(np.asarray(jax.devices()[:2]), ("batch",))
+    jds = jdatagen.generate_dataset(jcfg, re_values=MESH_RE, batch_size=2,
+                                    on_batch=record(jflags), mesh=jmesh)
+    for name in ("f_final", "u_final", "failed", "feq_initial"):
+        np.testing.assert_array_equal(getattr(ds, name), getattr(plain, name))
+    for name in ("f_final", "u_final", "feq_initial"):
+        np.testing.assert_allclose(getattr(ds, name), getattr(jds, name), rtol=0, atol=1e-12)
+    np.testing.assert_array_equal(ds.failed, jds.failed)
+    assert flags == plain_flags == jflags and len(flags) == 3
+
+
+def test_stacked_route_over_a_mesh_equals_one_stack():
+    """The card's route with two entries, driven on the CPU (each part a
+    stack through the sweep runner's plain stacked step), a diverging
+    cavity in one part: equal to the single stack bit for bit; the parts
+    of a divided batch go to their entries, an indivisible batch to the
+    first."""
+    cfg = SimConfig(**DATASET_CFG)
+    res = np.array([100.0, -50.0, 200.0, 250.0, 300.0])
+    one = datagen._generate_batches(cfg, res, 2, None, None, [CPU], stacked=True)
+    two = datagen._generate_batches(cfg, res, 2, None, None, [CPU, CPU], stacked=True)
+    for name in ("f_final", "u_final", "failed"):
+        np.testing.assert_array_equal(getattr(two, name), getattr(one, name))
+    assert two.failed.tolist() == [False, True, False, False, False]
+    assert datagen._parts(4, 2) == [(0, 2, 0), (2, 4, 1)]
+    assert datagen._parts(3, 2) == [(0, 3, 0)]
+    assert datagen._parts(3, 1) == [(0, 3, 0)]
 
 
 # --- the dataset files ----------------------------------------------------------

@@ -197,8 +197,7 @@ def test_push_oracle_run_to_convergence_observes_the_push_state():
 
 
 @pytest.mark.parametrize("option, value", [
-    ("save_plots", True), ("save_vtk", True), ("checkpoint_every", 100),
-    ("resume_from", "ckpt.npz"), ("profile_dir", "trace"),
+    ("save_plots", True), ("save_vtk", True), ("profile_dir", "trace"),
 ])
 def test_options_not_ported_yet_raise(tmp_path, option, value):
     opts = TOptions(out_dir=str(tmp_path), verbose=False, **{option: value})
