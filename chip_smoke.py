@@ -148,7 +148,23 @@ along x, each with its own omega) and the surrogate pipeline:
 (l) ``simulate`` at 256^2 MRT with checkpoints every 1 000 of 3 000 steps,
     then resumed from step 2 000, on ``cuda-pull`` and on ``cuda-sharded``
     (2x2 mesh of the card): the final checkpoints equal bit for bit, the
-    resumed run's launches counted and its MLUPS over the steps it ran.
+    resumed run's launches counted and its MLUPS over the steps it ran;
+(m) the command line, each command a subprocess
+    (``python -m latticeboltzmannsimulations_torch``): ``run`` of the
+    benchmark's cavity (1024^2 MRT Re=5000, 6 000 steps in 2 000-step
+    intervals, ``--vtk``, a checkpoint every interval, the first chunk
+    profiled): routed to ``cuda-pull``, its three ``.vtr`` files equal byte
+    for byte to an in-process ``simulate`` with the same options and no
+    profile, its ``trace.json`` holding exactly 2 000 ``pull_step`` kernel
+    events (their device time per step, the chunk's idle share and the
+    host's us between launches printed beside the MLUPS); in-process
+    ``simulate`` in turns without outputs, with ``--vtk``'s outputs, with
+    the command's outputs and with its profile too, their launches counted,
+    for the cost of each; the same profiled run at 128^2 Re=100, and that
+    size with and without the profile in turns; ``datagen`` of (h)'s 32
+    cavities, its ``.npy`` files equal to (h)'s arrays bit for bit; and a
+    line naming what it does not drive on the card (``--plots``, ``train``
+    and ``predict`` draw with matplotlib, where the machine has none).
 
 The last three lines are ``nvidia-smi``'s line, one JSON object describing
 each kernel, and ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -161,6 +177,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import importlib.util
 import json
 import math
 import os
@@ -326,6 +343,17 @@ CKPT_N = 256
 CKPT_STEPS = 3_000
 CKPT_INTERVAL = 500
 CKPT_EVERY = 1_000
+# The command line (m): the benchmark's cavity through `run`, three intervals,
+# the first profiled; the Re=100 cavity at 128^2 profiled the same way; each
+# command's time limit.
+REPO = os.path.dirname(os.path.abspath(__file__))
+CLI_STEPS = 6_000
+CLI_INTERVAL = 2_000
+CLI_SMALL_N = 128
+CLI_TIMEOUT_S = 300
+PULL_KERNEL = "pull_step_kernel"     # pull_step's __global__ in csrc/pull_step.cu
+#                                      (in an anonymous namespace there)
+DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 @contextlib.contextmanager
@@ -1404,6 +1432,178 @@ def run_checkpoint_resume(device, tmp: str) -> dict:
     return total
 
 
+def run_cli(args: list[str]) -> tuple[list[str], float]:
+    """``python -m latticeboltzmannsimulations_torch *args`` from the
+    repository's root; its stdout lines and wall seconds.  Raises if it
+    fails."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "latticeboltzmannsimulations_torch", *args],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(args[:1])} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout.splitlines(), wall
+
+
+def read_trace(path: str, steps: int) -> dict:
+    """A ``simulate`` profile of a ``steps``-step chunk on ``cuda-pull``:
+    ``pull_step``'s kernel events (exactly ``steps`` of them), their device
+    ms per step, the chunk's span, its idle share (1 - device busy / span;
+    and from the first kernel's start to the last one's end), and the host's
+    median us between kernel launches."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events
+               if e.get("cat") == "kernel" and f"{PULL_KERNEL}(" in e.get("name", "")]
+    busy = [e for e in events if e.get("cat") in DEVICE_EVENTS]
+    chunks = [e for e in events
+              if e.get("cat") == "user_annotation" and e.get("name") == sim.CHUNK_SPAN]
+    launches = sorted(e["ts"] for e in events
+                      if e.get("cat") == "cuda_runtime" and e.get("name") == "cudaLaunchKernel")
+    if len(kernels) != steps or len(chunks) != 1:
+        raise AssertionError(f"{path}: {len(kernels)} {PULL_KERNEL} events (expected {steps}) "
+                             f"and {len(chunks)} chunk spans; the trace has "
+                             f"{sorted({e.get('cat') for e in events}, key=str)}, kernels "
+                             f"{sorted({e['name'] for e in events if e.get('cat') == 'kernel'})}")
+    busy_us = sum(e["dur"] for e in busy)
+    first = min(e["ts"] for e in kernels)
+    last = max(e["ts"] + e["dur"] for e in kernels)
+    return {"kernel_ms_per_step": sum(e["dur"] for e in kernels) / steps / 1e3,
+            "chunk_ms": chunks[0]["dur"] / 1e3,
+            "idle_share": 1 - busy_us / chunks[0]["dur"],
+            "idle_share_between_kernels": 1 - busy_us / (last - first),
+            "host_us_per_launch": float(np.median(np.diff(launches))),
+            "other_device_events": len(busy) - len(kernels)}
+
+
+def cli_config(n: int, reynolds: float) -> SimConfig:
+    """The cavity of ``run --nx n --re reynolds --collision mrt --max-steps
+    CLI_STEPS --interval CLI_INTERVAL`` (the command's defaults)."""
+    return SimConfig(nx=n, ny=n, reynolds=reynolds, u_lid=0.08, collision="mrt",
+                     boundary="nebb", turbulence="none", precision="float32",
+                     max_steps=CLI_STEPS, report_interval=CLI_INTERVAL).validate()
+
+
+def simulate_in_turns(cfg: SimConfig, device, tmp: str, variants: dict,
+                      order: list[str]) -> tuple[dict, dict]:
+    """In-process ``simulate`` of ``cfg`` with each variant's options, in
+    ``order``; each run must launch ``pull_step`` once per step and nothing
+    else.  Returns each variant's (summary, output directory, wall seconds
+    of the call) and the launch counts of all."""
+    total = {name: 0 for name in COUNTERS}
+    want = {name: 0 for name in COUNTERS}
+    want["pull_step"] = cfg.max_steps
+    runs = {name: [] for name in variants}
+    for i, name in enumerate(order):
+        out = os.path.join(tmp, f"{name}-{i}")
+        opts = {k: (os.path.join(out, v) if k == "profile_dir" else v)
+                for k, v in variants[name].items()}
+        reset_counters()
+        t0 = time.perf_counter()
+        summary = simulate(cfg, SimOptions(out_dir=out, verbose=False, **opts), device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counters()
+        if summary.backend != "cuda-pull" or summary.steps != cfg.max_steps or counts != want:
+            raise AssertionError(f"in-process {name}: {summary.backend}, {summary.steps} steps, "
+                                 f"launches {counts}, expected {want}")
+        add_counts(total, counts)
+        runs[name].append((summary, out, wall))
+    print(f"  in-process simulate {cfg.nx}^2 Re={cfg.reynolds:g} in turns, MLUPS (elapsed s, "
+          f"wall s of the call): " + "; ".join(
+              f"{name} " + ", ".join(f"{s.mlups:.1f} ({s.elapsed_s:.4f}, {w:.4f})"
+                                     for s, _, w in r)
+              for name, r in runs.items()), flush=True)
+    return runs, total
+
+
+def run_command_line(ds, device, tmp: str) -> dict:
+    """(m): ``run`` and ``datagen`` as commands, held to the in-process
+    runs; returns the launch counts of the in-process ``simulate`` runs."""
+    total = {name: 0 for name in COUNTERS}
+    # run: the benchmark's cavity with VTK, checkpoints and the first chunk profiled
+    out, prof = os.path.join(tmp, "run"), os.path.join(tmp, "run", "profile")
+    lines, wall = run_cli(["run", "--nx", str(BENCH_N), "--re", "5000", "--collision", "mrt",
+                           "--max-steps", str(CLI_STEPS), "--interval", str(CLI_INTERVAL),
+                           "--vtk", "--checkpoint-every", str(CLI_INTERVAL),
+                           "--profile", prof, "--out", out])
+    summary = json.loads(lines[-1])
+    trace = read_trace(os.path.join(prof, "trace.json"), CLI_INTERVAL)
+    print(f"  run {BENCH_N}^2 MRT Re=5000, {CLI_STEPS} steps, --vtk, checkpoints, first chunk "
+          f"profiled: routed to {summary['backend']}, {summary['steps']} steps, "
+          f"{summary['mlups']:.1f} MLUPS, command wall {wall:.2f} s; trace: {trace}",
+          flush=True)
+    if summary["backend"] != "cuda-pull" or summary["steps"] != CLI_STEPS:
+        raise AssertionError(f"run: {summary}")
+    cfg = cli_config(BENCH_N, 5000.0)
+    outputs = dict(save_vtk=True, checkpoint_every=CLI_INTERVAL)
+    variants = {"none": {}, "vtk": dict(save_vtk=True), "command": outputs,
+                "command+profile": dict(outputs, profile_dir="profile")}
+    runs, counts = simulate_in_turns(cfg, device, tmp, variants,
+                                     ["none", "vtk", "command", "command+profile",
+                                      "command+profile", "command", "vtk", "none"])
+    add_counts(total, counts)
+    vtr = [f"ldc.{i}.vtr" for i in range(CLI_STEPS // CLI_INTERVAL)]
+    ref = runs["command"][0][1]
+    for name in vtr:
+        with open(os.path.join(out, name), "rb") as a, open(os.path.join(ref, name), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"run's {name} differs from the in-process simulate's")
+    print(f"  run's {vtr} equal byte for byte to the in-process simulate's", flush=True)
+    for _, run_out, _ in runs["command+profile"]:
+        read_trace(os.path.join(run_out, "profile", "trace.json"), CLI_INTERVAL)
+
+    # the same at 128^2, Re=100: the host's share
+    plots = importlib.util.find_spec("matplotlib") is not None
+    small = os.path.join(tmp, "small")
+    lines, wall = run_cli(["run", "--nx", str(CLI_SMALL_N), "--re", "100", "--collision", "mrt",
+                           "--max-steps", str(CLI_STEPS), "--interval", str(CLI_INTERVAL),
+                           "--profile", os.path.join(small, "profile"), "--out", small]
+                          + (["--plots"] if plots else []))
+    summary = json.loads(lines[-1])
+    trace = read_trace(os.path.join(small, "profile", "trace.json"), CLI_INTERVAL)
+    print(f"  run {CLI_SMALL_N}^2 MRT Re=100, first chunk profiled: routed to "
+          f"{summary['backend']}, {summary['steps']} steps, {summary['mlups']:.1f} MLUPS, "
+          f"command wall {wall:.2f} s; trace: {trace}", flush=True)
+    if summary["backend"] != "cuda-pull" or summary["steps"] != CLI_STEPS:
+        raise AssertionError(f"run at {CLI_SMALL_N}^2: {summary}")
+    if plots and not any(f.endswith(".png") for f in os.listdir(small)):
+        raise AssertionError("run --plots wrote no dashboard")
+    _, counts = simulate_in_turns(cli_config(CLI_SMALL_N, 100.0), device, tmp,
+                                  {"none": {}, "profile": dict(profile_dir="profile")},
+                                  ["none", "profile", "profile", "none"])
+    add_counts(total, counts)
+
+    # datagen: (h)'s cavities as a command
+    data = os.path.join(tmp, "data")
+    _, wall = run_cli(["datagen", "--grid", str(SWEEP_N), "--batch", str(SWEEP_CAV),
+                       "--re-start", f"{DATAGEN_RE[0]:g}",
+                       "--re-stop", f"{DATAGEN_RE[-1] + 10:g}", "--re-step", "10",
+                       "--max-steps", str(DATAGEN_MAX_STEPS),
+                       "--interval", str(DATAGEN_INTERVAL), "--out", data])
+    files = {"Re_range.npy": ds.re_range, "feq_initial.npy": ds.feq_initial,
+             "f_final.npy": ds.f_final, "u_final.npy": ds.u_final}
+    if sorted(os.listdir(data)) != sorted(files):
+        raise AssertionError(f"datagen wrote {sorted(os.listdir(data))}")
+    for name, want in files.items():
+        got = np.load(os.path.join(data, name))
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise AssertionError(f"datagen's {name} differs from (h)'s generate_dataset")
+    print(f"  datagen {len(DATAGEN_RE)} Re at {SWEEP_N}^2, batch {SWEEP_CAV}: command wall "
+          f"{wall:.2f} s; its {sorted(files)} equal (h)'s arrays bit for bit", flush=True)
+    if not plots:
+        print("  not driven on the card: run --plots, train and predict: they draw with "
+              "matplotlib (viz.dashboard, train.plot_history, predict.comparison_figure), "
+              "which this machine does not have; they are host code, held to the JAX "
+              "package on the CPU by tests/test_torch_cli.py and tests/test_torch_viz.py",
+              flush=True)
+    return total
+
+
 def bound(cells: int, nx: int, k_steps: int = 1) -> tuple[float, str]:
     """Least ms per step for the work of one fused step, at the published
     peaks: the 9 planes read once and written once (plus the lid densities)
@@ -1782,6 +1982,9 @@ def main() -> None:
 
     with phase("main path: checkpoint and resume"), tempfile.TemporaryDirectory() as tmp:
         add_counts(main_launches, run_checkpoint_resume(device, tmp))
+
+    with phase("main path: the command line"), tempfile.TemporaryDirectory() as tmp:
+        add_counts(main_launches, run_command_line(ds, device, tmp))
 
     print(f"  launches on the main paths: {main_launches}", flush=True)
     for name, n in main_launches.items():

@@ -1,15 +1,15 @@
 """Surrogate inference: the serving path of the JAX package's
 ``ml/predict.py`` (the reference's ``CNN_predict.py`` capability,
 ``CNNEight_384/CNN_predict.py:116-265``): build the input for an arbitrary
-Reynolds number, predict both velocity components, un-scale them, and a
-fresh LBM solution to compare them with.
-
-``comparison_figure`` (matplotlib) is not ported yet: it comes with the
-plots of ROADMAP.md queue 1 (viz).
+Reynolds number, predict both velocity components, un-scale them, and
+compare them side by side with a fresh LBM solution: streamline panels,
+4-vortex detection on both fields, and centerline overlays against the Ghia
+tables (``comparison_figure``, matplotlib).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -17,6 +17,9 @@ import torch
 
 from .. import engine
 from ..config import SimConfig, resolve_device
+from ..validate import compare_to_ghia
+from ..validate.ghia import centerline_profiles
+from ..validate.ghia_data import has_reynolds
 from .models import PRESETS, CavityCNN, make_model
 from .scaling import MaxScaler, MinMaxScaler
 
@@ -139,3 +142,59 @@ def lbm_reference(cfg: SimConfig, device="cuda") -> np.ndarray:
             hits = 0
         mean_past = mean_u
     return u.cpu().numpy()
+
+
+def comparison_figure(
+    cfg: SimConfig,
+    u_lbm: np.ndarray,
+    u_cnn: np.ndarray,
+    out_path: str,
+) -> dict:
+    """Side-by-side streamlines + vortices, and centerline overlays vs Ghia
+    (reference: ``CNN_predict.py:163-265``).  Returns the metric dict."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    from ..viz import streamline_panel
+
+    fig, axes = plt.subplots(2, 2, figsize=(12, 10))
+
+    for ax, u, title in ((axes[0, 0], u_lbm, "LBM"),
+                         (axes[0, 1], u_cnn, "CNN")):
+        streamline_panel(ax, u, density=1.3,
+                         title=f"{title} streamlines, Re={cfg.reynolds:g}")
+
+    # Same center-column averaging as the R²/L2 gates (even grids have no
+    # node on the centerline — validate/ghia.centerline_profiles).
+    (y_l, ux_l), (x_l, uy_l) = centerline_profiles(u_lbm, cfg.u_lid)
+    (y_c, ux_c), (x_c, uy_c) = centerline_profiles(u_cnn, cfg.u_lid)
+    axes[1, 0].plot(ux_l, y_l, label="LBM")
+    axes[1, 0].plot(ux_c, y_c, "--", label="CNN")
+    axes[1, 1].plot(x_l, uy_l, label="LBM")
+    axes[1, 1].plot(x_c, uy_c, "--", label="CNN")
+
+    metrics = {}
+    if has_reynolds(cfg.reynolds):
+        gl = compare_to_ghia(u_lbm, cfg.u_lid, cfg.reynolds)
+        gc = compare_to_ghia(u_cnn, cfg.u_lid, cfg.reynolds)
+        axes[1, 0].plot(gl.ux_ghia, gl.y_stations, "ko", ms=4, label="Ghia")
+        axes[1, 1].plot(gc.x_stations, gc.uy_ghia, "ko", ms=4, label="Ghia")
+        metrics = {"r2_lbm_ux": gl.r2_ux, "r2_cnn_ux": gc.r2_ux,
+                   "l2_lbm": gl.l2_combined, "l2_cnn": gc.l2_combined}
+        axes[1, 0].set_title(
+            f"Ux mid-column  R2 LBM={gl.r2_ux:.3f} CNN={gc.r2_ux:.3f}")
+        axes[1, 1].set_title("Uy mid-row")
+    for ax in axes[1]:
+        ax.legend()
+        ax.grid(alpha=0.3)
+
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=110)
+    plt.close(fig)
+    metrics["figure"] = out_path
+    metrics["cnn_vs_lbm_l2"] = float(
+        np.linalg.norm(u_cnn - u_lbm) / (np.linalg.norm(u_lbm) + 1e-12)
+    )
+    return metrics

@@ -49,10 +49,17 @@ name.
 ``SimOptions.checkpoint_every`` writes checkpoints of the global state
 (``io.checkpoint``, the JAX package's format) and arms a one-shot restore of
 the last good one after a blow-up; ``resume_from`` continues a run from a
-checkpoint, on any backend (a mesh shards the loaded state).  Outputs the
-JAX package's ``simulate`` has and this one does not yet (plots, VTK,
-profiler traces) raise ``NotImplementedError`` naming the ``ROADMAP.md``
-item that ports them.
+checkpoint, on any backend (a mesh shards the loaded state).  Every
+interval, after the checkpoint and in the JAX driver's order,
+``save_plots`` renders the dashboard (``viz.dashboard``) and ``save_vtk``
+writes a ``.vtr`` snapshot (``io.vtk.save_to_vtk``), both from the host
+fields the interval fetched (on a mesh, the gathered global fields), the
+density rescaled by the mass correction.  ``profile_dir`` writes a
+``torch.profiler`` Chrome trace of the first chunk, ``trace.json``, with the
+card's kernels when the run is on the card; the chunk's steps and time count
+in the run's MLUPS, as the JAX driver's do, but the profiler's own start,
+stop and export do not (its first start in a process initialises the
+card's tracing, seconds against a chunk's milliseconds).
 """
 
 from __future__ import annotations
@@ -65,11 +72,13 @@ from typing import Callable, NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import ProfilerActivity, profile, record_function
 
-from . import engine
+from . import engine, viz
 from .config import SimConfig, resolve_device
 from .io.checkpoint import Checkpointer, load_checkpoint
 from .io.metrics import MetricsLogger, mlups
+from .io.vtk import save_to_vtk
 from .kernels import pull, pull_sharded, push, tblock, tblock_sharded
 from .parallel import halo
 from .parallel.mesh import Mesh, make_mesh
@@ -98,6 +107,8 @@ class SimOptions:
     # This rescales f to the initial mean density every report interval
     # (velocity is invariant under a uniform rescale of f).
     mass_correction: bool = True
+    # Write a torch.profiler Chrome trace of the first compute chunk here
+    # (trace.json; chrome://tracing or Perfetto); None = off.
     profile_dir: Optional[str] = None
 
 
@@ -114,13 +125,8 @@ class SimSummary:
     r2_uy: Optional[float]
 
 
-# Options of the JAX driver that this package does not run yet, with the
-# ROADMAP.md item (queue 1) that ports each.
-_NOT_PORTED = {
-    "save_plots": "queue 1 item 7 (viz)",
-    "save_vtk": "queue 1 item 7 (io/vtk)",
-    "profile_dir": "queue 1 item 7 (profiler traces)",
-}
+# The name of the profiled chunk's span in the trace.
+CHUNK_SPAN = "simulate.chunk"
 
 
 # Fields of at least this many cells take the temporal-block kernel under
@@ -336,6 +342,34 @@ def _global_state(state, device: torch.device) -> engine.State:
     return state
 
 
+def _devices(where: Placement) -> list:
+    """The distinct devices a run uses."""
+    if isinstance(where, Mesh):
+        return list(dict.fromkeys(d for row in where.devices for d in row))
+    return [where]
+
+
+def _profiled(runner, state, where: Placement, profile_dir: str):
+    """``runner(state)`` under ``torch.profiler`` (CPU activity, and CUDA
+    activity on cards), waited for before the profiler stops, in a span
+    named ``CHUNK_SPAN``; the trace goes to ``profile_dir/trace.json``.
+    Returns the state and the seconds the profiler took around the chunk
+    (its start, stop and export)."""
+    cards = [d for d in _devices(where) if d.type == "cuda"]
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cards else [])
+    t0 = time.perf_counter()
+    with profile(activities=activities) as prof:
+        with record_function(CHUNK_SPAN):
+            t_chunk = time.perf_counter()
+            state = runner(state)
+            for d in cards:
+                torch.cuda.synchronize(d)
+            chunk_s = time.perf_counter() - t_chunk
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+    return state, time.perf_counter() - t0 - chunk_s
+
+
 def simulate(cfg: SimConfig, opts: Optional[SimOptions] = None,
              device="cuda") -> SimSummary:
     """Run a cavity simulation to convergence with full diagnostics.
@@ -344,11 +378,6 @@ def simulate(cfg: SimConfig, opts: Optional[SimOptions] = None,
     cards with a mesh)."""
     opts = opts or SimOptions()
     cfg.validate()
-    for name, item in _NOT_PORTED.items():
-        if getattr(opts, name):
-            raise NotImplementedError(
-                f"SimOptions.{name} is not ported yet (ROADMAP.md {item})"
-            )
     where = _placement(cfg, device)
     routed = _select_backend(cfg, opts.backend, where)
     backend = routed.name
@@ -375,13 +404,19 @@ def simulate(cfg: SimConfig, opts: Optional[SimOptions] = None,
     if opts.verbose:
         print(f"[{backend}] {cfg.describe()}")
 
+    r2_history = []
     mean_past, hits = np.inf, 0
     converged = False
     step = start_step
+    vtk_n = 0
     restores = 0
+    profiler_s = 0.0
     t0 = time.perf_counter()
     while step < cfg.max_steps:
-        state = runner(state)
+        if opts.profile_dir is not None and step == start_step:
+            state, profiler_s = _profiled(runner, state, where, opts.profile_dir)
+        else:
+            state = runner(state)
         step += chunk
         rho, u = routed.observe(cfg, state)
         rho_h, u_h = rho.cpu().numpy(), u.cpu().numpy()
@@ -407,11 +442,13 @@ def simulate(cfg: SimConfig, opts: Optional[SimOptions] = None,
                 # cfg.dtype(scale) is; on the push path rho_lid is the
                 # placeholder and is never read
                 state = _scaled(state, float(np_dtype(scale)))
+                rho_h = rho_h * scale
 
         rec = {"mean_u": mean_u, "backend": backend}
         if has_reynolds(cfg.reynolds):
             cmp_ = compare_to_ghia(u_h, cfg.u_lid, cfg.reynolds)
             rec.update(r2_ux=cmp_.r2_ux, l2=cmp_.l2_combined)
+            r2_history.append((step, cmp_.r2_ux))
         metrics.log(step, **rec)
         if opts.verbose:
             extra = f" R2={rec['r2_ux']:.4f}" if "r2_ux" in rec else ""
@@ -422,6 +459,12 @@ def simulate(cfg: SimConfig, opts: Optional[SimOptions] = None,
             # push route rho_lid is the placeholder f[0, :, 0], as the JAX
             # package's simulate saves it
             ckpt(step, _global_state(state, first), rho_h, u_h)
+        if opts.save_plots:
+            viz.dashboard(cfg, rho_h, u_h, step, r2_history,
+                          out_dir=opts.out_dir, prefix=opts.project)
+        if opts.save_vtk:
+            save_to_vtk(u_h, rho_h, opts.project, vtk_n, out_dir=opts.out_dir)
+            vtk_n += 1
 
         if abs(mean_u - mean_past) / cfg.u_lid < cfg.convergence_tol:
             hits += 1
@@ -431,7 +474,7 @@ def simulate(cfg: SimConfig, opts: Optional[SimOptions] = None,
         else:
             hits = 0
         mean_past = mean_u
-    elapsed = time.perf_counter() - t0
+    elapsed = time.perf_counter() - t0 - profiler_s
 
     _, u = routed.observe(cfg, state)
     u_h = u.cpu().numpy()

@@ -1,5 +1,6 @@
 """Validation (layer L4): Ghia et al. (1982) golden data, centerline profile
-extraction and the R^2 / L2 fidelity metrics.  NumPy only."""
+extraction, the R^2 / L2 fidelity metrics and vortex-center detection.  NumPy
+only."""
 
 from .ghia_data import RE_VALUES, has_reynolds, UX_MID_COLUMN, UY_MID_ROW, VORTICES  # noqa: F401
 from .ghia import (  # noqa: F401
@@ -9,3 +10,4 @@ from .ghia import (  # noqa: F401
     l2_error,
     r_squared,
 )
+from .vortex import find_vortex_centers  # noqa: F401

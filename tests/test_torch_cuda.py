@@ -920,3 +920,42 @@ def test_simulate_resumes_on_the_card(cuda, tmp_path, mesh_shape, backend):
     with np.load(tmp_path / "full" / "ckpt" / "ckpt_00000600.npz") as a, \
             np.load(tmp_path / "resumed" / "ckpt" / "ckpt_00000600.npz") as b:
         assert np.array_equal(a["f"], b["f"]) and np.array_equal(a["rho_lid"], b["rho_lid"])
+
+
+@pytest.mark.cuda
+def test_simulate_profile_trace_holds_the_kernel_launches(cuda, tmp_path):
+    """``profile_dir`` traces the first chunk on the card: its Chrome trace
+    holds one ``pull_step`` kernel event per step of that chunk, inside the
+    chunk's span."""
+    import json
+
+    from latticeboltzmannsimulations_torch.sim import CHUNK_SPAN
+
+    cfg = SimConfig(nx=128, ny=128, reynolds=100.0, collision="mrt", max_steps=600,
+                    report_interval=200)
+    prof = tmp_path / "prof"
+    summary = simulate(cfg, SimOptions(out_dir=str(tmp_path), verbose=False,
+                                       profile_dir=str(prof)), device=cuda)
+    assert summary.backend == "cuda-pull" and summary.steps == 600
+    events = json.loads((prof / "trace.json").read_text())["traceEvents"]
+    kernels = [e for e in events
+               if e.get("cat") == "kernel" and "pull_step_kernel(" in e["name"]]
+    (chunk,) = [e for e in events if e.get("name") == CHUNK_SPAN
+                and e.get("cat") == "user_annotation"]
+    assert len(kernels) == 200
+    assert sum(e["dur"] for e in kernels) < chunk["dur"]
+
+
+@pytest.mark.cuda
+def test_cli_run_writes_vtk_on_the_card(cuda, tmp_path, capsys):
+    import json
+    import os
+
+    from latticeboltzmannsimulations_torch import cli
+
+    assert cli.main(["run", "--nx", "96", "--re", "100", "--max-steps", "400",
+                     "--interval", "200", "--vtk", "--out", str(tmp_path)]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["backend"] == "cuda-pull" and summary["steps"] == 400
+    assert sorted(f for f in os.listdir(tmp_path) if f.endswith(".vtr")) == [
+        "ldc.0.vtr", "ldc.1.vtr"]

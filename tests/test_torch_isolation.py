@@ -36,14 +36,16 @@ def test_importing_every_module_loads_no_jax():
 
 def test_sources_never_name_jax_or_the_jax_package():
     files = (sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
-             + sorted(PORT.rglob("*.cuh")) + [REPO / "chip_smoke.py"])
+             + sorted(PORT.rglob("*.cuh")) + sorted(PORT.rglob("*.cpp"))
+             + [REPO / "chip_smoke.py"])
     names = {p.name for p in files}
     assert {"tblock.py", "push.py", "tblock_step.cu", "push_step.cu",
             "lbm_cell.cuh", "boundary.py", "mesh.py", "halo.py", "pull_sharded.py",
             "tblock_sharded.py", "pull_sharded_step.cu",
             "tblock_sharded_step.cu", "multihost.py", "halo_rdma.py",
             "halo_exchange.cu", "datagen.py", "models.py", "predict.py",
-            "scaling.py", "train.py", "checkpoint.py"} <= names
+            "scaling.py", "train.py", "checkpoint.py", "cli.py", "__main__.py",
+            "vtk.py", "viz.py", "vortex.py", "engine.py", "lbm_kernel.cpp"} <= names
     jax_import = re.compile(r"^\s*(import|from)\s+(jax|flax|optax)\b", re.M)
     for path in files:
         text = path.read_text()
