@@ -18,7 +18,9 @@ Phases, each printed with its wall time:
    operations and FMA contraction differ):
    * ``pull_step`` against 20 plain fused steps (``engine.make_fused_step``)
      for SRT, TRT, MRT, MRT+Smagorinsky and SRT+Smagorinsky+Van Driest at
-     128^2 and MRT at 1024^2;
+     128^2 and MRT at 1024^2; ``pull_step_tangential`` (the entry
+     ``lbm_pull_step_tangential``, the tangential lid) against 20 plain
+     steps of the tangential engine for the same cases;
    * ``tblock_step`` (K=8, 20 steps: two launches and four one-step
      remainder launches) against 20 plain fused steps for SRT, TRT, MRT and
      MRT+Smagorinsky at 128^2 and MRT at 2048^2, and (default K) against
@@ -57,6 +59,12 @@ Phases, each printed with its wall time:
    * ``simulate`` and ``run_to_convergence`` at 1024^2 MRT float32 (the
      benchmark's cavity) and the two default-suite Ghia gates (MRT 96^2,
      Re=100 and Re=400) through ``cuda-pull``;
+   * the tangential lid through ``auto`` (routed to ``cuda-pull``, the
+     tangential entry's launches counted): the slow gate
+     ``re100_128_nebb_tangential`` (128^2 SRT Re=100, 40 000 steps; R2(Ux)
+     > 0.99, L2 < 0.05) and the BC-closure control ``re1000_512_tang``
+     (512^2 MRT Re=1000, 600 000 steps in 100 000-step intervals; R2(Ux) >=
+     0.9993, L2 <= 0.021), with its wall time and MLUPS;
    * ``simulate`` at 2048^2 MRT float32 Re=5000 with ``backend="auto"`` (the
      large-cavity path), and through an explicit ``cuda-tblock`` when auto
      picks another backend; the Re=100 Ghia gate at 128^2 through
@@ -82,7 +90,9 @@ Phases, each printed with its wall time:
      gathered on rank 0, against the one-process mesh over 64 steps: max
      |d| = 0; and the two-process exchange's time with its host barriers;
 6. timing with CUDA events: the measured device-copy bandwidth; the
-   benchmark's 1024^2 MRT cavity through ``pull_step`` (MLUPS); at 1024^2
+   benchmark's 1024^2 MRT cavity through ``pull_step`` (MLUPS);
+   ``pull_step_tangential`` and ``pull_step`` in turns at 1024^2 MRT, and
+   the plain tangential engine; at 1024^2
    and 2048^2, ``pull_step`` beside ``tblock_step`` for K in ``SWEEP_K``;
    at 1024^2, 2048^2 and 4096^2, ``pull_step`` and ``tblock_step`` (default
    K) in turns from rest and from the state after 1 920 steps, which sets
@@ -128,6 +138,14 @@ along x, each with its own omega) and the surrogate pipeline:
     scalers, ``predict_velocity`` on the card against the CPU (rtol 1e-4,
     atol 1e-5, TF32 off), and a batch-20 forward pass timed with TF32 off
     and on;
+(i') the repo's trained ``cnn_nine`` read by ``load_weights`` from its
+    tracked ``.msgpack`` files (``docs/artifacts/ml_full/cnn_nine``, read
+    without flax) onto the card, served at 384^2 on ``build_input`` of
+    (h)'s ``feq_initial`` with the files' scalers, against the CPU forward
+    (rtol 1e-4, atol 1e-5, TF32 off); a JAX training checkpoint
+    (``ml_full/cnn_eight_faithful/cnn_eight_x.ckpt``) carried onto the card
+    by ``train._load_train_checkpoint`` under its own recipe, its tensors
+    counted;
 (j) training ``cnn_eight`` at 384^2 with its batch of 20 on (h)'s 32
     cavities (26 training, 6 validation): components x and y for 3 epochs
     (finite losses); the first minibatch's gradients on the card against
@@ -232,16 +250,21 @@ REPLACES = {
                       "_make_local_kernel :57, _make_remote_kernel :85)"),
     "pull_sweep_step": ("kernels/pallas_pull.py:470 (the pallas_call's sweep form: "
                         "make_sweep_runner :560, make_scan_runner_omega :543)"),
+    # no Pallas kernel: the JAX driver runs this wall on its XLA-fused engine
+    "pull_step_tangential": ("sim.py:107-113 (the tangential lid's XLA-fused "
+                             "engine.make_scan_runner)"),
 }
 SOURCES = {name: f"latticeboltzmannsimulations_torch/csrc/{name}.cu" for name in REPLACES}
 SOURCES["pull_sweep_step"] = SOURCES["pull_step"]     # a second entry of that source
+SOURCES["pull_step_tangential"] = SOURCES["pull_step"]  # and a third
 # Each kernel's launch counter: (module, attribute).
 COUNTERS = {"pull_step": (pull, "launches"), "tblock_step": (tblock, "launches"),
             "push_step": (push, "launches"),
             "pull_sharded_step": (pull_sharded, "launches"),
             "tblock_sharded_step": (tblock_sharded, "launches"),
             "halo_exchange": (halo_rdma, "launches"),
-            "pull_sweep_step": (pull, "sweep_launches")}
+            "pull_sweep_step": (pull, "sweep_launches"),
+            "pull_step_tangential": (pull, "tangential_launches")}
 COMPARE_STEPS = 20
 TBLOCK_COMPARE_K = 8
 BENCH_N = 1024
@@ -351,6 +374,21 @@ CLI_STEPS = 6_000
 CLI_INTERVAL = 2_000
 CLI_SMALL_N = 128
 CLI_TIMEOUT_S = 300
+# The tangential lid: the slow gate re100_128_nebb_tangential
+# (scripts/slow_gates.py) and the BC-closure control re1000_512_tang
+# (scripts/r5_validate.py) at full size, cut to 600 000 steps, where the JAX
+# run's metrics read R2(Ux) 0.999384, L2 0.019967 and hold to 4 M steps
+# (docs/artifacts/re1000_512_tang).
+TANG_GATE_STEPS = 40_000
+TANG_CONTROL_N = 512
+TANG_CONTROL_STEPS = 600_000
+TANG_CONTROL_INTERVAL = 100_000
+# The repo's trained surrogate served from its flax files, and the JAX
+# training checkpoint decoded.
+ARTIFACT_WEIGHTS = os.path.join(REPO, "docs", "artifacts", "ml_full", "cnn_nine")
+ARTIFACT_PRESET = "cnn_nine"
+ARTIFACT_CKPT = os.path.join(REPO, "docs", "artifacts", "ml_full", "cnn_eight_faithful",
+                             "cnn_eight_x.ckpt")
 PULL_KERNEL = "pull_step_kernel"     # pull_step's __global__ in csrc/pull_step.cu
 #                                      (in an anonymous namespace there)
 DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -1016,8 +1054,9 @@ def run_main_path(cfg: SimConfig, device, out_dir: str, backend: str,
     shards = cfg.mesh_shape[0] * cfg.mesh_shape[1]
     want = {name: 0 for name in COUNTERS}
     rdma = sim.SHARDED_TBLOCK_HALO_IMPL == "rdma"
+    one_step = "pull_step_tangential" if cfg.boundary == "nebb_tangential" else "pull_step"
     want.update({
-        "cuda-pull": {"pull_step": steps},
+        "cuda-pull": {one_step: steps},
         "cuda-tblock": {"pull_step": chunks * rem, "tblock_step": chunks * blocks},
         "cuda-push": {"push_step": steps},
         # one exchange launch per step (per block) on the mesh of this card
@@ -1040,7 +1079,8 @@ def run_main_path(cfg: SimConfig, device, out_dir: str, backend: str,
                                  f"{copies_want}")
     for key, (op, limit) in (gates or {}).items():
         value = getattr(summary, key)
-        ok = value > limit if op == ">" else value < limit
+        ok = {">": value > limit, ">=": value >= limit, "<": value < limit,
+              "<=": value <= limit}[op]
         if not ok:
             raise AssertionError(f"Ghia gate failed: {key}={value} not {op} {limit}")
     return counts
@@ -1353,6 +1393,64 @@ def run_training(ds, u_lid: float, device, tmp: str) -> dict:
           flush=True)
 
 
+def serve_artifact(ds, device) -> None:
+    """The repo's trained ``cnn_nine``, read by ``load_weights`` from the JAX
+    package's ``.msgpack`` files (no ``.pt`` beside them) onto the card and
+    served at 384^2 on ``build_input`` of (h)'s ``feq_initial`` with the
+    sidecar's scalers, against the CPU forward of the same state dicts
+    (rtol 1e-4, atol 1e-5, TF32 off); then the JAX training checkpoint
+    carried onto the card by ``train._load_train_checkpoint`` under its own
+    recipe, as ``train`` resumes it."""
+    t0 = time.perf_counter()
+    (px, meta), (py, _) = (train.load_weights(ARTIFACT_PRESET, c, ARTIFACT_WEIGHTS,
+                                              device=device) for c in "xy")
+    load_s = time.perf_counter() - t0
+    if {t.device for t in (*px.values(), *py.values())} != {device}:
+        raise AssertionError("load_weights did not put the weights on the card")
+    fnet, aux = predict.build_input(ARTIFACT_PRESET, SERVE_RE, ds.feq_initial,
+                                    meta["scalers"])
+    u_card = predict.predict_velocity(ARTIFACT_PRESET, px, py, fnet, aux, meta["scalers"],
+                                      device=device)
+    u_cpu = predict.predict_velocity(ARTIFACT_PRESET, px, py, fnet, aux, meta["scalers"],
+                                     device="cpu")
+    if u_card.shape != (2, SWEEP_N, SWEEP_N) or not np.isfinite(u_card).all():
+        raise AssertionError(f"predict_velocity: {u_card.shape}, not a finite "
+                             f"(2, {SWEEP_N}, {SWEEP_N})")
+    err = float(np.abs(u_card - u_cpu).max())
+    print(f"  {ARTIFACT_PRESET} from {os.path.relpath(ARTIFACT_WEIGHTS, REPO)}/*.msgpack "
+          f"({len(px)} + {len(py)} tensors read in {load_s:.2f} s) at {SWEEP_N}^2 "
+          f"Re={SERVE_RE:g}: card vs CPU max|du|={err:.3e} (max|u| "
+          f"{np.abs(u_cpu).max():.3e}; rtol 1e-4, atol 1e-5, TF32 off)", flush=True)
+    np.testing.assert_allclose(u_card, u_cpu, rtol=1e-4, atol=1e-5)
+
+    with open(ARTIFACT_CKPT, "rb") as fh:
+        recipe = json.loads(fh.read(int.from_bytes(fh.read(8), "little")))["recipe"]
+    preset = models.PRESETS[recipe["preset"]]
+    steps_per_epoch = max(1, len(train.train_val_split(recipe["data_n"])[0])
+                          // recipe["batch_size"])
+    model = models.make_model(recipe["preset"], seed=recipe["seed"]).to(device)
+    opt = train.Optimizer(preset, model.parameters(), recipe["lr"],
+                          schedule=recipe["schedule"], clip_norm=recipe["clip_norm"])
+    t0 = time.perf_counter()
+    loaded = train._load_train_checkpoint(ARTIFACT_CKPT, recipe, device, model, opt,
+                                          steps_per_epoch)
+    if loaded is None:
+        raise AssertionError(f"{ARTIFACT_CKPT}: refused under its own recipe")
+    model_sd, opt_sd, count, history, epoch = loaded
+    model.load_state_dict(model_sd)
+    opt.opt.load_state_dict(opt_sd)
+    decode_s = time.perf_counter() - t0
+    moments = [t for st in opt_sd["state"].values() for t in st.values()
+               if isinstance(t, torch.Tensor) and t.dim() > 0]
+    if {t.device for t in (*model_sd.values(), *moments)} != {device}:
+        raise AssertionError("the JAX checkpoint was not carried onto the card")
+    print(f"  {os.path.relpath(ARTIFACT_CKPT, REPO)}: epoch {epoch}, "
+          f"{recipe['optimizer']} {recipe['schedule']} at update {count}; "
+          f"{len(history['loss'])} epochs of history; {len(model_sd)} parameter and "
+          f"{len(moments)} moment tensors carried into {preset.name}'s layout on the card "
+          f"by _load_train_checkpoint in {decode_s:.2f} s", flush=True)
+
+
 def run_datagen_mesh(device) -> dict:
     """(k): ``generate_dataset`` over a (2, 1) mesh of the card against one
     stack; returns the mesh run's launch counts."""
@@ -1383,6 +1481,14 @@ def ckpt_config(mesh_shape=(1, 1)) -> SimConfig:
     return SimConfig(nx=CKPT_N, ny=CKPT_N, reynolds=1000.0, collision="mrt",
                      max_steps=CKPT_STEPS, report_interval=CKPT_INTERVAL,
                      convergence_tol=0.0, mesh_shape=mesh_shape)
+
+
+def tang_control_config() -> SimConfig:
+    """The BC-closure control re1000_512_tang: 512^2 MRT at Re 1000 with the
+    tangential lid."""
+    return SimConfig(nx=TANG_CONTROL_N, ny=TANG_CONTROL_N, reynolds=1000.0,
+                     collision="mrt", boundary="nebb_tangential",
+                     max_steps=TANG_CONTROL_STEPS, report_interval=TANG_CONTROL_INTERVAL)
 
 
 def run_checkpoint_resume(device, tmp: str) -> dict:
@@ -1666,6 +1772,21 @@ def main() -> None:
         # the shape the checkpoint-and-resume path (l) gives the kernel
         worst["pull_step"] = max(worst["pull_step"],
                                  compare_case("mrt re=1000", ckpt_config(), device))
+        # the tangential entry against the plain tangential engine
+        tang = dict(boundary="nebb_tangential")
+        for name, kw in small + [vd]:
+            worst["pull_step_tangential"] = max(
+                worst["pull_step_tangential"],
+                compare_case(f"tangential {name}", SimConfig(nx=128, ny=128, **kw, **tang),
+                             device))
+        tang_bench_cfg = dataclasses.replace(bench_cfg, **tang)
+        worst["pull_step_tangential"] = max(
+            worst["pull_step_tangential"],
+            compare_case("tangential mrt", tang_bench_cfg, device))
+        # the shape the BC-closure control of the main path gives the entry
+        worst["pull_step_tangential"] = max(
+            worst["pull_step_tangential"],
+            compare_case("tangential mrt re=1000", tang_control_config(), device))
         check_runner_ping_pong(device)
         for name, kw in small:
             worst["tblock_step"] = max(worst["tblock_step"], compare_tblock(
@@ -1769,6 +1890,24 @@ def main() -> None:
             device, tmp, "auto", "cuda-pull",
             {"r2_ux": (">", 0.995), "r2_uy": (">", 0.995),
              "l2_combined": ("<", 0.035)}))
+
+    with phase("main path: tangential lid"), tempfile.TemporaryDirectory() as tmp:
+        # the slow gate re100_128_nebb_tangential, then the BC-closure
+        # control re1000_512_tang at full size, both through auto
+        add_counts(main_launches, run_main_path(
+            SimConfig(nx=128, ny=128, reynolds=100.0, collision="srt",
+                      boundary="nebb_tangential", max_steps=TANG_GATE_STEPS,
+                      report_interval=10_000),
+            device, tmp, "auto", "cuda-pull",
+            {"r2_ux": (">", 0.99), "l2_combined": ("<", 0.05)}))
+        t0 = time.perf_counter()
+        control_mlups = []
+        add_counts(main_launches, run_main_path(
+            tang_control_config(), device, tmp, "auto", "cuda-pull",
+            {"r2_ux": (">=", 0.9993), "l2_combined": ("<=", 0.021)}, control_mlups))
+        print(f"  re1000_512_tang: {TANG_CONTROL_STEPS} steps in "
+              f"{time.perf_counter() - t0:.2f} s wall, {control_mlups[0]:.1f} MLUPS",
+              flush=True)
 
     with phase("main path: large cavity"), tempfile.TemporaryDirectory() as tmp:
         large_run = dataclasses.replace(large_cfg, max_steps=8_000,
@@ -1971,6 +2110,9 @@ def main() -> None:
               f"{serve_ms} ms", flush=True)
         del model, xb, auxb
 
+    with phase("main path: serving the repo's weights"):
+        serve_artifact(ds, device)
+
     with phase("main path: training"), tempfile.TemporaryDirectory() as tmp:
         reset_counters()
         run_training(ds, gen_cfg.u_lid, device, tmp)
@@ -2035,6 +2177,26 @@ def main() -> None:
               f"{mlups:.1f} MLUPS, {mlups / bound_mlups:.3f} of the measured "
               f"72 B/cell copy bound; plain {timing['pull_step']['plain_ms']:.4f} "
               f"ms/step; bound {b_ms:.5f} ms/step by {b_by}", flush=True)
+
+        # the tangential entry beside the NEBB one, in turns, at 1024^2 MRT
+        lid_ms = {"nebb": [], "tangential": []}
+        lid_cfgs = {"nebb": bench_cfg, "tangential": tang_bench_cfg}
+        lid_start = engine.init_state(bench_cfg, device)
+        for lid in ("nebb", "tangential", "tangential", "nebb"):
+            lid_ms[lid].append(time_runner(
+                pull.make_scan_runner(lid_cfgs[lid], SWEEP_STEPS, device), lid_start,
+                SWEEP_STEPS))
+        tang_ms = sum(lid_ms["tangential"]) / 2
+        b_ms, b_by = bound(cells, bench_cfg.nx)
+        timing["pull_step_tangential"] = dict(
+            ms=tang_ms, bound_ms=b_ms, bound_by=b_by,
+            plain_ms=time_plain(engine.make_fused_step(tang_bench_cfg),
+                                engine.init_state(tang_bench_cfg, device)))
+        print(f"  pull_step_tangential {BENCH_N}^2 in turns with pull_step: {lid_ms} ms/step; "
+              f"tangential/nebb time {tang_ms / (sum(lid_ms['nebb']) / 2):.4f}; "
+              f"{cells * 1e-3 / tang_ms:.1f} MLUPS, {b_ms / tang_ms:.3f} of the bound "
+              f"{b_ms:.5f} ms/step by {b_by}; plain tangential engine "
+              f"{timing['pull_step_tangential']['plain_ms']:.4f} ms/step", flush=True)
 
         for n in (BENCH_N, LARGE_N):
             cfg = dataclasses.replace(bench_cfg, nx=n, ny=n)

@@ -11,7 +11,10 @@ card ``--device cuda`` (the default) raises.  ``--mesh MxN`` takes the first
 M*N cards (raising when fewer are visible), or on ``cpu`` the CPU M*N
 times.  ``run --backend`` takes the port's route names (``sim.BACKENDS``),
 and ``run`` prints its summary as JSON on the last line.  ``train`` writes
-``.pt`` weights (``ml.train.save_weights``), which ``predict`` loads.
+``.pt`` weights (``ml.train.save_weights``), which ``predict`` loads; where
+``--weights`` holds no ``.pt``, ``predict`` reads the JAX package's
+``.msgpack`` weights (``ml.train.load_weights``, without flax), e.g.
+``predict --weights docs/artifacts/ml_full/cnn_nine --preset cnn_nine``.
 ``bench`` times nothing here: the port's headline benchmark is not defined
 yet, and it says so and exits non-zero.
 """

@@ -4,7 +4,8 @@
 // so that all five do the same float operations in the same order: the
 // moments with the wall overrides and the lid closure, the equilibrium, the
 // Smagorinsky relaxation rate and the SRT / TRT / MRT collision, and the
-// reduced NEBB rewrite of the fused pull step.
+// wall rewrites of the fused pull step: reduced NEBB, or (pull_step.cu's
+// tangential entry only) the Zou-He tangential lid.
 //
 // Populations are indexed as in lattice.py: k = 0 rest, 1 (+x), 2 (+y),
 // 3 (-x), 4 (-y), 5 (+x+y), 6 (-x+y), 7 (-x-y), 8 (+x-y); y index 0 is the
@@ -19,6 +20,9 @@ namespace lbm {
 
 enum Collision { SRT = 0, TRT = 1, MRT = 2 };
 enum Les { LES_NONE = 0, LES_SCALAR = 1, LES_PLANE = 2 };
+// The lid closure of fused_cell: the engine's _fused_gather_bc (reduced
+// NEBB) or _fused_gather_bc_tangential (boundary="nebb_tangential").
+enum Lid { LID_NEBB = 0, LID_TANGENTIAL = 1 };
 
 // Scalars of a step, the same for every kernel (the wrappers fill them from
 // one function, kernels/pull.py::_scalars).
@@ -34,6 +38,11 @@ struct Params {
   int collision;      // Collision
   int les;            // Les
   float smag_coef;    // 18 * sqrt(2) * Cs^2 for LES_SCALAR
+  // LID_TANGENTIAL only, each rounded once from double on the host:
+  float lid_half;        // 0.5 * u_lid
+  float lid_two_thirds;  // (2/3) * u_lid
+  float lid_sixth;       // (1/6) * u_lid
+  float lid_twelfth;     // u_lid / 12
 };
 
 // x / b for the constant divisors of the MRT back-transform (b = 6, 9, 12,
@@ -190,13 +199,48 @@ __device__ __forceinline__ void cell_collide(const float g[9], const float e[9],
   }
 }
 
-// The fused pull step at one cell, after the gather: reduced NEBB in the
-// engine's order (left, right, bottom, lid), moments, equilibrium,
+// The sum of the eight moving populations.
+__device__ __forceinline__ float moving_sum(const float g[9]) {
+  return g[1] + g[2] + g[3] + g[4] + g[5] + g[6] + g[7] + g[8];
+}
+
+// The Zou-He tangential lid closure at a lid-row cell, after the static
+// walls, as the engine's _fused_gather_bc_tangential writes it: the row
+// rule, then at the two lid corners the corner rule at unit density, the
+// rest population closing the sum to 1.  Needs only the cell's gathered
+// populations and u_lid: no previous lid density.
+__device__ __forceinline__ void tangential_lid(float g[9], const bool left,
+                                               const bool right,
+                                               const Params& p) {
+  const float tang = 0.5f * (g[1] - g[3]) - p.lid_half;
+  g[4] = g[2];
+  g[7] = g[5] + tang;
+  g[8] = g[6] - tang;
+  if (left) {
+    g[1] = g[3] + p.lid_two_thirds;
+    g[8] = g[6] + p.lid_sixth;
+    g[5] = p.lid_twelfth;
+    g[7] = -p.lid_twelfth;
+    g[0] = 1.0f - moving_sum(g);
+  }
+  if (right) {
+    g[3] = g[1] - p.lid_two_thirds;
+    g[7] = g[5] - p.lid_sixth;
+    g[6] = -p.lid_twelfth;
+    g[8] = p.lid_twelfth;
+    g[0] = 1.0f - moving_sum(g);
+  }
+}
+
+// The fused pull step at one cell, after the gather: the walls in the
+// engine's order (left, right, bottom, lid; the lid reduced NEBB or, for
+// kLid = LID_TANGENTIAL, the tangential closure), moments, equilibrium,
 // collision.  g holds the gathered populations and is rewritten by the
 // walls; o receives the post-collision populations.  rho_lid_prev is the
-// previous step's lid density of the cell's column, read only on the lid
-// row between the side walls.  Returns the cell's density (on the lid row:
-// the closure density the next step reads).
+// previous step's lid density of the cell's column, read only by the NEBB
+// lid on the lid row between the side walls.  Returns the cell's density
+// (on the lid row: the closure density the next step reads).
+template <int kLid = LID_NEBB>
 __device__ __forceinline__ float fused_cell(float g[9], const bool left,
                                             const bool right, const bool bottom,
                                             const bool lid,
@@ -207,7 +251,9 @@ __device__ __forceinline__ float fused_cell(float g[9], const bool left,
   if (left) { g[1] = g[3]; g[5] = g[7]; g[8] = g[6]; }
   if (right) { g[3] = g[1]; g[6] = g[8]; g[7] = g[5]; }
   if (bottom) { g[2] = g[4]; g[5] = g[7]; g[6] = g[8]; }
-  if (lid) {
+  if constexpr (kLid == LID_TANGENTIAL) {
+    if (lid) tangential_lid(g, left, right, p);
+  } else if (lid) {
     const float mom = side ? 0.0f : rho_lid_prev * p.lid_mom;
     g[4] = g[2];
     g[7] = g[5] - mom;

@@ -8,10 +8,15 @@
 //   pallas_call with a traced omega and n_cav cavities stacked along x,
 //   make_scan_runner_omega :543, make_sweep_runner :560) as a second entry,
 //   lbm_pull_sweep_step, over the same cell routine.
-// It computes exactly engine.make_fused_step for boundary="nebb": wrap gather
-// -> reduced NEBB (left, right, bottom, lid) -> macros with the wall
-// overrides and the lid closure -> feq -> SRT / TRT / MRT, with Smagorinsky
-// on a scalar Cs^2 or on a staged Van Driest Cs^2 plane.
+// A third entry, lbm_pull_step_tangential, takes the Zou-He tangential lid
+// (boundary="nebb_tangential"), which the JAX driver runs on its XLA-fused
+// engine.make_scan_runner (sim.py:107-113): a second instantiation of the
+// one-step kernel, whose NEBB instantiation it leaves as it was.
+// It computes engine.make_fused_step: wrap gather -> static walls (left,
+// right, bottom) -> the lid (reduced NEBB, or the tangential closure) ->
+// macros with the wall overrides and the lid closure -> feq -> SRT / TRT /
+// MRT, with Smagorinsky on a scalar Cs^2 or on a staged Van Driest Cs^2
+// plane.  The sweep entry is reduced NEBB only.
 //
 // Bound: memory.  A step reads the 9 f32 planes once and writes them once:
 // 72 B of device traffic per cell per step (plus 8 B per lid column), against
@@ -47,7 +52,10 @@ using lbm::Params;
 // here, the rest in lbm_cell.cuh.  x is the field's column, xl the column
 // within the cell's cavity (the same for one cavity; in the sweep form the
 // cavities are stacked along x, each p.nx wide).  The gather wraps over the
-// whole field; the walls are keyed to xl; the lid densities to x.
+// whole field; the walls are keyed to xl; the lid densities to x.  kLid
+// picks the lid closure (lbm::Lid); the tangential one reads no
+// rho_lid_prev.
+template <int kLid>
 __device__ __forceinline__ void
 pull_cell(const float* __restrict__ f, const float* __restrict__ rho_lid_prev,
           const float* __restrict__ cs2_plane, float* __restrict__ f_out,
@@ -75,11 +83,14 @@ pull_cell(const float* __restrict__ f, const float* __restrict__ rho_lid_prev,
 
   const bool left = xl == 0, right = xl == p.nx - 1;
   const bool lid = y == 0;
-  const float rlp = (lid && !(left || right)) ? rho_lid_prev[x] : 0.0f;
+  float rlp = 0.0f;
+  if constexpr (kLid == lbm::LID_NEBB) {
+    if (lid && !(left || right)) rlp = rho_lid_prev[x];
+  }
   const size_t c = r0 + y;
   float o[9];
-  const float rho = lbm::fused_cell(g, left, right, y == ny - 1, lid, rlp,
-                                    cs2_plane + c, p, o);
+  const float rho = lbm::fused_cell<kLid>(g, left, right, y == ny - 1, lid,
+                                          rlp, cs2_plane + c, p, o);
 #pragma unroll
   for (int k = 0; k < 9; ++k) f_out[k * plane + c] = o[k];
   if (lid) rho_lid_out[x] = rho;
@@ -98,7 +109,24 @@ pull_step_kernel(const float* __restrict__ f,
   const int x = blockIdx.x;
   for (int y = blockIdx.y * blockDim.x + threadIdx.x; y < p.ny;
        y += gridDim.y * blockDim.x) {
-    pull_cell(f, rho_lid_prev, cs2_plane, f_out, rho_lid_out, p, p.nx, x, x, y);
+    pull_cell<lbm::LID_NEBB>(f, rho_lid_prev, cs2_plane, f_out, rho_lid_out,
+                             p, p.nx, x, x, y);
+  }
+}
+
+// pull_step_kernel with the tangential lid (a kernel of its own name, so
+// that pull_step_kernel's code and name stay those of the NEBB step).
+__global__ void __launch_bounds__(kThreads)
+pull_step_tangential_kernel(const float* __restrict__ f,
+                            const float* __restrict__ cs2_plane,
+                            float* __restrict__ f_out,
+                            float* __restrict__ rho_lid_out,
+                            const Params p) {
+  const int x = blockIdx.x;
+  for (int y = blockIdx.y * blockDim.x + threadIdx.x; y < p.ny;
+       y += gridDim.y * blockDim.x) {
+    pull_cell<lbm::LID_TANGENTIAL>(f, nullptr, cs2_plane, f_out, rho_lid_out,
+                                   p, p.nx, x, x, y);
   }
 }
 
@@ -128,7 +156,8 @@ pull_sweep_kernel(const float* __restrict__ f,
   const int x = blockIdx.z * p.nx + xl;
   for (int y = blockIdx.y * blockDim.x + threadIdx.x; y < p.ny;
        y += gridDim.y * blockDim.x) {
-    pull_cell(f, rho_lid_prev, nullptr, f_out, rho_lid_out, q, width, x, xl, y);
+    pull_cell<lbm::LID_NEBB>(f, rho_lid_prev, nullptr, f_out, rho_lid_out, q,
+                             width, x, xl, y);
   }
 }
 
@@ -156,6 +185,30 @@ extern "C" int lbm_pull_step(const void* f, const void* rho_lid_prev,
       static_cast<const float*>(f), static_cast<const float*>(rho_lid_prev),
       static_cast<const float*>(cs2_plane), static_cast<float*>(f_out),
       static_cast<float*>(rho_lid_out), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One step with the tangential lid, (f) -> (f_out, rho_lid_out) on
+// `stream`: lbm_pull_step's arguments without rho_lid_prev (the closure
+// carries no lid density), and after smag_coef the lid's constants 0.5 u,
+// (2/3) u, (1/6) u and u / 12.  rho_lid_out receives the lid row's density,
+// as in lbm_pull_step.  Returns cudaGetLastError() after the launch.
+extern "C" int lbm_pull_step_tangential(
+    const void* f, const void* cs2_plane, void* f_out, void* rho_lid_out,
+    int nx, int ny, float u_lid, float lid_mom, float omega, float tau0,
+    float tau0_sq, float omega_minus, float omega_e, float omega_eps,
+    float omega_q, int collision, int les, float smag_coef, float lid_half,
+    float lid_two_thirds, float lid_sixth, float lid_twelfth, void* stream) {
+  const Params p{nx, ny, u_lid, lid_mom, omega, tau0, tau0_sq, omega_minus,
+                 omega_e, omega_eps, omega_q, collision, les, smag_coef,
+                 lid_half, lid_two_thirds, lid_sixth, lid_twelfth};
+  if (nx < 1 || ny < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int y_blocks = (ny + kThreads - 1) / kThreads;
+  const dim3 grid(nx, y_blocks < kMaxYBlocks ? y_blocks : kMaxYBlocks);
+  pull_step_tangential_kernel<<<grid, kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(f), static_cast<const float*>(cs2_plane),
+      static_cast<float*>(f_out), static_cast<float*>(rho_lid_out), p);
   return static_cast<int>(cudaGetLastError());
 }
 

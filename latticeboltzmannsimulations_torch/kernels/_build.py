@@ -124,6 +124,12 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         *scalars,
         p,                          # stream
     ]
+    lib.lbm_pull_step_tangential.argtypes = [
+        p, p, p, p,                 # f, cs2_plane, f_out, rho_lid_out
+        *scalars,
+        fl, fl, fl, fl,             # the lid's 0.5 u, (2/3) u, (1/6) u, u / 12
+        p,                          # stream
+    ]
     lib.lbm_pull_sweep_step.argtypes = [
         p, p, p, p,                 # f, rho_lid_prev, f_out, rho_lid_out
         i, p,                       # n_cav, table of n_cav float4 (pull.cavity_table)
@@ -169,8 +175,8 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         p,                          # mismatch counter (uint64)
         p,                          # stream
     ]
-    for fn in (lib.lbm_pull_step, lib.lbm_pull_sweep_step, lib.lbm_tblock_step,
-               lib.lbm_push_step, lib.lbm_pull_sharded_step, lib.lbm_tblock_sharded_step,
+    for fn in (lib.lbm_pull_step, lib.lbm_pull_step_tangential, lib.lbm_pull_sweep_step,
+               lib.lbm_tblock_step, lib.lbm_push_step, lib.lbm_pull_sharded_step, lib.lbm_tblock_sharded_step,
                lib.lbm_halo_exchange, lib.lbm_enable_peer_access,
                lib.lbm_exact_div_check):
         fn.restype = ctypes.c_int

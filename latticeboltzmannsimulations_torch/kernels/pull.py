@@ -3,7 +3,11 @@
 Counterpart of the JAX package's ``kernels/pallas_pull.py`` (``make_step``,
 ``make_scan_runner``): the same ``State`` contract, ``(f, rho_lid)`` in and
 out.  The kernel is ``csrc/pull_step.cu``; its plain PyTorch version is the
-fused engine step, ``engine.make_fused_step``.
+fused engine step, ``engine.make_fused_step``.  A configuration with the
+tangential lid (``boundary="nebb_tangential"``, which the JAX driver runs on
+its XLA-fused engine) launches the source's second instantiation, the entry
+``lbm_pull_step_tangential``; its plain version is the same engine step,
+whose gather then takes ``engine._fused_gather_bc_tangential``.
 
 The sweep form (``make_step_omega``, ``make_scan_runner_omega``,
 ``make_sweep_runner``: the JAX ``make_step(traced_omega=True, n_cav=...)``)
@@ -16,9 +20,9 @@ A step on CUDA tensors launches the kernel or raises; a step on CPU tensors
 runs the plain version (that is what the CPU tests exercise).  There is no
 fallback from one to the other.
 
-``launches`` counts the one-cavity kernel's launches in this process and
-``sweep_launches`` the sweep form's, so a run can show that its steps went
-through the kernel.
+``launches`` counts the one-cavity NEBB kernel's launches in this process,
+``tangential_launches`` the tangential one's and ``sweep_launches`` the
+sweep form's, so a run can show that its steps went through the kernel.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from ..ops.collision import van_driest_cs2
 from . import _build
 
 launches = 0
+tangential_launches = 0
 sweep_launches = 0
 
 _COLLISION = {"srt": 0, "trt": 1, "mrt": 2}
@@ -48,12 +53,16 @@ MAX_COLUMNS = 2**31 - 1
 def unsupported_reason(cfg: SimConfig, traced_omega: bool = False,
                        n_cav: int = 1) -> str | None:
     """Why the kernel cannot run this configuration, or None if it can;
-    ``traced_omega`` and ``n_cav`` ask for the sweep form."""
+    ``traced_omega`` and ``n_cav`` ask for the sweep form, which is
+    reduced NEBB only, as the JAX package's traced-omega step is."""
     if cfg.precision != "float32":
         return "the CUDA kernel is float32; use the plain engine for float64"
-    if cfg.boundary != "nebb":
-        return (f"the CUDA kernel implements the reduced NEBB walls, not "
-                f"{cfg.boundary!r}")
+    if cfg.boundary not in ("nebb", "nebb_tangential"):
+        return (f"the CUDA kernel implements the reduced NEBB walls and the "
+                f"tangential lid, not {cfg.boundary!r}")
+    if cfg.boundary != "nebb" and (traced_omega or n_cav > 1):
+        return (f"the sweep form (a traced omega, stacked cavities) implements "
+                f"the reduced NEBB walls, not {cfg.boundary!r}")
     if cfg.mesh_shape != (1, 1):
         return "the CUDA kernel runs on one device"
     if n_cav > 1 and not traced_omega:
@@ -121,16 +130,39 @@ def _scalars(cfg: SimConfig) -> tuple:
             18.0 * math.sqrt(2.0) * cfg.smagorinsky_cs2)
 
 
+def _lid_scalars(cfg: SimConfig) -> tuple | None:
+    """The tangential lid's constants after ``_scalars``: ``0.5 u``, ``(2/3)
+    u``, ``(1/6) u`` and ``u / 12``, computed in double as the plain
+    version's Python scalars are and rounded once to float32; None for the
+    reduced NEBB lid."""
+    if cfg.boundary != "nebb_tangential":
+        return None
+    u = cfg.u_lid
+    return (0.5 * u, (2.0 / 3.0) * u, (1.0 / 6.0) * u, u / 12.0)
+
+
 def _launch(lib, f_ptr: int, rho_ptr: int, cs2_ptr: int | None, f_out_ptr: int,
-            rho_out_ptr: int, scalars: tuple, stream: int) -> None:
-    global launches
-    err = lib.lbm_pull_step(f_ptr, rho_ptr, cs2_ptr, f_out_ptr, rho_out_ptr,
-                            *scalars, stream)
+            rho_out_ptr: int, scalars: tuple, stream: int,
+            lid: tuple | None = None) -> None:
+    """One launch of the NEBB kernel, or with ``lid`` (``_lid_scalars``) of
+    the tangential one, which reads no ``rho_ptr``."""
+    global launches, tangential_launches
+    if lid is None:
+        name = "pull_step"
+        err = lib.lbm_pull_step(f_ptr, rho_ptr, cs2_ptr, f_out_ptr, rho_out_ptr,
+                                *scalars, stream)
+    else:
+        name = "pull_step_tangential"
+        err = lib.lbm_pull_step_tangential(f_ptr, cs2_ptr, f_out_ptr, rho_out_ptr,
+                                           *scalars, *lid, stream)
     if err != 0:
         raise RuntimeError(
-            f"pull_step launch failed: {lib.lbm_error_string(err).decode()}"
+            f"{name} launch failed: {lib.lbm_error_string(err).decode()}"
         )
-    launches += 1
+    if lid is None:
+        launches += 1
+    else:
+        tangential_launches += 1
 
 
 def pull_step(cfg: SimConfig, f: torch.Tensor, rho_lid: torch.Tensor,
@@ -142,7 +174,9 @@ def pull_step(cfg: SimConfig, f: torch.Tensor, rho_lid: torch.Tensor,
     All tensors are contiguous float32 on one CUDA device; ``f_out`` must not
     be ``f`` (the pull gather reads neighbours that an in-place update would
     already have overwritten).  ``cs2_plane`` is the Van Driest Cs^2 plane,
-    required exactly when the configuration damps Cs^2 at the walls.
+    required exactly when the configuration damps Cs^2 at the walls.  With
+    the tangential lid the kernel is ``lbm_pull_step_tangential``, which
+    reads no ``rho_lid``.
     """
     _check_cfg(cfg)
     device = f.device
@@ -161,7 +195,8 @@ def pull_step(cfg: SimConfig, f: torch.Tensor, rho_lid: torch.Tensor,
     with torch.cuda.device(device):
         _launch(_build.load_library(), f.data_ptr(), rho_lid.data_ptr(),
                 cs2_ptr, f_out.data_ptr(), rho_lid_out.data_ptr(),
-                _scalars(cfg), torch.cuda.current_stream(device).cuda_stream)
+                _scalars(cfg), torch.cuda.current_stream(device).cuda_stream,
+                _lid_scalars(cfg))
 
 
 def make_step(cfg: SimConfig, device="cuda"):
@@ -196,7 +231,7 @@ def make_scan_runner(cfg: SimConfig, n_steps: int, device="cuda"):
     # a plane freed after the runner is built would leave the kernel reading
     # whatever the allocator puts there next.
     cs2 = _cs2_plane(cfg, device) if device.type == "cuda" else None
-    scalars = _scalars(cfg)
+    scalars, lid = _scalars(cfg), _lid_scalars(cfg)
 
     def run(state: State) -> State:
         _check_state(cfg, state.f, state.rho_lid, device)
@@ -216,7 +251,7 @@ def make_scan_runner(cfg: SimConfig, n_steps: int, device="cuda"):
             stream = torch.cuda.current_stream(device).cuda_stream
             for i in range(n_steps):
                 dst = ptrs[i % 2]
-                _launch(lib, *src, cs2_ptr, *dst, scalars, stream)
+                _launch(lib, *src, cs2_ptr, *dst, scalars, stream, lid)
                 src = dst
         return bufs[(n_steps - 1) % 2]
 

@@ -39,6 +39,10 @@ _MAX_Y_TILES = 65535  # the limit of gridDim.y
 
 def unsupported_reason(cfg: SimConfig, k_steps: int = K_STEPS) -> str | None:
     """Why the kernel cannot run this configuration, or None if it can."""
+    if cfg.boundary != "nebb":
+        return (f"the temporal-block kernel implements the reduced NEBB walls, "
+                f"not {cfg.boundary!r}; the one-step kernel takes the "
+                f"tangential lid")
     reason = pull.unsupported_reason(cfg)
     if reason is not None:
         return reason

@@ -11,12 +11,13 @@ learning-rate schedule is evaluated at the count of updates already applied.
 The data stays on the device between steps; the minibatch order is the JAX
 package's, draw for draw, from NumPy's generator.
 
-Training checkpoints and weight files are this package's own format (a
-``torch.save`` blob; a checkpoint behind a JSON header as the JAX package
-writes it).  The JAX package's flax-msgpack files need flax to read, so a
-JAX training checkpoint does not resume here, and its ``.msgpack`` weights
-reach this package only through ``models.state_dict_from_flax`` on a machine
-with flax.
+Training checkpoints and weight files are written in this package's own
+format (a ``torch.save`` blob; a checkpoint behind a JSON header as the JAX
+package writes it).  The JAX package's flax-msgpack files are read too,
+through ``flax_msgpack`` (no flax needed): ``load_weights`` takes a
+``.msgpack`` weight file where no ``.pt`` is, and a JAX training checkpoint
+of the same recipe resumes here, its parameters, optax state, epoch and
+history carried across.
 """
 
 from __future__ import annotations
@@ -34,8 +35,10 @@ import torch
 
 from ..config import resolve_device
 from ..parallel.mesh import Mesh
+from . import flax_msgpack
 from .datagen import DatasetArrays, drop_failed
-from .models import PRESETS, CavityCNN, CNNPreset, _cudnn_tf32, check_grid, make_model
+from .models import (PRESETS, CavityCNN, CNNPreset, _cudnn_tf32, check_grid, make_model,
+                     state_dict_from_flax)
 from .scaling import MaxScaler, MinMaxScaler
 
 
@@ -411,7 +414,8 @@ def train(
 
     start_epoch = 0
     if checkpoint_path and os.path.exists(checkpoint_path):
-        loaded = _load_train_checkpoint(checkpoint_path, recipe, first)
+        loaded = _load_train_checkpoint(checkpoint_path, recipe, first, model, opt,
+                                        steps_per_epoch)
         if loaded is not None and loaded[4] > epochs:
             loaded = None  # stored progress exceeds this run's budget
         if loaded is None:
@@ -476,19 +480,68 @@ def _save_train_checkpoint(path, model: CavityCNN, opt: Optimizer, history, epoc
     os.replace(tmp, path)
 
 
-def _load_train_checkpoint(path, recipe, device):
+# A torch.save blob is a zip archive; the JAX package's is flax msgpack.
+_ZIP_MAGIC = b"PK\x03\x04"
+
+
+def _load_train_checkpoint(path, recipe, device, model: CavityCNN, opt: Optimizer,
+                           steps_per_epoch: int):
     """Returns (model state_dict, optimiser state_dict, count, history,
     epoch) on ``device``, or None when the checkpoint was written by a
-    different recipe and must not be resumed from."""
+    different recipe and must not be resumed from.  The blob is this
+    package's ``torch.save`` or the JAX package's flax msgpack of
+    ``(params, opt_state)``, told apart by its first bytes; ``model`` and
+    ``opt`` (this run's) give a JAX blob its places."""
     with open(path, "rb") as fh:
         hlen = int.from_bytes(fh.read(8), "little")
         header = json.loads(fh.read(hlen))
         blob = fh.read()
     if header.get("recipe") != recipe:
         return None
-    model_sd, opt_sd, count = torch.load(io.BytesIO(blob), map_location=device,
-                                         weights_only=True)
-    return model_sd, opt_sd, count, header["history"], int(header["epoch"])
+    epoch = int(header["epoch"])
+    if blob.startswith(_ZIP_MAGIC):
+        model_sd, opt_sd, count = torch.load(io.BytesIO(blob), map_location=device,
+                                             weights_only=True)
+    else:
+        model_sd, opt_sd, count = _from_optax(flax_msgpack.msgpack_restore(blob),
+                                              recipe, model, opt, device,
+                                              epoch * steps_per_epoch)
+    return model_sd, opt_sd, count, header["history"], epoch
+
+
+def _from_optax(tree: dict, recipe: dict, model: CavityCNN, opt: Optimizer, device,
+                updates: int):
+    """The JAX package's ``(params, opt_state)`` tree as (model state_dict,
+    optimiser state_dict, count).  ``opt_state`` is optax's chain state:
+    with ``clip_norm`` the clipping's empty state, then the base; the base
+    is ``(scale_by_adam (count, mu, nu) | scale_by_rms (nu), the
+    learning rate's state (its count under a schedule), ...)``.  The moments
+    are trees of the parameters' shapes and take the parameters' layout
+    change (``models.state_dict_from_flax``).  The count is the schedule's,
+    else Adam's, else ``updates`` (a constant rate reads none)."""
+    preset = model.preset
+    params, state = tree["0"], tree["1"]
+    if recipe["clip_norm"] is not None:
+        state = state["1"]
+    base, rate = state["0"], state["1"]
+    moments = {k: state_dict_from_flax(preset, base[k]) for k in ("mu", "nu") if k in base}
+    adam = recipe["optimizer"] == "adam"
+    if set(moments) != ({"mu", "nu"} if adam else {"nu"}):
+        raise ValueError(f"the checkpoint's optimiser state holds {sorted(moments)}, "
+                         f"not {recipe['optimizer']}'s moments")
+    per_param = {}
+    for i, (name, _) in enumerate(model.named_parameters()):
+        if adam:
+            per_param[i] = {"step": torch.tensor(float(base["count"])),
+                            "exp_avg": moments["mu"][name].to(device),
+                            "exp_avg_sq": moments["nu"][name].to(device)}
+        else:
+            per_param[i] = {"nu": moments["nu"][name].to(device)}
+    count = int(rate["count"]) if "count" in rate else (
+        int(base["count"]) if adam else updates)
+    opt_sd = {"state": per_param, "param_groups": opt.opt.state_dict()["param_groups"]}
+    model_sd = {k: v.to(device) for k, v in state_dict_from_flax(preset, params).items()}
+    return model_sd, opt_sd, count
 
 
 def fine_tune(preset_name: str, data: PreparedData, params: dict,
@@ -528,12 +581,21 @@ def load_weights(preset_name: str, component: str, out_dir: str,
                  example: Optional[Tuple[np.ndarray, Optional[np.ndarray]]] = None,
                  device="cpu"):
     """``(state_dict, meta)`` of ``save_weights``' files, the tensors on
-    ``device``; raises if they do not fit the preset.  ``example`` stays for
-    the JAX package's signature (its template); nothing reads it."""
+    ``device``; raises if they do not fit the preset.  Where no
+    ``<stem>.pt`` is, the JAX package's ``<stem>.msgpack`` is read and its
+    parameters carried across (``models.state_dict_from_flax``).  ``example``
+    stays for the JAX package's signature (its template); nothing reads it."""
     device = resolve_device(device)
     stem = f"{preset_name}_{component}"
-    params = torch.load(os.path.join(out_dir, stem + ".pt"), map_location=device,
-                        weights_only=True)
+    pt = os.path.join(out_dir, stem + ".pt")
+    flax_path = os.path.join(out_dir, stem + ".msgpack")
+    if os.path.exists(pt):
+        params = torch.load(pt, map_location=device, weights_only=True)
+    elif os.path.exists(flax_path):
+        params = {k: v.to(device) for k, v in
+                  state_dict_from_flax(PRESETS[preset_name], flax_msgpack.load(flax_path)).items()}
+    else:
+        raise FileNotFoundError(f"neither {stem}.pt nor {stem}.msgpack in {out_dir}")
     make_model(preset_name).load_state_dict(params)
     meta_path = os.path.join(out_dir, stem + ".json")
     meta = {}

@@ -6,7 +6,8 @@ Backends:
 
 * ``"cuda-pull"`` — the one-step CUDA kernel (``kernels/pull.py``), one
   launch per step.  ``backend="auto"`` picks it on a CUDA device for a
-  float32 NEBB configuration below ``TBLOCK_AUTO_MIN_CELLS``.
+  float32 NEBB configuration below ``TBLOCK_AUTO_MIN_CELLS``, and for a
+  float32 tangential lid (``boundary="nebb_tangential"``) at every size.
 * ``"cuda-tblock"`` — the temporal-block CUDA kernel (``kernels/tblock.py``),
   ``K`` steps per launch.  ``"auto"`` picks it for float32 NEBB fields of
   at least ``TBLOCK_AUTO_MIN_CELLS`` cells without Van Driest damping.
@@ -16,7 +17,7 @@ Backends:
 * ``"push-oracle"`` — the plain push engine (``engine.make_push_oracle_step``),
   the only engine of the ``bounce_back`` and ``nebb_west_eq`` walls.
 * ``"torch"`` — the plain fused engine (``engine.py``), for what the kernels
-  do not take: float64, the tangential lid.
+  do not take (float64), and on the CPU.
 
 With a mesh (``cfg.mesh_shape`` larger than ``(1, 1)``, or one of these
 backends asked for) the lattice is split over the mesh's devices
@@ -251,9 +252,10 @@ def _select_backend(cfg: SimConfig, backend: str, device: Placement) -> Backend:
     """Pick the runner for ``simulate`` and ``run_to_convergence`` alike, as
     the JAX driver's routing does; this is the one place that routes.  On
     one device ``auto`` on the card takes a kernel for float32 NEBB (the
-    temporal-block one from ``TBLOCK_AUTO_MIN_CELLS`` cells), the plain fused
-    engine for float64 and the tangential lid, and the push oracle for the
-    walls only it implements.  A mesh, or a sharded backend, goes to
+    temporal-block one from ``TBLOCK_AUTO_MIN_CELLS`` cells) and the one-step
+    kernel for the float32 tangential lid at every size (the temporal-block
+    kernel refuses it), the plain fused engine for float64 and on the CPU,
+    and the push oracle for the walls only it implements.  A mesh, or a sharded backend, goes to
     ``_select_sharded``; ``device`` is then the ``Mesh`` (or, for a 1 x 1
     mesh, its one device), and ``cuda-sharded-tblock`` refreshes its halo
     through ``SHARDED_TBLOCK_HALO_IMPL`` ("rdma": one exchange kernel

@@ -1,9 +1,9 @@
-"""Show that adding the sweep entry to ``csrc/pull_step.cu`` leaves the
-one-cavity kernel ``pull_step`` as it was, on one NVIDIA card, in one
-process.
+"""Show that adding an entry to ``csrc/pull_step.cu`` (the sweep entry, the
+tangential entry) leaves the one-cavity NEBB kernel ``pull_step`` as it
+was, on one NVIDIA card, in one process.
 
 Run from the repository root on the machine with the card, with the commit
-before the sweep entry unpacked (``git archive``) into a git-ignored
+before the new entry unpacked (``git archive``) into a git-ignored
 directory:
 
     python3 scripts/torch_pull_sweep_parent.py --parent output/parent

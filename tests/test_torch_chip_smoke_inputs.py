@@ -1,0 +1,56 @@
+"""``.chiprunignore`` leaves ``docs/artifacts`` out of the copy of the repo
+that a run on the card gets, entry by entry, all but the files
+``chip_smoke.py`` reads there: a file added to ``docs/artifacts`` that the
+list does not name would reach that copy unseen."""
+
+import os
+from pathlib import Path
+
+import chip_smoke
+
+REPO = Path(__file__).resolve().parent.parent
+ARTIFACTS = REPO / "docs" / "artifacts"
+
+
+def _listed() -> set[str]:
+    lines = (REPO / ".chiprunignore").read_text().splitlines()
+    return {line.strip().rstrip("/") for line in lines
+            if line.strip() and not line.lstrip().startswith("#")}
+
+
+def _needed() -> set[str]:
+    stems = [os.path.join(chip_smoke.ARTIFACT_WEIGHTS, f"{chip_smoke.ARTIFACT_PRESET}_{c}")
+             for c in "xy"]
+    paths = [s + ext for s in stems for ext in (".msgpack", ".json")]
+    paths.append(chip_smoke.ARTIFACT_CKPT)
+    return {Path(p).resolve().relative_to(REPO).as_posix() for p in paths}
+
+
+def test_the_files_chip_smoke_reads_are_not_listed():
+    listed, needed = _listed(), _needed()
+    for rel in needed:
+        assert (REPO / rel).is_file(), rel
+        parts = rel.split("/")
+        ancestors = {"/".join(parts[:i]) for i in range(1, len(parts) + 1)}
+        assert not ancestors & listed, rel
+
+
+def test_every_other_entry_of_docs_artifacts_is_listed():
+    listed, needed = _listed(), _needed()
+    keep = needed | {"/".join(p.split("/")[:i]) for p in needed
+                     for i in range(1, p.count("/") + 1)}
+    unlisted = []
+    for root, dirs, files in os.walk(ARTIFACTS):
+        base = Path(root).relative_to(REPO).as_posix()
+        for name in sorted(files):
+            rel = f"{base}/{name}"
+            if rel not in listed and rel not in needed:
+                unlisted.append(rel)
+        for name in list(dirs):
+            rel = f"{base}/{name}"
+            if rel in listed:
+                dirs.remove(name)
+            elif rel not in keep:
+                unlisted.append(rel)
+                dirs.remove(name)
+    assert not unlisted, unlisted

@@ -4,7 +4,8 @@ package's ``cli.main``, and ``simulate``'s profiler trace.
 ``run`` writes what the JAX CLI's ``run`` writes (metrics, dashboards, VTK,
 checkpoints) and its summary agrees with JAX's on ``jit`` to 1e-10 in
 float64; ``datagen``, ``train`` and ``predict`` run end to end at 48^2 with
-``cnn_one``; a mesh runs on the CPU; ``bench`` exits non-zero."""
+``cnn_one``, and ``predict`` serves the JAX CLI's ``.msgpack`` weights with
+the JAX CLI's metrics; a mesh runs on the CPU; ``bench`` exits non-zero."""
 
 import json
 import os
@@ -99,6 +100,30 @@ def test_cli_datagen_train_predict(tmp_path, capsys, one_thread):
     assert os.path.exists(metrics["figure"])
     assert {"r2_lbm_ux", "r2_cnn_ux", "l2_lbm", "l2_cnn", "cnn_vs_lbm_l2"} <= set(metrics)
     assert metrics["r2_lbm_ux"] > 0.9
+
+
+def test_cli_predict_serves_the_jax_packages_msgpack_weights(tmp_path, capsys, one_thread):
+    """``predict --weights`` on a directory of the JAX CLI's ``train`` output
+    (``.msgpack`` weights and their sidecars, no ``.pt``) reads them without
+    flax and gives the JAX CLI's ``predict`` metrics on the same files."""
+    data, weights, out, j_out = (str(tmp_path / d) for d in ("data", "w", "o", "j"))
+    assert t_cli.main(["datagen", "--grid", "48", "--batch", "2", "--re-start", "100",
+                       "--re-stop", "140", "--re-step", "10", "--max-steps", "200",
+                       "--interval", "100", "--device", "cpu", "--out", data]) == 0
+    assert j_cli.main(["train", "--preset", "cnn_one", "--data", data, "--out", weights,
+                       "--epochs", "1"]) == 0
+    assert sorted(f for f in os.listdir(weights) if not f.endswith(".png")) == [
+        "cnn_one_x.json", "cnn_one_x.msgpack", "cnn_one_y.json", "cnn_one_y.msgpack"]
+    predict = ["predict", "--preset", "cnn_one", "--data", data, "--weights", weights,
+               "--re", "100", "--max-steps", "200"]
+    capsys.readouterr()
+    assert t_cli.main([*predict, "--out", out, "--device", "cpu"]) == 0
+    got = _last_json(capsys)
+    assert j_cli.main([*predict, "--out", j_out]) == 0
+    want = _last_json(capsys)
+    assert os.path.exists(got["figure"])
+    for key in ("r2_cnn_ux", "l2_cnn", "cnn_vs_lbm_l2"):
+        assert got[key] == pytest.approx(want[key], rel=1e-3, abs=1e-6), key
 
 
 def test_cli_mesh_runs_the_sharded_engine_on_the_cpu(tmp_path, capsys):

@@ -20,7 +20,8 @@ are read as they are, and a copy is rewritten for the host:
 
 The library is called through ``ctypes`` by each wrapper's own ``_launch``,
 on CPU tensors.  It holds every kernel to its plain version at atol 2e-5
-over 20 float32 steps (an independent float32 implementation), and holds
+over 20 float32 steps (an independent float32 implementation; the
+one-step kernel with either lid), and holds
 these bit for bit on ragged shapes: ``tblock_step`` against ``pull_step``
 (fields smaller than its window and than its halo included),
 the sharded one-step kernel on a mesh against ``pull_step`` on the global
@@ -228,7 +229,8 @@ def _pull_steps(lib, cfg, state, n):
         dst = bufs[1 + i % 2]
         pull._launch(lib, src.f.data_ptr(), src.rho_lid.data_ptr(),
                      None if cs2 is None else cs2.data_ptr(), dst.f.data_ptr(),
-                     dst.rho_lid.data_ptr(), pull._scalars(cfg), None)
+                     dst.rho_lid.data_ptr(), pull._scalars(cfg), None,
+                     pull._lid_scalars(cfg))
         src = dst
     return src
 
@@ -353,6 +355,15 @@ def _equal(a, b):
 @pytest.mark.parametrize("case", list(CASES))
 def test_pull_step_matches_plain(lib, case):
     cfg = _cfg(70, 46, case)
+    s0 = _start(cfg)
+    _close(_pull_steps(lib, cfg, s0, STEPS), _plain(cfg, s0, STEPS))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_pull_step_tangential_matches_plain(lib, case):
+    """The tangential entry against the plain tangential engine on a ragged
+    field, where both lid corners and the wrap at them show."""
+    cfg = _cfg(37, 29, case, boundary="nebb_tangential")
     s0 = _start(cfg)
     _close(_pull_steps(lib, cfg, s0, STEPS), _plain(cfg, s0, STEPS))
 

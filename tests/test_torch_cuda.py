@@ -71,6 +71,45 @@ def test_kernel_matches_plain(cuda, kw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(collision="srt"),
+    dict(collision="trt"),
+    dict(collision="mrt"),
+    dict(collision="mrt", turbulence="smagorinsky", reynolds=5000.0),
+    dict(collision="srt", turbulence="smagorinsky", van_driest=True, reynolds=5000.0),
+], ids=["srt", "trt", "mrt", "mrt_smagorinsky", "srt_van_driest"])
+def test_tangential_kernel_matches_plain(cuda, kw):
+    """The tangential entry against the plain tangential engine on a ragged
+    field, its launches counted apart from the NEBB kernel's."""
+    cfg = SimConfig(**{"nx": 137, "ny": 93, "reynolds": 400.0,
+                       "boundary": "nebb_tangential", **kw})
+    plain = engine.make_fused_step(cfg)
+    kernel = pull.make_scan_runner(cfg, 20, device=cuda)
+    before, nebb = pull.tangential_launches, pull.launches
+    s0 = engine.init_state(cfg, device=cuda)
+    s_k, s_p = kernel(s0), s0
+    for _ in range(20):
+        s_p = plain(s_p)
+    torch.cuda.synchronize()
+    assert (pull.tangential_launches - before, pull.launches - nebb) == (20, 0)
+    torch.testing.assert_close(s_k.f, s_p.f, rtol=0, atol=ATOL)
+    torch.testing.assert_close(s_k.rho_lid, s_p.rho_lid, rtol=0, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_auto_routes_the_tangential_lid_through_the_kernel(cuda, tmp_path):
+    """``simulate`` with ``auto`` takes the tangential entry at a size where
+    NEBB would take the temporal-block kernel."""
+    cfg = SimConfig(nx=2048, ny=2048, reynolds=1000.0, collision="mrt",
+                    boundary="nebb_tangential", max_steps=200, report_interval=100)
+    before = (pull.tangential_launches, tblock.launches)
+    summary = simulate(cfg, SimOptions(out_dir=str(tmp_path), verbose=False),
+                       device=cuda)
+    assert summary.backend == "cuda-pull" and summary.steps == 200
+    assert (pull.tangential_launches - before[0], tblock.launches - before[1]) == (200, 0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n_steps", [1, 6, 7])
 def test_scan_runner_equals_stepping(cuda, n_steps):
     """Both parities of the two-buffer ping-pong; the input is not written."""

@@ -1,5 +1,6 @@
-"""The port and chip_smoke.py import neither JAX (nor flax or optax) nor the
-JAX package: the machine with the card has none of them."""
+"""The port and chip_smoke.py import neither JAX (nor flax, optax or
+msgpack) nor the JAX package: the machine with the card has none of them.
+The port's reader of flax's msgpack files works with all four blocked."""
 
 import os
 import re
@@ -18,8 +19,9 @@ for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     importlib.import_module(m.name)
 import chip_smoke
 bad = sorted(k for k in sys.modules
-             if k in ("jax", "flax", "optax") or k.startswith(("jax.", "jaxlib", "flax.",
-                                                               "optax.", "{JAX_PACKAGE}")))
+             if k in ("jax", "flax", "optax", "msgpack")
+             or k.startswith(("jax.", "jaxlib", "flax.", "optax.", "msgpack.",
+                              "{JAX_PACKAGE}")))
 print("imported:", bad)
 sys.exit(1 if bad else 0)
 """
@@ -45,9 +47,39 @@ def test_sources_never_name_jax_or_the_jax_package():
             "tblock_sharded_step.cu", "multihost.py", "halo_rdma.py",
             "halo_exchange.cu", "datagen.py", "models.py", "predict.py",
             "scaling.py", "train.py", "checkpoint.py", "cli.py", "__main__.py",
-            "vtk.py", "viz.py", "vortex.py", "engine.py", "lbm_kernel.cpp"} <= names
-    jax_import = re.compile(r"^\s*(import|from)\s+(jax|flax|optax)\b", re.M)
+            "vtk.py", "viz.py", "vortex.py", "engine.py", "lbm_kernel.cpp",
+            "flax_msgpack.py"} <= names
+    jax_import = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|msgpack)\b", re.M)
     for path in files:
         text = path.read_text()
         assert JAX_PACKAGE not in text, path
         assert not jax_import.search(text), path
+
+
+_BLOCKED = """
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "{pkg}"):
+    sys.modules[name] = None  # an import of any of them now raises
+from latticeboltzmannsimulations_torch.ml import flax_msgpack, train
+tree = flax_msgpack.load(sys.argv[1])
+params, meta = train.load_weights("cnn_nine", "x", sys.argv[2])
+print(len(tree), len(params), sorted(meta))
+"""
+
+
+def test_flax_files_read_with_jax_flax_and_msgpack_blocked():
+    """``ml.flax_msgpack`` and ``load_weights`` read a tracked weight file in
+    a process where importing JAX, flax, optax, msgpack or the JAX package
+    raises."""
+    weights = REPO / "docs" / "artifacts" / "ml_full" / "cnn_nine"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(REPO), env.get("PYTHONPATH")) if p)
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED.format(pkg=JAX_PACKAGE),
+         str(weights / "cnn_nine_x.msgpack"), str(weights)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n_layers, n_tensors, meta = proc.stdout.split(maxsplit=2)
+    assert int(n_tensors) == 2 * int(n_layers) > 0
+    assert "scalers" in meta

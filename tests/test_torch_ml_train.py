@@ -2,8 +2,8 @@
 optimiser layer (``train.Optimizer``, ``lr_schedule``) against optax, and
 ``train.train`` against JAX ``train`` from the same flax init carried across
 by ``models.state_dict_from_flax``; then what the port holds on its own:
-resume, data parallelism over a mesh, weight files, ``fine_tune`` and the
-loss plot.
+resume (of its own checkpoints, and of the JAX package's), data parallelism
+over a mesh, weight files, ``fine_tune`` and the loss plot.
 
 Tolerances: the optimiser step and every schedule in float64 to 1e-12 (the
 same arithmetic in another framework, its operations ordered differently);
@@ -276,6 +276,59 @@ def test_foreign_recipe_or_smaller_budget_starts_fresh(data, tmp_path, capsys):
                           **kw)
     assert len(smaller.history["loss"]) == 1
     assert capsys.readouterr().out.count("starting fresh") == 2
+
+
+@pytest.mark.parametrize("kw", [
+    dict(optimizer="rmsprop", schedule="inverse"),
+    dict(optimizer="adam", clip_norm=0.05),
+    dict(optimizer="rmsprop"),
+], ids=["rmsprop_inverse", "adam_clip", "rmsprop_constant"])
+def test_jax_checkpoint_resumes_as_the_jax_run_continues(data, tmp_path, kw):
+    """JAX ``train`` writes a checkpoint after 1 epoch; JAX and the port each
+    resume it for 2 more.  The port carries the flax parameters, optax's
+    moments (RMSprop ``nu``; Adam ``mu``, ``nu`` and ``count``, under the
+    clipping's state) and the schedule's count across, so the two
+    continuations agree to ``test_train_matches_jax_train``'s tolerances,
+    and the port's next checkpoint is its own.  The three count sources:
+    the schedule's, Adam's, and none (a constant RMSprop rate)."""
+    port_data, jdata = data
+    common = dict(component="x", batch_size=4, learning_rate=1e-3, checkpoint_every=1, **kw)
+    jax_ckpt, port_ckpt = str(tmp_path / "jax.ckpt"), str(tmp_path / "port.ckpt")
+    jtrain.train(PRESET, jdata, epochs=1, checkpoint_path=jax_ckpt, **common)
+    with open(jax_ckpt, "rb") as fh:
+        blob = fh.read()
+    assert not blob[8 + int.from_bytes(blob[:8], "little"):].startswith(b"PK")
+    with open(port_ckpt, "wb") as fh:
+        fh.write(blob)
+    want = jtrain.train(PRESET, jdata, epochs=3, checkpoint_path=jax_ckpt, **common)
+    got = train.train(PRESET, port_data, epochs=3, checkpoint_path=port_ckpt,
+                      device="cpu", **common)
+    assert len(got.history["loss"]) == 3
+    assert got.history["loss"][0] == want.history["loss"][0]  # from the header
+    assert got.history["loss"] == pytest.approx(want.history["loss"], rel=1e-4)
+    assert got.history["val_loss"] == pytest.approx(want.history["val_loss"], rel=1e-4)
+    ref = models.state_dict_from_flax(models.PRESETS[PRESET], jax.device_get(want.params))
+    for name, w in ref.items():
+        np.testing.assert_allclose(got.params[name].numpy(), w.numpy(), rtol=2e-4,
+                                   atol=1e-6, err_msg=name)
+    with open(port_ckpt, "rb") as fh:
+        hlen = int.from_bytes(fh.read(8), "little")
+        assert json.loads(fh.read(hlen))["epoch"] == 3
+        assert fh.read(4) == b"PK\x03\x04"
+
+
+def test_jax_checkpoint_of_another_recipe_is_refused(data, tmp_path, capsys):
+    """A JAX checkpoint resumes only under its own recipe, as in JAX: another
+    learning rate starts fresh."""
+    port_data, jdata = data
+    ckpt = str(tmp_path / "jax.ckpt")
+    common = dict(component="x", batch_size=4, checkpoint_path=ckpt, checkpoint_every=1)
+    jtrain.train(PRESET, jdata, epochs=1, learning_rate=1e-3, **common)
+    capsys.readouterr()
+    fresh = train.train(PRESET, port_data, epochs=1, learning_rate=1e-4, device="cpu",
+                        **common)
+    assert "starting fresh" in capsys.readouterr().out
+    assert len(fresh.history["loss"]) == 1
 
 
 def test_recipe_is_the_jax_recipe(data):

@@ -15,7 +15,7 @@ import torch
 from latticeboltzmannsimulations_torch import engine as t_eng
 from latticeboltzmannsimulations_torch.config import SimConfig as TConfig
 from latticeboltzmannsimulations_torch.convert import state_from_numpy, state_to_numpy
-from latticeboltzmannsimulations_torch.kernels import _build, pull
+from latticeboltzmannsimulations_torch.kernels import _build, pull, tblock
 from latticeboltzmannsimulations_tpu import engine as j_eng
 from latticeboltzmannsimulations_tpu.config import SimConfig as JConfig
 from latticeboltzmannsimulations_tpu.kernels import pallas_pull
@@ -46,6 +46,52 @@ def test_make_step_matches_pallas_interpret(kw):
     f, lid = state_to_numpy(t_state)
     np.testing.assert_allclose(f, np.asarray(j_state.f), rtol=0, atol=ATOL)
     np.testing.assert_allclose(lid, np.asarray(j_state.rho_lid), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(collision="srt"),
+    dict(collision="trt"),
+    dict(collision="mrt"),
+    dict(collision="mrt", turbulence="smagorinsky", reynolds=5000.0),
+    dict(collision="srt", turbulence="smagorinsky", van_driest=True, reynolds=5000.0),
+], ids=["srt", "trt", "mrt", "mrt_smagorinsky", "srt_van_driest"])
+def test_tangential_lid_matches_the_jax_fused_runner(kw):
+    """With the tangential lid the module's runner on the CPU holds to the
+    JAX driver's engine for that wall, its XLA-fused scan runner, on a
+    ragged field (both lid corners and the wrap at them)."""
+    base = dict(nx=37, ny=29, reynolds=400.0, precision="float32",
+                boundary="nebb_tangential")
+    base.update(kw)
+    tc, jc = TConfig(**base), JConfig(**base)
+    j_state = j_eng.init_state(jc)
+    t_state = state_from_numpy(np.asarray(j_state.f), np.asarray(j_state.rho_lid),
+                               device="cpu")
+    t_state = pull.make_scan_runner(tc, 10, device="cpu")(t_state)
+    j_state = jax.jit(j_eng.make_scan_runner(jc, 10))(j_state)
+    f, lid = state_to_numpy(t_state)
+    np.testing.assert_allclose(f, np.asarray(j_state.f), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(lid, np.asarray(j_state.rho_lid), rtol=0, atol=ATOL)
+
+
+def test_tangential_lid_takes_the_one_step_kernel_only():
+    """The one-step kernel takes the tangential lid; the sweep form (a
+    traced omega, stacked cavities) and the temporal-block kernel, which
+    compute the NEBB lid, refuse it."""
+    cfg = TConfig(nx=16, ny=16, boundary="nebb_tangential")
+    assert pull.unsupported_reason(cfg) is None
+    assert "NEBB" in pull.unsupported_reason(cfg, traced_omega=True)
+    assert "NEBB" in pull.unsupported_reason(cfg, traced_omega=True, n_cav=3)
+    assert "NEBB" in pull.unsupported_reason(cfg, n_cav=3)
+    assert "NEBB" in tblock.unsupported_reason(TConfig(nx=64, ny=64,
+                                                       boundary="nebb_tangential"))
+    with pytest.raises(ValueError, match="NEBB"):
+        pull.make_sweep_runner(cfg, 2, 4, device="cpu")
+    with pytest.raises(ValueError, match="NEBB"):
+        pull.make_step_omega(cfg, device="cpu")
+    assert pull._lid_scalars(TConfig(nx=16, ny=16)) is None
+    u = cfg.u_lid
+    assert pull._lid_scalars(cfg) == (0.5 * u, (2.0 / 3.0) * u, (1.0 / 6.0) * u,
+                                      u / 12.0)
 
 
 def test_scan_runner_on_cpu_equals_stepping():
@@ -81,7 +127,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 @pytest.mark.parametrize("kw, reason", [
     (dict(precision="float64"), "float32"),
-    (dict(boundary="nebb_tangential"), "NEBB"),
+    (dict(boundary="nebb_west_eq"), "NEBB"),
     (dict(boundary="bounce_back"), "NEBB"),
     (dict(mesh_shape=(2, 1)), "one device"),
 ])

@@ -88,7 +88,7 @@ CUDA = torch.device("cuda", 0)
     (dict(), "auto", CUDA, "cuda-pull"),
     (dict(nx=70000), "auto", CUDA, "cuda-pull"),     # no grid limit on nx
     (dict(precision="float64"), "auto", CUDA, "torch"),
-    (dict(boundary="nebb_tangential"), "auto", CUDA, "torch"),
+    (dict(boundary="nebb_tangential", precision="float64"), "auto", CUDA, "torch"),
     (dict(), "cuda-pull", CUDA, "cuda-pull"),
     (dict(), "torch", CUDA, "torch"),
     # The push scheme: walls only the push oracle implements, on any device;
@@ -147,6 +147,24 @@ def test_explicit_kernel_backends_refuse_on_the_card(kw, backend, match):
     cfg = TConfig(**{"nx": 16, "ny": 16, **kw})
     with pytest.raises(ValueError, match=match):
         _select_backend(cfg, backend, CUDA)
+
+
+@pytest.mark.parametrize("precision, want", [("float32", "cuda-pull"),
+                                              ("float64", "torch")])
+@pytest.mark.parametrize("n", [128, 4096])
+def test_auto_routes_the_tangential_lid_to_the_one_step_kernel(n, precision, want):
+    """``auto`` on the card sends the float32 tangential lid to the one-step
+    kernel at every size (the temporal-block kernel computes the NEBB lid),
+    and float64 to the plain engine.  Routing builds no runner."""
+    cfg = TConfig(nx=n, ny=n, reynolds=1000.0, collision="mrt",
+                  boundary="nebb_tangential", precision=precision)
+    assert _select_backend(cfg, "auto", CUDA).name == want
+    if precision == "float32":
+        assert _select_backend(cfg, "cuda-pull", CUDA).name == "cuda-pull"
+        with pytest.raises(ValueError, match="NEBB"):
+            _select_backend(cfg, "cuda-tblock", CUDA)
+    assert _select_backend(cfg, "torch", CUDA).name == "torch"
+    assert _select_backend(cfg, "auto", CPU).name == "torch"
 
 
 @pytest.mark.parametrize("n", [64, 1024, 2048, 4096])
