@@ -4,7 +4,10 @@ Run from the repository root, with one card visible:
 
     python3 chip_smoke.py
 
-Phases, each printed with its wall time:
+Phases, each printed with its wall time, the peak of the device memory
+allocated in it and what it leaves allocated (``torch.cuda``'s counts; the
+script fails if a phase leaves more than 512 MiB beyond what it held after
+the build: a runner kept alive would):
 
 1. device: the card's name and ``nvidia-smi``'s name and power limit;
 2. build: ``nvcc`` builds every ``csrc/*.cu`` into one library (one process
@@ -174,8 +177,9 @@ along x, each with its own omega) and the surrogate pipeline:
     profiled): routed to ``cuda-pull``, its three ``.vtr`` files equal byte
     for byte to an in-process ``simulate`` with the same options and no
     profile, its ``trace.json`` holding exactly 2 000 ``pull_step`` kernel
-    events (their device time per step, the chunk's idle share and the
-    host's us between launches printed beside the MLUPS); in-process
+    events, replayed from the chunk's graph (their device time per step,
+    the chunk's idle share, the host's us between launches while it
+    captures, and the graph launches printed beside the MLUPS); in-process
     ``simulate`` in turns without outputs, with ``--vtk``'s outputs, with
     the command's outputs and with its profile too, their launches counted,
     for the cost of each; the same profiled run at 128^2 Re=100, and that
@@ -183,6 +187,34 @@ along x, each with its own omega) and the surrogate pipeline:
     cavities, its ``.npy`` files equal to (h)'s arrays bit for bit; and a
     line naming what it does not drive on the card (``--plots``, ``train``
     and ``predict`` draw with matplotlib, where the machine has none).
+
+(n) the CUDA-graph runners (``kernels/graphs.py``: a chunk's launches
+    captured at a runner's first call, replayed once per call): each
+    against its eager form, the same launches issued one by one from the
+    host (the modules' ``_eager_*`` runners), on the same seeded state:
+    ``pull`` (MRT, SRT + Smagorinsky + Van Driest, the tangential lid) at
+    128^2 over 1, 2, 7, 2 000 and 4 001 steps (the 2 000-launch body
+    replayed twice and an odd remainder), the sweep at 32 x 384^2 over 200
+    steps with its omegas changed between calls, ``tblock`` over 2 003
+    steps at 128^2 and 67 at 2048^2, ``push`` over 7 and 2 001 at 128^2 and
+    67 at 1024^2, and both sharded runners (the temporal-block one under
+    both transports) on the 2x2 mesh of the card over 2 003 steps at 128^2
+    and 67 at 4096^2: max |d| = 0, the input untouched, the state a call
+    returned unchanged by the next, every launch counter (and
+    ``halo.copies``, but for the lid densities a graphed sharded runner
+    copies out of the rows it keeps) at the eager count; the capture's
+    wall time per runner; every main path's graph launches checked against
+    its chunks' plans;
+(o) timing, graph against eager form in turns (graph, eager, eager,
+    graph), ms per step end to end on an idle queue: ``cuda-pull`` and
+    ``cuda-tblock`` in 2 000-step calls at 96^2, 128^2, 256^2, 1024^2 and
+    2048^2; both sharded runners on the 2x2 mesh at 128^2 (2 000-step
+    calls) and 4096^2 (480); a 2 000-step ``cuda-pull`` chunk at 128^2 and
+    1024^2 captured as bodies of 250 to 2 000 launches (the capture's cost
+    against the graph launches a chunk takes); ``simulate``'s MLUPS of the
+    Re=100 128^2 gate
+    (``re100_128_nebb_tangential``) and of the 1024^2 Re=5000 main path,
+    the eager forms swapped in for the runner factories.
 
 The last three lines are ``nvidia-smi``'s line, one JSON object describing
 each kernel, and ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -195,6 +227,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import importlib.util
 import json
 import math
@@ -215,6 +248,7 @@ from latticeboltzmannsimulations_torch import engine, ml, sim
 from latticeboltzmannsimulations_torch.config import SimConfig
 from latticeboltzmannsimulations_torch.kernels import (
     _build,
+    graphs,
     halo_rdma,
     pull,
     pull_sharded,
@@ -389,17 +423,57 @@ ARTIFACT_WEIGHTS = os.path.join(REPO, "docs", "artifacts", "ml_full", "cnn_nine"
 ARTIFACT_PRESET = "cnn_nine"
 ARTIFACT_CKPT = os.path.join(REPO, "docs", "artifacts", "ml_full", "cnn_eight_faithful",
                              "cnn_eight_x.ckpt")
+# CUDA graphs (kernels/graphs.py): the steps each graphed runner is held to
+# its eager form at (4 001: the body of 2 000 launches replayed twice and an
+# odd remainder), the sizes and steps per call of the timings in turns, and
+# the device memory a phase may leave held beyond what the script held after
+# the build (a runner kept alive at 4096^2 holds more than a GiB).
+GRAPH_STEPS = (1, 2, 7, graphs.MAX_BODY, 2 * graphs.MAX_BODY + 1)
+GRAPH_SWEEP_STEPS = 200
+GRAPH_TBLOCK_STEPS = {128: 2_003, LARGE_N: 67}
+GRAPH_PUSH_STEPS = {128: (7, 2_001), BENCH_N: (67,)}
+GRAPH_SHARDED_STEPS = {128: 2_003, SHARDED_N: 67}
+GRAPH_TIMING_N = (96, 128, 256, BENCH_N, LARGE_N)
+GRAPH_SHARDED_CALL_STEPS = {128: SMALL_CALL_STEPS, SHARDED_N: RUNNER_TURN_STEPS}
+# the bodies (launches per graph) whose capture a 2 000-step chunk is timed
+# with: the cost of capturing against the graph launches per chunk
+GRAPH_BODIES = (250, 500, 1_000, 2_000)
+HELD_MARGIN = 512 * 2**20
 PULL_KERNEL = "pull_step_kernel"     # pull_step's __global__ in csrc/pull_step.cu
 #                                      (in an anonymous namespace there)
 DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+# (phase, peak device bytes allocated in it, bytes still allocated at its end)
+MEMORY = []
 
 
 @contextlib.contextmanager
 def phase(name: str):
     print(f"== {name}", flush=True)
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     yield
-    print(f"== {name}: {time.perf_counter() - t0:.2f} s", flush=True)
+    torch.cuda.synchronize()
+    gc.collect()
+    peak, held = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+    MEMORY.append((name, peak, held))
+    print(f"== {name}: {time.perf_counter() - t0:.2f} s; device memory peak "
+          f"{peak / 2**30:.3f} GiB, held at the end {held / 2**30:.3f} GiB", flush=True)
+
+
+def check_memory() -> None:
+    """No phase leaves more device memory allocated than the script held
+    after the build plus ``HELD_MARGIN``: a runner that outlived its phase
+    (its buffers and graphs) would."""
+    base = dict((name, held) for name, _, held in MEMORY)["build"]
+    print("  device memory by phase, GiB (peak, held at the end): " + "; ".join(
+        f"{name} {peak / 2**30:.3f} {held / 2**30:.3f}" for name, peak, held in MEMORY),
+        flush=True)
+    grown = [(name, held) for name, _, held in MEMORY if held > base + HELD_MARGIN]
+    if grown:
+        raise AssertionError(f"phases left device memory held beyond {base} + "
+                             f"{HELD_MARGIN} bytes: {grown}")
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -696,13 +770,14 @@ def compare_refresh(device, shape, n: int, k: int, layout: str,
 def sharded_copies(cfg: SimConfig, n: int, runner: str) -> int:
     """``halo.copies`` of one call of a sharded runner of ``n`` steps on
     ``cfg``'s mesh of this card when its refresh is the exchange kernel:
-    the padding and unpadding of the blocks (and lid densities) and the
-    lid density's copies over the columns, made once per call; no halo
-    copy per step or block.  ``runner``: "pull" or "tblock"."""
+    the copies of the blocks and lid densities into the buffers the runner
+    keeps and out of them, and the lid density's copies over the columns,
+    made once per call; no halo copy per step or block.  ``runner``:
+    "pull" or "tblock"."""
     mx, my = cfg.mesh_shape
     shards, over_columns = mx * my, mx * (my - 1)
     if runner == "pull":
-        return (3 * shards + over_columns) if n else 0
+        return (4 * shards + over_columns) if n else 0
     rem = n % tblock_sharded.K_STEPS
     return (4 * shards + over_columns) * (n >= tblock_sharded.K_STEPS) + sharded_copies(
         cfg, rem, "pull")
@@ -912,7 +987,10 @@ def time_exchange(cfg: SimConfig, device, state) -> dict:
 def time_runner_pair(runners: dict, state, steps: int) -> dict:
     """ms per step of each of two runners of ``steps`` steps from
     ``state``, end to end on an idle queue (at small sizes the host's
-    pace), in turns (first, second, second, first)."""
+    pace), in turns (first, second, second, first), each called once
+    before (a graph's capture out of the turns)."""
+    for run in runners.values():
+        run(state)
     out = {name: [] for name in runners}
     a, b = runners
     for name in (a, b, b, a):
@@ -1015,6 +1093,23 @@ def time_sharded(cfg: SimConfig, device, state, k_steps: int | None) -> dict:
     return out
 
 
+def graph_replays(backend: str, interval: int) -> int:
+    """Graph launches of one call of ``backend``'s runner of ``interval``
+    steps on one card: its dispatches (0 for the routes that launch no
+    kernel of the port)."""
+    def per_call(p: graphs.Plan) -> int:
+        return sum(times for _, times in p.graphs())
+
+    if backend in ("cuda-pull", "cuda-push", "cuda-sharded"):
+        return per_call(graphs.plan(interval))
+    if backend == "cuda-tblock":
+        return per_call(graphs.plan(interval, tblock.K_STEPS))
+    if backend == "cuda-sharded-tblock":
+        blocks, rem = divmod(interval, tblock_sharded.K_STEPS)
+        return per_call(graphs.plan(blocks)) + per_call(graphs.plan(rem))
+    return 0
+
+
 def reset_counters() -> None:
     for module, attr in COUNTERS.values():
         setattr(module, attr, 0)
@@ -1033,17 +1128,24 @@ def run_main_path(cfg: SimConfig, device, out_dir: str, backend: str,
     appends the run's MLUPS to ``mlups`` where given."""
     reset_counters()
     halo.copies = 0
+    replays = graphs.replays
     summary = simulate(cfg, SimOptions(out_dir=out_dir, verbose=False,
                                        backend=backend), device=device)
     torch.cuda.synchronize()
     counts = read_counters()
+    replays = graphs.replays - replays
     copies = f" halo copies={halo.copies}" if halo.copies else ""
     print(f"  {cfg.describe()} backend={backend}: routed to {summary.backend}, "
-          f"steps={summary.steps} launches={counts}{copies} "
+          f"steps={summary.steps} launches={counts}{copies} graph launches={replays} "
           f"MLUPS={summary.mlups:.1f} r2_ux={summary.r2_ux} r2_uy={summary.r2_uy} "
           f"l2={summary.l2_combined}", flush=True)
     if expect is not None and summary.backend != expect:
         raise AssertionError(f"routed to {summary.backend!r}, not {expect!r}")
+    chunks = summary.steps // cfg.report_interval
+    if replays != chunks * graph_replays(summary.backend, cfg.report_interval):
+        raise AssertionError(f"{summary.backend}: {replays} graph launches in {chunks} "
+                             f"chunks, expected "
+                             f"{chunks * graph_replays(summary.backend, cfg.report_interval)}")
     if not math.isfinite(summary.mlups):
         raise AssertionError("non-finite MLUPS")
     if mlups is not None:
@@ -1557,10 +1659,11 @@ def run_cli(args: list[str]) -> tuple[list[str], float]:
 
 def read_trace(path: str, steps: int) -> dict:
     """A ``simulate`` profile of a ``steps``-step chunk on ``cuda-pull``:
-    ``pull_step``'s kernel events (exactly ``steps`` of them), their device
-    ms per step, the chunk's span, its idle share (1 - device busy / span;
-    and from the first kernel's start to the last one's end), and the host's
-    median us between kernel launches."""
+    ``pull_step``'s kernel events (exactly ``steps`` of them, from the
+    chunk's graph), their device ms per step, the chunk's span, its idle
+    share (1 - device busy / span; and from the first kernel's start to the
+    last one's end), the host's median us between launches while it
+    captures the graph, and the graph launches."""
     with open(path) as fh:
         events = json.load(fh)["traceEvents"]
     kernels = [e for e in events
@@ -1568,8 +1671,12 @@ def read_trace(path: str, steps: int) -> dict:
     busy = [e for e in events if e.get("cat") in DEVICE_EVENTS]
     chunks = [e for e in events
               if e.get("cat") == "user_annotation" and e.get("name") == sim.CHUNK_SPAN]
+    # the chunk is the runner's first call: its launches are captured (a
+    # cudaLaunchKernel each, on the host only), then replayed as graphs
     launches = sorted(e["ts"] for e in events
                       if e.get("cat") == "cuda_runtime" and e.get("name") == "cudaLaunchKernel")
+    graph_launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                      and e.get("name", "").startswith("cudaGraphLaunch")]
     if len(kernels) != steps or len(chunks) != 1:
         raise AssertionError(f"{path}: {len(kernels)} {PULL_KERNEL} events (expected {steps}) "
                              f"and {len(chunks)} chunk spans; the trace has "
@@ -1582,7 +1689,8 @@ def read_trace(path: str, steps: int) -> dict:
             "chunk_ms": chunks[0]["dur"] / 1e3,
             "idle_share": 1 - busy_us / chunks[0]["dur"],
             "idle_share_between_kernels": 1 - busy_us / (last - first),
-            "host_us_per_launch": float(np.median(np.diff(launches))),
+            "host_us_per_captured_launch": float(np.median(np.diff(launches))),
+            "graph_launches": len(graph_launches),
             "other_device_events": len(busy) - len(kernels)}
 
 
@@ -1708,6 +1816,258 @@ def run_command_line(ds, device, tmp: str) -> dict:
               "package on the CPU by tests/test_torch_cli.py and tests/test_torch_viz.py",
               flush=True)
     return total
+
+
+def tensors(x) -> list:
+    """The tensors of a state, a ``ShardedState`` or a tuple of arguments,
+    in order (numbers, arrays and absent blocks left out)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for item in x for t in tensors(item)]
+    return []
+
+
+def max_diff(a, b) -> float:
+    """max |a - b| over the tensors of two states (inf if they differ in
+    number or shape)."""
+    a, b = tensors(a), tensors(b)
+    if len(a) != len(b) or any(x.shape != y.shape for x, y in zip(a, b)):
+        return math.inf
+    return max(((x - y).abs().max().item() for x, y in zip(a, b) if x.numel()), default=0.0)
+
+
+def graph_vs_eager(name: str, graphed, eager, args: tuple, rows_out: int = 0) -> dict:
+    """(n) A graphed runner, built and not yet called, against its eager
+    form on ``args`` (which must stay finite): max |d| = 0; the inputs
+    untouched; every counter of
+    the graphed calls at the eager call's counts (``rows_out``: the copies
+    of the lid densities out of the rows a graphed sharded runner keeps,
+    beyond the eager runner's copies); and a second call equal too, leaving
+    the first call's state unchanged.  Returns the wall seconds of the
+    eager call and of the graphed runner's first (which captures) and
+    second calls."""
+    keys = graphs._counters()
+    kept = [t.clone() for t in tensors(args)]
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        before = [getattr(*key) for key in keys]
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, [getattr(*key) - b for key, b in zip(keys, before)], time.perf_counter() - t0
+
+    want, counts, eager_s = counted(lambda: eager(*args))
+    if not all(bool(torch.isfinite(t).all()) for t in tensors(want)):
+        raise AssertionError(f"{name}: the eager run left non-finite values")
+    want_counts = counts[:-1] + [counts[-1] + rows_out]
+    got, first_counts, first_s = counted(lambda: graphed(*args))
+    first = [t.clone() for t in tensors(got)]
+    again, again_counts, second_s = counted(lambda: graphed(*args))
+    err = max(max_diff(got, want), max_diff(again, want))
+    untouched = max_diff(args, kept) == 0.0
+    survives = max_diff(got, first) == 0.0
+    counted_right = first_counts == want_counts == again_counts
+    print(f"  {name}: graphed vs eager max|d| {err}, input untouched {untouched}, returned "
+          f"state kept over a second call {survives}, counters {first_counts} and "
+          f"{again_counts} (eager {want_counts}) equal {counted_right}; wall s eager "
+          f"{eager_s:.4f}, graphed first (capture) {first_s:.4f}, second {second_s:.4f}",
+          flush=True)
+    if err != 0.0 or not (untouched and survives and counted_right):
+        raise AssertionError(f"{name}: the graphed runner is not its eager form")
+    return {"eager_s": eager_s, "first_s": first_s, "second_s": second_s}
+
+
+def graph_config(n: int, base: SimConfig) -> SimConfig:
+    """``base`` (MRT) at n^2: the Ghia cavity's Re=100 at the small sizes,
+    whose runs here reach thousands of steps, the benchmark's Re=5000 at
+    the large ones."""
+    return dataclasses.replace(base, nx=n, ny=n, reynolds=100.0 if n <= 256 else 5000.0)
+
+
+def check_graphs(device, sweep_cfg: SimConfig, sharded_cfg: SimConfig) -> dict:
+    """(n) Every graphed runner against its eager form (``graph_vs_eager``):
+    ``pull`` (MRT, SRT + Smagorinsky + Van Driest, the tangential lid) at
+    128^2 over ``GRAPH_STEPS``; the sweep at 32 x 384^2, its omegas changed
+    between calls; ``tblock`` over a count of steps that K does not divide;
+    ``push``; both sharded runners (the temporal-block one under both
+    transports) on the 2x2 mesh of the card at 128^2 and 4096^2.  Returns
+    the capture's seconds per runner: the first call's wall time less the
+    second's, for the longest case of each."""
+    capture = {}
+
+    def held(label, t):
+        capture[label] = t["first_s"] - t["second_s"]
+
+    for name, kw in (("mrt", dict(collision="mrt", reynolds=400.0)),
+                     ("srt+smagorinsky+van_driest", dict(
+                         collision="srt", reynolds=1000.0, turbulence="smagorinsky",
+                         van_driest=True)),
+                     ("tangential mrt", dict(collision="mrt", reynolds=400.0,
+                                             boundary="nebb_tangential"))):
+        cfg = SimConfig(nx=128, ny=128, **kw)
+        s0 = noisy_state(cfg, device)
+        for n in GRAPH_STEPS:
+            t = graph_vs_eager(f"pull {name} 128^2, {n} steps",
+                               pull.make_scan_runner(cfg, n, device),
+                               pull._eager_scan_runner(cfg, n, device), (s0,))
+        held(f"cuda-pull {name} 128^2, {GRAPH_STEPS[-1]} steps", t)
+    s_sweep, omegas = sweep_start(sweep_cfg, SWEEP_CAV, device, seed=1)
+    graphed = pull.make_sweep_runner(sweep_cfg, SWEEP_CAV, GRAPH_SWEEP_STEPS, device)
+    eager = pull._eager_sweep_runner(sweep_cfg, SWEEP_CAV, GRAPH_SWEEP_STEPS, device)
+    for label, om in (("omegas", omegas), ("other omegas", omegas[::-1].copy()),
+                      ("the first omegas again", omegas)):
+        t = graph_vs_eager(f"sweep {SWEEP_CAV} x {SWEEP_N}^2, {GRAPH_SWEEP_STEPS} steps, "
+                           f"{label}", graphed, eager, (s_sweep, om))
+        if label == "omegas":
+            held(f"sweep {SWEEP_CAV} x {SWEEP_N}^2, {GRAPH_SWEEP_STEPS} steps", t)
+    del s_sweep, graphed, eager
+    one_card = dataclasses.replace(sharded_cfg, mesh_shape=(1, 1))
+    for n, steps in GRAPH_TBLOCK_STEPS.items():
+        cfg = graph_config(n, one_card)
+        t = graph_vs_eager(f"tblock K={tblock.K_STEPS} {n}^2, {steps} steps",
+                           tblock.make_scan_runner(cfg, steps, device),
+                           tblock._eager_scan_runner(cfg, steps, device),
+                           (noisy_state(cfg, device),))
+        held(f"cuda-tblock {n}^2, {steps} steps", t)
+    for n, counts in GRAPH_PUSH_STEPS.items():
+        cfg = graph_config(n, one_card)
+        f0 = noisy_state(cfg, device).f
+        for steps in counts:
+            t = graph_vs_eager(f"push {n}^2, {steps} steps",
+                               push.make_push_scan_runner(cfg, steps, device),
+                               push._eager_push_scan_runner(cfg, steps, device), (f0,))
+            held(f"cuda-push {n}^2, {steps} steps", t)
+    for n, steps in GRAPH_SHARDED_STEPS.items():
+        cfg = graph_config(n, sharded_cfg)
+        mesh = sharded_mesh(device)
+        s0 = shard_state(noisy_state(cfg, device), mesh)
+        shards = SHARDED_MESH[0] * SHARDED_MESH[1]
+        t = graph_vs_eager(f"cuda-sharded {n}^2 mesh {SHARDED_MESH}, {steps} steps",
+                           pull_sharded.make_sharded_runner(cfg, steps, mesh),
+                           pull_sharded._eager_sharded_runner(cfg, steps, mesh), (s0,),
+                           rows_out=shards)
+        held(f"cuda-sharded {n}^2, {steps} steps", t)
+        for impl in tblock_sharded.HALO_IMPLS:
+            t = graph_vs_eager(
+                f"cuda-sharded-tblock {impl} {n}^2 mesh {SHARDED_MESH}, {steps} steps",
+                tblock_sharded.make_sharded_runner(cfg, steps, mesh, halo_impl=impl),
+                tblock_sharded._eager_sharded_runner(cfg, steps, mesh, halo_impl=impl),
+                (s0,), rows_out=shards if steps % tblock_sharded.K_STEPS else 0)
+            held(f"cuda-sharded-tblock {impl} {n}^2, {steps} steps", t)
+        del s0
+    print(f"  capture s per runner (first call less the second): {capture}", flush=True)
+    return capture
+
+
+@contextlib.contextmanager
+def eager_runners():
+    """Inside the block ``simulate`` (and every caller of the runner
+    factories) takes the runners' eager forms, their steps launched one by
+    one from the host: the yardstick of the graphs' timings."""
+    swaps = [(pull, "make_scan_runner", pull._eager_scan_runner),
+             (pull, "make_sweep_runner", pull._eager_sweep_runner),
+             (tblock, "make_scan_runner", tblock._eager_scan_runner),
+             (push, "make_push_scan_runner", push._eager_push_scan_runner),
+             (pull_sharded, "make_sharded_runner", pull_sharded._eager_sharded_runner),
+             (tblock_sharded, "make_sharded_runner", tblock_sharded._eager_sharded_runner)]
+    saved = [(module, attr, getattr(module, attr)) for module, attr, _ in swaps]
+    try:
+        for module, attr, eager in swaps:
+            setattr(module, attr, eager)
+        yield
+    finally:
+        for module, attr, made in saved:
+            setattr(module, attr, made)
+
+
+def time_graphs(device, sharded_cfg: SimConfig, tmp: str) -> dict:
+    """(o) Graph against eager form in turns (graph, eager, eager, graph),
+    per step end to end on an idle queue: ``cuda-pull`` and ``cuda-tblock``
+    in calls of ``SMALL_CALL_STEPS`` steps at ``GRAPH_TIMING_N``; both
+    sharded runners on the 2x2 mesh at 128^2 and 4096^2; a 2 000-step
+    ``cuda-pull`` chunk at 128^2 and 1024^2 captured with bodies of
+    ``GRAPH_BODIES`` launches (its first call, capture and ms per step);
+    and ``simulate``'s MLUPS on the Re=100 128^2 gate
+    (``re100_128_nebb_tangential``) and on the 1024^2 Re=5000 main path."""
+    out = {}
+
+    def turns(label, runners, state, steps):
+        ms = time_runner_pair(runners, state, steps)
+        graph, eager = (sum(ms[name]) / 2 for name in ("graph", "eager"))
+        out[label] = dict(ms, speed=eager / graph)
+        print(f"  {label} in turns: {ms} ms/step; graph/eager speed {eager / graph:.3f}x",
+              flush=True)
+
+    for n in GRAPH_TIMING_N:
+        cfg = graph_config(n, dataclasses.replace(sharded_cfg, mesh_shape=(1, 1)))
+        s0 = noisy_state(cfg, device)
+        for route, module in (("cuda-pull", pull), ("cuda-tblock", tblock)):
+            turns(f"{route} {n}^2, {SMALL_CALL_STEPS}-step calls", {
+                "graph": module.make_scan_runner(cfg, SMALL_CALL_STEPS, device),
+                "eager": module._eager_scan_runner(cfg, SMALL_CALL_STEPS, device)},
+                s0, SMALL_CALL_STEPS)
+        del s0
+    mesh = sharded_mesh(device)
+    for n, steps in GRAPH_SHARDED_CALL_STEPS.items():
+        cfg = graph_config(n, sharded_cfg)
+        s0 = shard_state(noisy_state(cfg, device), mesh)
+        impl = sim.SHARDED_TBLOCK_HALO_IMPL
+        turns(f"cuda-sharded {n}^2 mesh {SHARDED_MESH}, {steps}-step calls", {
+            "graph": pull_sharded.make_sharded_runner(cfg, steps, mesh),
+            "eager": pull_sharded._eager_sharded_runner(cfg, steps, mesh)}, s0, steps)
+        turns(f"cuda-sharded-tblock {impl} {n}^2 mesh {SHARDED_MESH}, {steps}-step calls", {
+            "graph": tblock_sharded.make_sharded_runner(cfg, steps, mesh, halo_impl=impl),
+            "eager": tblock_sharded._eager_sharded_runner(cfg, steps, mesh, halo_impl=impl)},
+            s0, steps)
+        del s0
+    # the capture's cost against the body's size (graphs.MAX_BODY set for
+    # the probe alone): a 2 000-step cuda-pull chunk at 128^2 and 1024^2
+    one_card = dataclasses.replace(sharded_cfg, mesh_shape=(1, 1))
+    for n in (128, BENCH_N):
+        cfg = graph_config(n, one_card)
+        s0 = noisy_state(cfg, device)
+        found = {}
+        for body in GRAPH_BODIES:
+            saved, graphs.MAX_BODY = graphs.MAX_BODY, body
+            try:
+                run = pull.make_scan_runner(cfg, SMALL_CALL_STEPS, device)
+                walls = []
+                for _ in range(2):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run(s0)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                ms = cuda_time_ms(lambda: run(s0), 3) / SMALL_CALL_STEPS
+            finally:
+                graphs.MAX_BODY = saved
+            found[body] = dict(first_s=walls[0], capture_s=walls[0] - walls[1], ms=ms)
+        out[f"capture by body {n}^2"] = found
+        print(f"  cuda-pull {n}^2, {SMALL_CALL_STEPS}-step chunk by the graph's body in "
+              f"launches: " + "; ".join(
+                  f"{body}: first call {v['first_s']:.4f} s, capture {v['capture_s']:.4f} s, "
+                  f"{v['ms']:.5f} ms/step" for body, v in found.items()), flush=True)
+        del s0, run
+    gate = SimConfig(nx=128, ny=128, reynolds=100.0, collision="srt",
+                     boundary="nebb_tangential", max_steps=TANG_GATE_STEPS,
+                     report_interval=10_000)
+    main = SimConfig(nx=BENCH_N, ny=BENCH_N, reynolds=5000.0, collision="mrt",
+                     precision="float32", max_steps=10_000, report_interval=5_000)
+    for label, cfg in (("re100_128_nebb_tangential", gate), (f"{BENCH_N}^2 Re=5000", main)):
+        mlups = {"graph": [], "eager": []}
+        for form in ("graph", "eager", "eager", "graph"):
+            with eager_runners() if form == "eager" else contextlib.nullcontext():
+                summary = simulate(cfg, SimOptions(out_dir=tmp, verbose=False), device=device)
+            if summary.backend != "cuda-pull":
+                raise AssertionError(f"{label}: routed to {summary.backend}")
+            mlups[form].append(summary.mlups)
+        graph, eager = (sum(mlups[name]) / 2 for name in ("graph", "eager"))
+        out[f"simulate {label}"] = dict(mlups, speed=graph / eager)
+        print(f"  simulate {label} MLUPS in turns: {mlups}; graph/eager {graph / eager:.3f}x",
+              flush=True)
+    return out
 
 
 def bound(cells: int, nx: int, k_steps: int = 1) -> tuple[float, str]:
@@ -1870,6 +2230,9 @@ def main() -> None:
         compare_sweep_singles(sweep_cfg, device)
         check_sweep_nan(sweep_cfg, device)
         worst["pull_sweep_step"] = max(errs)
+
+    with phase("graphs: each graphed runner against its eager form"):
+        check_graphs(device, sweep_cfg, sharded_cfg)
 
     main_launches = {name: 0 for name in REPLACES}
     with phase("main path: cuda-pull"), tempfile.TemporaryDirectory() as tmp:
@@ -2243,7 +2606,7 @@ def main() -> None:
                       f"tblock/pull {p_ms / t_ms:.3f}x", flush=True)
             if min(ratios) > AHEAD_MARGIN:
                 ahead.append(n)
-            del s0, s1
+            del s0, s1, s, runners
         print(f"  tblock_step ahead of pull_step by more than {AHEAD_MARGIN - 1:.1%} "
               f"from rest and further on at {ahead}; sim.py routes auto to it from "
               f"{sim.TBLOCK_AUTO_MIN_CELLS} cells", flush=True)
@@ -2259,6 +2622,7 @@ def main() -> None:
         print(f"  {BENCH_N}^2 push_step {ms:.5f} ms/step ({cells * 1e-3 / ms:.1f} "
               f"MLUPS); plain {timing['push_step']['plain_ms']:.4f} ms/step; bound "
               f"{b_ms:.5f} ms/step by {b_by}", flush=True)
+        del runner, state, lid_start, f0
 
     with phase("timing: sweep form"):
         # In turns with pull_step at 1024^2 (pull, sweep, sweep, pull), per
@@ -2301,14 +2665,15 @@ def main() -> None:
         print(f"  one-cavity form {SWEEP_N}^2: device {busy_ms / SMALL_STEPS:.5f} ms/step, "
               f"host {host_us / SMALL_STEPS:.2f} us/step, end to end "
               f"{end_ms / SMALL_STEPS:.5f} ms/step", flush=True)
-        del s_sweep, runners
+        del s_sweep, runners, run
 
     with phase("timing: sharded"):
         mesh = sharded_mesh(device)
         cells = SHARDED_N * SHARDED_N
         # Both sharded runners from rest in simulate's calls of
-        # report_interval steps over the main path's steps, and the one-step
-        # runner's pad and unpad copies (made once per call).
+        # report_interval steps over the main path's steps (each runner called
+        # once before), and the one-step runner's pad and unpad copies (made
+        # once per call).
         s0 = shard_state(engine.init_state(sharded_cfg, device), mesh)
         interval = sharded_run.report_interval
         rest_ms = {}
@@ -2320,6 +2685,7 @@ def main() -> None:
                 ("cuda-sharded-tblock " + other_impl, lambda: tblock_sharded.make_sharded_runner(
                     sharded_cfg, interval, mesh, halo_impl=other_impl))):
             chunk = make()
+            chunk(s0)    # the graph's capture, out of the timing
 
             def from_rest():
                 s = s0
@@ -2368,11 +2734,14 @@ def main() -> None:
                   f"{t['bound_ms']:.5f} ms/step by {t['bound_by']}", flush=True)
 
         # Is the temporal-block runner ahead of the one-step one?  In turns,
-        # from the state after SHARDED_WARM_STEPS steps.
+        # from the state after SHARDED_WARM_STEPS steps (each runner called
+        # once before: its graph's capture out of the turns).
         runners = {
             "cuda-sharded": pull_sharded.make_sharded_runner(sharded_cfg, SHARDED_STEPS, mesh),
             "cuda-sharded-tblock": tblock_sharded.make_sharded_runner(
                 sharded_cfg, SHARDED_STEPS, mesh, halo_impl=sim.SHARDED_TBLOCK_HALO_IMPL)}
+        for run in runners.values():
+            run(s1)
         ms = {name: [] for name in runners}
         for name in ("cuda-sharded", "cuda-sharded-tblock", "cuda-sharded-tblock",
                      "cuda-sharded") * 2:
@@ -2411,7 +2780,7 @@ def main() -> None:
             print(f"  {SHARDED_N}^2 mesh {SHARDED_MESH} {label} runner, {steps}-step calls "
                   f"in turns: {ms} ms/step; {a}/{b} speed "
                   f"{sum(ms[b]) / sum(ms[a]):.4f}x", flush=True)
-        del s1, runners
+        del s1, runners, run
 
     with phase("timing: small grids"):
         # Per-step device time (queue held busy) and host time at 96^2-128^2,
@@ -2454,6 +2823,10 @@ def main() -> None:
                       f"{2 * SMALL_SHARDED_STEPS} less calls of {SMALL_SHARDED_STEPS} steps) "
                       f"and host us/step {busy}; idle share {idle}", flush=True)
 
+    with phase("timing: graphs against the eager form"), tempfile.TemporaryDirectory() as tmp:
+        time_graphs(device, sharded_cfg, tmp)
+
+    check_memory()
     print(f"chip_smoke total wall time: {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(smi, flush=True)

@@ -35,11 +35,13 @@ A destination may be
     unmaps the neighbours' carries, after which the processes meet at a
     barrier, so no carry is freed while another process maps it.
 
-The table, the stream and the launch arguments are fixed when the exchange
-is made (on each card's current stream then), so a call on one card is one
-``ctypes`` call.  On CUDA devices the exchange launches the kernel or
-raises; on the CPU it runs the plain version.  There is no fallback from one
-to the other.  ``launches`` counts the kernel's launches in this process.
+The table and the launch arguments are fixed when the exchange is made,
+so a call on one card is one ``ctypes`` call, on the card's current stream
+at the call: inside a CUDA graph's capture (a mesh of one card, whose
+runners replay their chunks, ``kernels/graphs.py``) that is the capturing
+stream.  On CUDA devices the exchange launches the kernel or raises; on the
+CPU it runs the plain version.  There is no fallback from one to the other.
+``launches`` counts the kernel's launches in this process.
 """
 
 from __future__ import annotations
@@ -196,12 +198,10 @@ class HaloExchange:
             staged = torch.tensor(rows, dtype=torch.int64).pin_memory()
             table = staged.to(device, non_blocking=True)
             self._tables += [staged, table]
-            stream = torch.cuda.current_stream(device)
             sms = torch.cuda.get_device_properties(device).multi_processor_count
             launch = functools.partial(_launch, lib, table.data_ptr(), len(rows),
-                                       n_slots(rows), device.index, sms, stream.cuda_stream)
-            peer_streams = [torch.cuda.current_stream(p) for p in sorted(peers, key=str)]
-            self._groups.append((launch, stream, peer_streams))
+                                       n_slots(rows), device.index, sms)
+            self._groups.append((launch, device, sorted(peers, key=str)))
 
     def __call__(self) -> None:
         if self._plain is not None:
@@ -210,10 +210,12 @@ class HaloExchange:
         if self._cross:
             self._synchronize()
             dist.barrier()
-        for launch, stream, peers in self._groups:
+        for launch, device, peer_devices in self._groups:
+            stream = torch.cuda.current_stream(device)
+            peers = [torch.cuda.current_stream(p) for p in peer_devices]
             for peer in peers:   # the peer's work so far, which may read its halo
                 stream.wait_event(peer.record_event())
-            launch()
+            launch(stream.cuda_stream)
             if peers:
                 written = stream.record_event()
                 for peer in peers:   # the peer's next work reads what landed

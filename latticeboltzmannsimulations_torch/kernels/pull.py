@@ -18,7 +18,11 @@ routine.  Its plain version is ``engine.make_stacked_step_omega``.
 
 A step on CUDA tensors launches the kernel or raises; a step on CPU tensors
 runs the plain version (that is what the CPU tests exercise).  There is no
-fallback from one to the other.
+fallback from one to the other.  On the card the runners
+(``make_scan_runner``, ``make_sweep_runner``) replay their chunk as CUDA
+graphs (``kernels/graphs.py``), as the JAX runners run theirs in one
+compiled dispatch; ``_eager_scan_runner`` and ``_eager_sweep_runner`` launch
+the same steps one by one from the host, the form the graphs are held to.
 
 ``launches`` counts the one-cavity NEBB kernel's launches in this process,
 ``tangential_launches`` the tangential one's and ``sweep_launches`` the
@@ -35,7 +39,7 @@ import torch
 from ..config import SimConfig, resolve_device
 from ..engine import State, make_fused_step, make_stacked_step_omega
 from ..ops.collision import van_driest_cs2
-from . import _build
+from . import _build, graphs
 
 launches = 0
 tangential_launches = 0
@@ -219,26 +223,67 @@ def make_step(cfg: SimConfig, device="cuda"):
     return step
 
 
+def _state_ptrs(state) -> tuple:
+    return state[0].data_ptr(), state[1].data_ptr()
+
+
 def make_scan_runner(cfg: SimConfig, n_steps: int, device="cuda"):
-    """``n_steps`` fused steps per call.  On the card each call allocates two
-    buffers once and ping-pongs between them, one kernel launch per step, on
-    the current stream and without synchronising; the input state is never
-    written, and the returned state owns its tensors."""
+    """``n_steps`` fused steps per call.  On the card each call is one
+    replay of the chunk's CUDA graphs (``graphs.PingPong``, one kernel
+    launch per step captured), on the current stream and without
+    synchronising: the input is copied into the first of two state buffers
+    that the runner holds from its first call on (``2 * (9 * nx * ny +
+    nx)`` floats), and the result is copied out of them.  The input state
+    is never written, and the returned state owns its tensors.  On the CPU
+    the plain version step by step."""
     _check_cfg(cfg)
     device = resolve_device(device)
-    plain = make_fused_step(cfg)
+    if device.type == "cpu":
+        plain = make_fused_step(cfg)
+
+        def run_plain(state: State) -> State:
+            _check_state(cfg, state.f, state.rho_lid, device)
+            for _ in range(n_steps):
+                state = plain(state)
+            return state
+
+        return run_plain
     # The runner holds the Van Driest plane itself, not only its address:
-    # a plane freed after the runner is built would leave the kernel reading
-    # whatever the allocator puts there next.
-    cs2 = _cs2_plane(cfg, device) if device.type == "cuda" else None
+    # the graphs read it on every replay, and a plane freed after the runner
+    # is built would leave the kernel reading whatever the allocator puts
+    # there next.
+    cs2 = _cs2_plane(cfg, device)
+    scalars, lid = _scalars(cfg), _lid_scalars(cfg)
+
+    def launch(one: graphs.Launch, bufs) -> None:
+        _launch(_build.load_library(), *_state_ptrs(bufs[one.src]),
+                None if cs2 is None else cs2.data_ptr(),
+                *_state_ptrs(bufs[one.dst]), scalars,
+                torch.cuda.current_stream(device).cuda_stream, lid)
+
+    chunk = (graphs.PingPong(device, [(9, cfg.nx, cfg.ny), (cfg.nx,)],
+                             graphs.plan(n_steps), launch) if n_steps else None)
+
+    def run(state: State) -> State:
+        _check_state(cfg, state.f, state.rho_lid, device)
+        if chunk is None:
+            return state
+        return State(*chunk(state))
+
+    return run
+
+
+def _eager_scan_runner(cfg: SimConfig, n_steps: int, device="cuda"):
+    """``make_scan_runner``'s steps on the card launched one by one from the
+    host, into two buffers allocated per call: the form its graphs are held
+    to (``chip_smoke.py``, the card tests)."""
+    _check_cfg(cfg)
+    device = resolve_device(device)
+    cs2 = _cs2_plane(cfg, device)
     scalars, lid = _scalars(cfg), _lid_scalars(cfg)
 
     def run(state: State) -> State:
         _check_state(cfg, state.f, state.rho_lid, device)
-        if device.type == "cpu":
-            for _ in range(n_steps):
-                state = plain(state)
-            return state
         if n_steps == 0:
             return state
         cs2_ptr = None if cs2 is None else cs2.data_ptr()
@@ -307,15 +352,62 @@ def make_sweep_runner(cfg: SimConfig, n_cav: int, n_steps: int, device="cuda"):
     """``n_steps`` steps of ``n_cav`` independent cavities stacked along x,
     ``run(state, omegas) -> state``, each cavity with its own omega: ``f (9,
     n_cav * nx, ny)``, ``rho_lid (n_cav * nx,)``, as the JAX package's
-    ``make_sweep_runner``.  On the card one launch per step, two buffers
-    allocated once per call and the input never written, as
-    ``make_scan_runner``; the cavity table goes up once per call, from
-    pinned memory (a pageable upload waits for the queued work), and is kept
-    for the next call with the same omegas.  On the CPU the plain version,
+    ``make_sweep_runner``.  On the card one replay of the chunk's CUDA
+    graphs per call, as ``make_scan_runner``'s (two stacked state buffers
+    held from the first call on, ``2 * n_cav * (9 * nx * ny + nx)``
+    floats; the input never written), reading a cavity table that the
+    runner holds: a call whose omegas differ from the last one's copies
+    their table into it on the stream before the replay, from pinned memory
+    (a pageable upload waits for the queued work), so the same graphs run
+    the new rates.  On the CPU the plain version,
     ``engine.make_stacked_step_omega``."""
     _check_cfg(cfg, traced_omega=True, n_cav=n_cav)
     device = resolve_device(device)
-    plain = make_stacked_step_omega(cfg, n_cav)
+    if device.type == "cpu":
+        plain = make_stacked_step_omega(cfg, n_cav)
+
+        def run_plain(state: State, omegas) -> State:
+            _check_state(cfg, state.f, state.rho_lid, device, n_cav)
+            om = torch.from_numpy(cavity_table(cfg, _host_omegas(omegas, n_cav))[:, 0].copy())
+            for _ in range(n_steps):
+                state = plain(state, om)
+            return state
+
+        return run_plain
+    scalars = _sweep_scalars(cfg)
+    table = torch.zeros((n_cav, 4), dtype=torch.float32, device=device)
+    copied = {"key": None}
+
+    def launch(one: graphs.Launch, bufs) -> None:
+        _launch_sweep(_build.load_library(), *_state_ptrs(bufs[one.src]),
+                      *_state_ptrs(bufs[one.dst]), n_cav, table.data_ptr(), scalars,
+                      torch.cuda.current_stream(device).cuda_stream)
+
+    width = n_cav * cfg.nx
+    chunk = (graphs.PingPong(device, [(9, width, cfg.ny), (width,)],
+                             graphs.plan(n_steps), launch) if n_steps else None)
+
+    def run(state: State, omegas) -> State:
+        _check_state(cfg, state.f, state.rho_lid, device, n_cav)
+        rows = cavity_table(cfg, _host_omegas(omegas, n_cav))
+        if chunk is None:
+            return state
+        key = rows.tobytes()
+        if copied["key"] != key:
+            with torch.cuda.device(device):
+                table.copy_(torch.from_numpy(rows).pin_memory(), non_blocking=True)
+            copied["key"] = key
+        return State(*chunk(state))
+
+    return run
+
+
+def _eager_sweep_runner(cfg: SimConfig, n_cav: int, n_steps: int, device="cuda"):
+    """``make_sweep_runner``'s steps on the card launched one by one from
+    the host, into buffers allocated per call, the table uploaded once per
+    new set of omegas: the form its graphs are held to."""
+    _check_cfg(cfg, traced_omega=True, n_cav=n_cav)
+    device = resolve_device(device)
     scalars = _sweep_scalars(cfg)
     cached = {"key": None, "table": None}
 
@@ -330,11 +422,6 @@ def make_sweep_runner(cfg: SimConfig, n_cav: int, n_steps: int, device="cuda"):
     def run(state: State, omegas) -> State:
         _check_state(cfg, state.f, state.rho_lid, device, n_cav)
         table = cavity_table(cfg, _host_omegas(omegas, n_cav))
-        if device.type == "cpu":
-            om = torch.from_numpy(table[:, 0].copy())
-            for _ in range(n_steps):
-                state = plain(state, om)
-            return state
         if n_steps == 0:
             return state
         lib = _build.load_library()

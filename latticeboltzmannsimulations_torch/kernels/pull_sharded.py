@@ -19,10 +19,13 @@ exchange of strip copies (``parallel.halo.halo_moves``, four per shard),
 and on a mesh that spans processes (``parallel.multihost``) the strips
 between processes travel over ``torch.distributed``
 (``parallel.halo.Transfer``), one phase at a time: a host-ordered IPC
-exchange every step would cost more than the sends.  A shard on a CUDA
-device launches the kernel or raises; a shard on the CPU runs the plain
-version (what the CPU tests exercise).  There is no fallback from one to
-the other.
+exchange every step would cost more than the sends.  On a mesh whose
+shards all lie on one card the runner replays its chunk as CUDA graphs
+(``kernels/graphs.py``); elsewhere, and in ``_eager_sharded_runner``, the
+form the graphs are held to, the host issues every step.  A shard on a
+CUDA device launches the kernel or raises; a shard on the CPU runs the
+plain version (what the CPU tests exercise).  There is no fallback from
+one to the other.
 
 ``launches`` counts the kernel's launches in this process; the exchange
 kernel's launches count in ``halo_rdma.launches``, the copies of the
@@ -38,8 +41,8 @@ import torch
 
 from ..config import SimConfig
 from ..parallel import halo
-from ..parallel.mesh import Mesh
-from . import _build, halo_rdma, pull
+from ..parallel.mesh import Mesh, local_blocks
+from . import _build, graphs, halo_rdma, pull
 
 launches = 0
 
@@ -73,8 +76,8 @@ def _shard_call(cfg: SimConfig, lay: halo.Layout, fp: torch.Tensor,
                 rho_lid: torch.Tensor, flags, cs2: torch.Tensor | None,
                 fp_out: torch.Tensor, rho_lid_out: torch.Tensor):
     """Check one shard's step and return it as a call with its arguments
-    fixed: the launch on a CUDA device (on the device's current stream), the
-    plain version on the CPU."""
+    fixed: the launch on a CUDA device (on the device's current stream at
+    the call), the plain version on the CPU."""
     device = fp.device
     lx, ly = lay.lx, lay.ly
     if lay.depth != 1:
@@ -96,10 +99,15 @@ def _shard_call(cfg: SimConfig, lay: halo.Layout, fp: torch.Tensor,
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, not {device}")
     return functools.partial(
-        _launch, _build.load_library(), fp.data_ptr(), rho_lid.data_ptr(),
-        None if cs2 is None else cs2.data_ptr(), fp_out.data_ptr(),
-        rho_lid_out.data_ptr(), lay, flags, pull._scalars(cfg)[2:],
-        torch.cuda.current_stream(device).cuda_stream)
+        on_current_stream, _launch, device, _build.load_library(), fp.data_ptr(),
+        rho_lid.data_ptr(), None if cs2 is None else cs2.data_ptr(), fp_out.data_ptr(),
+        rho_lid_out.data_ptr(), lay, flags, pull._scalars(cfg)[2:])
+
+
+def on_current_stream(launch, device: torch.device, *args) -> None:
+    """``launch(*args, stream)`` on ``device``'s current stream at the call:
+    inside a CUDA graph's capture, the capturing stream."""
+    launch(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def _plain(cfg, lay, fp, rho_lid, flags, cs2, fp_out, rho_lid_out) -> None:
@@ -159,11 +167,71 @@ def _exchange(mesh: Mesh, carries, lay: halo.Layout):
 
 def make_sharded_runner(cfg: SimConfig, n_steps: int, mesh: Mesh):
     """``n_steps`` sharded steps per call on a ``ShardedState``: per step the
-    halo refresh, then one launch per shard of this process.  Each call
-    pads its input into fresh buffers, fixes the views of the exchange and
-    the arguments of the launches for both buffers once, and returns new
-    blocks; the input is never written.  On a mesh that spans processes
-    every process calls it at once, with its own blocks."""
+    halo refresh, then one launch per shard of this process.  The input is
+    never written, and the returned blocks are new.
+
+    On a mesh of one process whose shards all lie on one card
+    (``graphs.one_card``) a call is one replay of the chunk's CUDA graphs,
+    each step's exchange launch and shard launches captured.  The runner
+    holds two sets of carries and lid rows from its first call on (``2 *
+    shards * (9 * (lx + 2) * pitch + lx)`` floats) and the exchanges over
+    them.  Outside the replay a call copies the blocks and lid densities
+    into the first set, and after it the lid density of the ``iy = 0``
+    shards over their columns and the blocks and lid densities out
+    (``halo.copies`` counts these copies, as every other).  On the CPU and
+    on a mesh that spans several cards or processes, whose streams are
+    ordered by events across cards and by host barriers across processes,
+    the host issues every step (``_eager_sharded_runner``); on a mesh that
+    spans processes every process calls it at once, with its own blocks."""
+    _check_cfg(cfg)
+    card = graphs.one_card([mesh.device(*s) for s in mesh.local_shards()],
+                           mesh.spans_processes)
+    if card is None:
+        return _eager_sharded_runner(cfg, n_steps, mesh)
+    lay = layout(*halo.check_mesh(cfg, mesh))
+    cs2 = halo.cs2_blocks(cfg, mesh, torch.float32)
+
+    def build(alloc):
+        carries = [local_blocks(mesh, lambda ix, iy: alloc((9, lay.lx + 2, lay.pitch)))
+                   for _ in range(2)]
+        rows = [local_blocks(mesh, lambda ix, iy: alloc((lay.lx,))) for _ in range(2)]
+        exchange = [_exchange(mesh, c, lay) for c in carries]
+        steps = [[(mesh.device(ix, iy), _shard_call(
+            cfg, lay, carries[src][ix][iy], rows[src][ix][iy],
+            halo.edge_flags(mesh.shape, ix, iy), None if cs2 is None else cs2[ix][iy],
+            carries[1 - src][ix][iy], rows[1 - src][ix][iy])) for ix, iy in mesh.local_shards()]
+            for src in (0, 1)]
+
+        def launch(one: graphs.Launch) -> None:
+            exchange[one.src]()
+            run_calls(steps[one.src])
+
+        return (carries, rows, exchange), launch
+
+    chunk = graphs.Chunk(card, graphs.plan(n_steps), build) if n_steps else None
+
+    def run(state: halo.ShardedState) -> halo.ShardedState:
+        halo.check_sharded_state(cfg, state, mesh)
+        if chunk is None:
+            return state
+        carries, rows, _ = chunk.buffers
+        halo.copy_into(carries[0], state.f, lay.cells)
+        halo.copy_into(rows[0], state.rho_lid)
+        chunk.replay()
+        out = chunk.plan.result
+        halo.Transfer(mesh, halo.replicate_moves(rows[out]))()
+        return halo.ShardedState(halo.unpad_blocks(carries[out], lay),
+                                 halo.unpad_rows(rows[out], 0))
+
+    return run
+
+
+def _eager_sharded_runner(cfg: SimConfig, n_steps: int, mesh: Mesh):
+    """``make_sharded_runner``'s steps issued one by one from the host: the
+    runner on the CPU and on a mesh of several cards or processes, and the
+    form its graphs are held to on one card.  Each call pads its input into
+    fresh buffers, fixes the views of the exchange and the arguments of the
+    launches for both buffers once, and returns new blocks."""
     _check_cfg(cfg)
     lay = layout(*halo.check_mesh(cfg, mesh))
     cs2 = halo.cs2_blocks(cfg, mesh, torch.float32)

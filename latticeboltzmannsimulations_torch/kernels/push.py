@@ -10,7 +10,10 @@ package's push kernel it is taken only when asked for
 (``backend="cuda-push"``); the pull kernels stay the production path.
 
 A step on CUDA tensors launches the kernel or raises; a step on CPU tensors
-runs the plain version.  There is no fallback from one to the other.
+runs the plain version.  There is no fallback from one to the other.  On
+the card the runner replays its chunk as CUDA graphs
+(``kernels/graphs.py``); ``_eager_push_scan_runner`` launches the same
+steps one by one from the host, the form the graphs are held to.
 
 ``launches`` counts the kernel's launches in this process.
 """
@@ -21,7 +24,7 @@ import torch
 
 from ..config import SimConfig, resolve_device
 from ..engine import State, _check_device, make_push_oracle_step
-from . import _build, pull
+from . import _build, graphs, pull
 
 launches = 0
 
@@ -101,21 +104,54 @@ def make_push_step(cfg: SimConfig, device="cuda"):
 
 
 def make_push_scan_runner(cfg: SimConfig, n_steps: int, device="cuda"):
-    """``n_steps`` push steps per call ``f -> f``.  On the card each call
-    allocates two buffers once and ping-pongs between them, one launch per
-    step, on the current stream and without synchronising; the input is
-    never written."""
+    """``n_steps`` push steps per call ``f -> f``.  On the card each call is
+    one replay of the chunk's CUDA graphs (``graphs.PingPong``), on the
+    current stream and without synchronising: the input is copied into the
+    first of two fields that the runner holds from its first call on (``2 *
+    9 * nx * ny`` floats), and the result is copied out.  The input is never
+    written, and the returned field is the caller's.  On the CPU the plain
+    version step by step."""
     _check_cfg(cfg)
     device = resolve_device(device)
-    plain = make_push_oracle_step(cfg)
+    if device.type == "cpu":
+        plain = make_push_oracle_step(cfg)
+
+        def run_plain(f: torch.Tensor) -> torch.Tensor:
+            _check_f(cfg, f, device)
+            for _ in range(n_steps):
+                f = plain(f)
+            return f
+
+        return run_plain
+    scalars = pull._scalars(cfg)
+
+    def launch(one: graphs.Launch, bufs) -> None:
+        _launch(_build.load_library(), bufs[one.src][0].data_ptr(),
+                bufs[one.dst][0].data_ptr(), scalars,
+                torch.cuda.current_stream(device).cuda_stream)
+
+    chunk = (graphs.PingPong(device, [(9, cfg.nx, cfg.ny)], graphs.plan(n_steps), launch)
+             if n_steps else None)
+
+    def run(f: torch.Tensor) -> torch.Tensor:
+        _check_f(cfg, f, device)
+        if chunk is None:
+            return f
+        return chunk((f,))[0]
+
+    return run
+
+
+def _eager_push_scan_runner(cfg: SimConfig, n_steps: int, device="cuda"):
+    """``make_push_scan_runner``'s steps on the card launched one by one
+    from the host, into two buffers allocated per call: the form its
+    graphs are held to (``chip_smoke.py``, the card tests)."""
+    _check_cfg(cfg)
+    device = resolve_device(device)
     scalars = pull._scalars(cfg)
 
     def run(f: torch.Tensor) -> torch.Tensor:
         _check_f(cfg, f, device)
-        if device.type == "cpu":
-            for _ in range(n_steps):
-                f = plain(f)
-            return f
         if n_steps == 0:
             return f
         lib = _build.load_library()

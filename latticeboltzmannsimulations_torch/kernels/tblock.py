@@ -11,7 +11,10 @@ steps of the fused engine step, ``engine.make_fused_step``.  A runner's
 
 A block step on CUDA tensors launches the kernel or raises; on CPU tensors
 it runs the plain version (that is what the CPU tests exercise).  There is
-no fallback from one to the other.
+no fallback from one to the other.  On the card the runner replays its
+chunk as CUDA graphs (``kernels/graphs.py``); ``_eager_scan_runner``
+launches the same steps one by one from the host, the form the graphs are
+held to.
 
 ``launches`` counts this kernel's launches in this process (the remainder
 steps count in ``pull.launches``).
@@ -23,7 +26,7 @@ import torch
 
 from ..config import SimConfig, resolve_device
 from ..engine import State, make_fused_step
-from . import _build, pull
+from . import _build, graphs, pull
 
 launches = 0
 
@@ -125,21 +128,60 @@ def make_scan_runner(cfg: SimConfig, n_steps: int, device="cuda",
                      k_steps: int = K_STEPS):
     """``n_steps`` fused steps per call: ``n_steps // k_steps`` launches of
     this kernel, then ``n_steps % k_steps`` launches of the one-step kernel.
-    On the card each call allocates two buffers once and ping-pongs between
-    them, on the current stream and without synchronising; the input state
-    is never written, and the returned state owns its tensors."""
+    On the card each call is one replay of the chunk's CUDA graphs, both
+    kinds of launch captured in order (``graphs.PingPong``), on the current
+    stream and without synchronising: the input is copied into the first of
+    two state buffers that the runner holds from its first call on (``2 *
+    (9 * nx * ny + nx)`` floats), and the result is copied out of them.  The
+    input state is never written, and the returned state owns its tensors.
+    On the CPU the plain version step by step."""
     _check_cfg(cfg, k_steps)
     device = resolve_device(device)
-    plain = make_fused_step(cfg)
+    if device.type == "cpu":
+        plain = make_fused_step(cfg)
+
+        def run_plain(state: State) -> State:
+            pull._check_state(cfg, state.f, state.rho_lid, device)
+            for _ in range(n_steps):
+                state = plain(state)
+            return state
+
+        return run_plain
+    scalars = pull._scalars(cfg)
+
+    def launch(one: graphs.Launch, bufs) -> None:
+        lib = _build.load_library()
+        src, dst = pull._state_ptrs(bufs[one.src]), pull._state_ptrs(bufs[one.dst])
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if one.block:
+            _launch(lib, src, dst, scalars, k_steps, stream)
+        else:
+            pull._launch(lib, *src, None, *dst, scalars, stream)
+
+    chunk = (graphs.PingPong(device, [(9, cfg.nx, cfg.ny), (cfg.nx,)],
+                             graphs.plan(n_steps, k_steps), launch) if n_steps else None)
+
+    def run(state: State) -> State:
+        pull._check_state(cfg, state.f, state.rho_lid, device)
+        if chunk is None:
+            return state
+        return State(*chunk(state))
+
+    return run
+
+
+def _eager_scan_runner(cfg: SimConfig, n_steps: int, device="cuda",
+                       k_steps: int = K_STEPS):
+    """``make_scan_runner``'s launches on the card issued one by one from
+    the host, into two buffers allocated per call: the form its graphs are
+    held to (``chip_smoke.py``, the card tests)."""
+    _check_cfg(cfg, k_steps)
+    device = resolve_device(device)
     n_blocks, rem = divmod(n_steps, k_steps)
     scalars = pull._scalars(cfg)
 
     def run(state: State) -> State:
         pull._check_state(cfg, state.f, state.rho_lid, device)
-        if device.type == "cpu":
-            for _ in range(n_steps):
-                state = plain(state)
-            return state
         if n_steps == 0:
             return state
         lib = _build.load_library()

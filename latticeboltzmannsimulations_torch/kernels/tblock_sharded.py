@@ -28,12 +28,15 @@ IPC).  A runner's ``n mod K`` remaining steps go through the one-step
 sharded kernel (``kernels/pull_sharded.py``), as the JAX runner's go
 through its per-step sharded kernel.
 
-A shard on a CUDA device launches the kernel or raises; on the CPU it runs
-the plain version (what the CPU tests exercise).  There is no fallback from
-one to the other.  ``launches`` counts this kernel's launches (the
-remainder steps count in ``pull_sharded.launches``, the copies in
-``parallel.halo.copies``, the exchange kernel's launches in
-``halo_rdma.launches``).
+On a mesh whose shards all lie on one card the runner replays its blocks
+as CUDA graphs (``kernels/graphs.py``), and its remainder runner its
+steps; elsewhere, and in ``_eager_sharded_runner``, the form the graphs are
+held to, the host issues every block.  A shard on a CUDA device launches
+the kernel or raises; on the CPU it runs the plain version (what the CPU
+tests exercise).  There is no fallback from one to the other.
+``launches`` counts this kernel's launches (the remainder steps count in
+``pull_sharded.launches``, the copies in ``parallel.halo.copies``, the
+exchange kernel's launches in ``halo_rdma.launches``).
 """
 
 from __future__ import annotations
@@ -44,8 +47,8 @@ import torch
 
 from ..config import SimConfig
 from ..parallel import halo
-from ..parallel.mesh import Mesh, block_shape
-from . import _build, halo_rdma, pull, pull_sharded, tblock
+from ..parallel.mesh import Mesh, block_shape, local_blocks
+from . import _build, graphs, halo_rdma, pull, pull_sharded, tblock
 
 launches = 0
 
@@ -115,8 +118,8 @@ def _block_call(cfg: SimConfig, fp: torch.Tensor, panel: torch.Tensor,
                 origin: tuple, fp_out: torch.Tensor, panel_out: torch.Tensor,
                 k_steps: int):
     """Check one shard's block and return it as a call with its arguments
-    fixed: the launch on a CUDA device (on the device's current stream), the
-    plain version on the CPU."""
+    fixed: the launch on a CUDA device (on the device's current stream at
+    the call), the plain version on the CPU."""
     _check_cfg(cfg, k_steps)
     device = fp.device
     k = k_steps
@@ -134,9 +137,9 @@ def _block_call(cfg: SimConfig, fp: torch.Tensor, panel: torch.Tensor,
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, not {device}")
     return functools.partial(
-        _launch, _build.load_library(), fp.data_ptr(), panel.data_ptr(),
-        fp_out.data_ptr(), panel_out.data_ptr(), lx, ly, origin, pull._scalars(cfg),
-        k, torch.cuda.current_stream(device).cuda_stream)
+        pull_sharded.on_current_stream, _launch, device, _build.load_library(),
+        fp.data_ptr(), panel.data_ptr(), fp_out.data_ptr(), panel_out.data_ptr(), lx, ly,
+        origin, pull._scalars(cfg), k)
 
 
 def _plain(cfg, fp, panel, origin, fp_out, panel_out, k) -> None:
@@ -172,24 +175,104 @@ def _launch(lib, f_ptr: int, panel_ptr: int, f_out_ptr: int, panel_out_ptr: int,
     launches += 1
 
 
+def _check_halo_impl(halo_impl: str) -> None:
+    if halo_impl not in HALO_IMPLS:
+        raise ValueError(f"unknown halo_impl {halo_impl!r}; one of {HALO_IMPLS}")
+
+
 def make_sharded_runner(cfg: SimConfig, n_steps: int, mesh: Mesh,
                         k_steps: int = K_STEPS, halo_impl: str = "ppermute"):
     """``n_steps`` sharded steps per call on a ``ShardedState``:
     ``n_steps // k_steps`` blocks of one exchange and one launch per shard
     of this process, then ``n_steps % k_steps`` steps of the one-step
-    sharded kernel.  ``halo_impl`` is the refresh's transport (one of
-    ``HALO_IMPLS``): strip copies phase after phase, or one exchange launch
-    per card.  Each call pads its input into fresh
-    buffers, fixes the exchange and the arguments of the launches for both
-    buffers once, and returns new blocks; the input is never written.  On a
-    mesh that spans processes every process calls it at once, with its own
-    blocks."""
-    if halo_impl not in HALO_IMPLS:
-        raise ValueError(f"unknown halo_impl {halo_impl!r}; one of {HALO_IMPLS}")
+    sharded kernel (``pull_sharded.make_sharded_runner``).  ``halo_impl``
+    is the refresh's transport (one of ``HALO_IMPLS``): strip copies phase
+    after phase, or one exchange launch per card.  The input is never
+    written, and the returned blocks are new.
+
+    On a mesh of one process whose shards all lie on one card
+    (``graphs.one_card``) the blocks of a call are one replay of CUDA
+    graphs, each block's refresh (its copies or its exchange launch) and
+    shard launches captured, and the remainder steps one replay of the
+    one-step runner's.  The runner holds two sets of K-deep carries and lid
+    panels from its first call on (``2 * shards * (9 * (lx + 2K) * (ly +
+    2K) + lx + 2K)`` floats), the refreshes over them, and the one-step
+    runner's buffers.  Outside the replay a call copies the blocks and lid
+    densities into the first set, and after it the panels of the ``iy = 0``
+    shards over their columns and the blocks and lid densities out.  On
+    the CPU and on a mesh that spans several cards or processes the host
+    issues every block (``_eager_sharded_runner``); on a mesh that spans
+    processes every process calls it at once, with its own blocks."""
+    _check_halo_impl(halo_impl)
     _check_cfg(cfg, k_steps)
+    card = graphs.one_card([mesh.device(*s) for s in mesh.local_shards()],
+                           mesh.spans_processes)
+    if card is None:
+        return _eager_sharded_runner(cfg, n_steps, mesh, k_steps, halo_impl)
     lx, ly = halo.check_mesh(cfg, mesh)
     n_blocks, rem = divmod(n_steps, k_steps)
     single = pull_sharded.make_sharded_runner(cfg, rem, mesh) if rem else None
+    k = k_steps
+    lay = halo.Layout.tight(lx, ly, k)
+
+    def build(alloc):
+        carries = [local_blocks(mesh, lambda ix, iy: alloc((9, lx + 2 * k, ly + 2 * k)))
+                   for _ in range(2)]
+        panels = [local_blocks(mesh, lambda ix, iy: alloc((lx + 2 * k,))) for _ in range(2)]
+        # the refresh: y, x, corners, the panels' x halos and their copy
+        # over each column
+        if halo_impl == "rdma":
+            exchange = [halo_rdma.make_halo_exchange(mesh, carries[src], panels[src], lay)
+                        for src in (0, 1)]
+        else:
+            exchange = [halo.transfers(mesh, halo.refresh_phases(carries[src], panels[src],
+                                                                 lay)) for src in (0, 1)]
+        blocks = [[(mesh.device(ix, iy), _block_call(
+            cfg, carries[src][ix][iy], panels[src][ix][iy], (ix * lx, iy * ly),
+            carries[1 - src][ix][iy], panels[1 - src][ix][iy], k))
+            for ix, iy in mesh.local_shards()] for src in (0, 1)]
+
+        def launch(one: graphs.Launch) -> None:
+            exchange[one.src]()
+            pull_sharded.run_calls(blocks[one.src])
+
+        return (carries, panels, exchange), launch
+
+    chunk = graphs.Chunk(card, graphs.plan(n_blocks), build) if n_blocks else None
+
+    def run(state: halo.ShardedState) -> halo.ShardedState:
+        halo.check_sharded_state(cfg, state, mesh)
+        if chunk is not None:
+            carries, panels, _ = chunk.buffers
+            halo.copy_into(carries[0], state.f, lay.cells)
+            halo.copy_into(panels[0], state.rho_lid, lambda p: p[k:k + lx])
+            chunk.replay()
+            out = chunk.plan.result
+            # the launches write the lid density of the iy = 0 shards: copy
+            # it over the columns, as every refresh does before a block
+            halo.Transfer(mesh, halo.replicate_moves(panels[out]))()
+            state = halo.ShardedState(halo.unpad_blocks(carries[out], lay),
+                                      halo.unpad_rows(panels[out], k))
+        if single is not None:
+            state = single(state)
+        return state
+
+    return run
+
+
+def _eager_sharded_runner(cfg: SimConfig, n_steps: int, mesh: Mesh,
+                          k_steps: int = K_STEPS, halo_impl: str = "ppermute"):
+    """``make_sharded_runner``'s blocks issued one by one from the host, its
+    remainder through ``pull_sharded._eager_sharded_runner``: the runner on
+    the CPU and on a mesh of several cards or processes, and the form its
+    graphs are held to on one card.  Each call pads its input into fresh
+    buffers, fixes the exchange and the arguments of the launches for both
+    buffers once, and returns new blocks."""
+    _check_halo_impl(halo_impl)
+    _check_cfg(cfg, k_steps)
+    lx, ly = halo.check_mesh(cfg, mesh)
+    n_blocks, rem = divmod(n_steps, k_steps)
+    single = pull_sharded._eager_sharded_runner(cfg, rem, mesh) if rem else None
     k = k_steps
     lay = halo.Layout.tight(lx, ly, k)
 

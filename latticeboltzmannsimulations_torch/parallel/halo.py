@@ -369,6 +369,15 @@ def empty_blocks(blocks: Blocks) -> Blocks:
     return _map_blocks(torch.empty_like, blocks)
 
 
+def copy_into(dst: Blocks, src: Blocks, view=lambda t: t) -> None:
+    """Each block of ``src`` copied into ``view`` of its ``dst`` block (a
+    runner's carries or panels that it keeps)."""
+    for d_col, s_col in zip(dst, src):
+        for d, s in zip(d_col, s_col):
+            if s is not None:
+                _copy(view(d), s)
+
+
 def pad_blocks(blocks: Blocks, layout: Layout) -> Blocks:
     """Each ``(C, lx, ly)`` block copied into a new carry of ``layout``;
     the halo ring is left unset."""

@@ -128,16 +128,20 @@ def same_bits(libs: dict, device) -> dict:
 
 
 def in_turns(libs: dict, device) -> dict:
-    """(2) ms per step at 1024^2, parent and this in turns."""
+    """(2) ms per step at 1024^2, parent and this in turns: a runner per
+    library, its graphs captured from that library's kernel."""
     cfg = SimConfig(nx=1024, ny=1024, reynolds=5000.0, collision="mrt").validate()
-    runner = pull.make_scan_runner(cfg, STEPS, device)
     s0 = engine.init_state(cfg, device)
-    with using(libs["this"]):
-        s1 = runner(s0)
+    runners = {}
+    for lib_name, lib in libs.items():
+        with using(lib):
+            runners[lib_name] = pull.make_scan_runner(cfg, STEPS, device)
+            s1 = runners[lib_name](s0)
     out = {}
     for label, s in (("rest", s0), ("further on", s1)):
         ms = {"parent": [], "this": []}
         for lib_name in ("parent", "this", "this", "parent", "parent", "this"):
+            runner = runners[lib_name]
             with using(libs[lib_name]):
                 runner(s)
                 torch.cuda.synchronize()

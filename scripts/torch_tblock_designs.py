@@ -141,7 +141,12 @@ def using(lib):
         _build.load_library = saved
 
 
-def on(lib, runner):
+def on(lib, make):
+    """The runner ``make()`` built and called with ``lib``'s kernels (its
+    graphs captured from them at its first call)."""
+    with using(lib):
+        runner = make()
+
     def run(state):
         with using(lib):
             return runner(state)
@@ -244,16 +249,16 @@ def in_turns(libs: dict, device) -> dict:
                         precision="float32").validate()
         this = libs["this"]
         runners = {
-            "pull_parent": on(libs["parent"], pull.make_scan_runner(cfg, STEPS, device)),
+            "pull_parent": on(libs["parent"], lambda: pull.make_scan_runner(cfg, STEPS, device)),
             "window_parent": block_runner(libs["parent"].lbm_tblock_step, cfg, STEPS,
                                           WINDOW_K),
             "window_step_a": block_runner(libs["step_a"].lbm_tblock_step, cfg, STEPS,
                                           WINDOW_K),
-            "window_this": on(this, tblock.make_scan_runner(cfg, STEPS, device,
-                                                            k_steps=WINDOW_K)),
+            "window_this": on(this, lambda: tblock.make_scan_runner(cfg, STEPS, device,
+                                                                    k_steps=WINDOW_K)),
             "march": block_runner(libs["march"].lbm_tblock_march_step, cfg, STEPS,
                                   WINDOW_K, *MARCH),
-            "pull_this": on(this, pull.make_scan_runner(cfg, STEPS, device)),
+            "pull_this": on(this, lambda: pull.make_scan_runner(cfg, STEPS, device)),
         }
         rest = engine.init_state(cfg, device)
         further = runners["pull_this"](rest)

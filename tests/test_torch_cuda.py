@@ -638,10 +638,10 @@ def test_rdma_runner_equals_ppermute(cuda, mesh_shape, n):
     assert halo_rdma.launches - before[0] == blocks + rem
     # per call: pad and unpad the blocks and panels, and one copy of the
     # panels over their columns after the last block
-    # (the remainder's runner pads and unpads the blocks, pads the lid
-    # density and copies it over the columns)
+    # (the remainder's runner, which keeps its lid rows, pads and unpads the
+    # blocks and the lid density and copies it over the columns)
     shards, mx = mesh_shape[0] * mesh_shape[1], mesh_shape[0]
-    assert halo.copies - before[1] == 5 * shards - mx + (4 * shards - mx if rem else 0)
+    assert halo.copies - before[1] == 5 * shards - mx + (5 * shards - mx if rem else 0)
     b = unshard_state(tblock_sharded.make_sharded_runner(cfg, n, mesh)(s0), cuda)
     torch.cuda.synchronize()
     assert torch.equal(a.f, b.f) and torch.equal(a.rho_lid, b.rho_lid)
@@ -723,8 +723,9 @@ def test_pull_sharded_runner_equals_copy_driven_steps(cuda, n, steps):
     before = (halo_rdma.launches, halo.copies)
     a = unshard_state(pull_sharded.make_sharded_runner(cfg, steps, mesh)(s0), cuda)
     assert halo_rdma.launches - before[0] == steps
-    # pad and unpad the blocks, pad the lid density and copy it over the columns
-    assert halo.copies - before[1] == 3 * 4 + 2
+    # pad and unpad the blocks and the lid density (the runner keeps its
+    # rows), and copy it over the columns
+    assert halo.copies - before[1] == 4 * 4 + 2
     lay = pull_sharded.layout(n // 2, n // 2)
     carries = [halo.pad_blocks(s0.f, lay)]
     carries.append(halo.empty_blocks(carries[0]))
@@ -998,3 +999,174 @@ def test_cli_run_writes_vtk_on_the_card(cuda, tmp_path, capsys):
     assert summary["backend"] == "cuda-pull" and summary["steps"] == 400
     assert sorted(f for f in os.listdir(tmp_path) if f.endswith(".vtr")) == [
         "ldc.0.vtr", "ldc.1.vtr"]
+
+
+# The CUDA-graph runners (kernels/graphs.py) against their eager forms, the
+# same launches issued one by one from the host: equal bit for bit, the
+# input untouched, a returned state not overwritten by the next call, every
+# counter at the eager count.
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [] if x is None else [t for item in x for t in _tensors(item)]
+
+
+def _same(a, b):
+    """Bit for bit (a NaN equals itself)."""
+    a, b = _tensors(a), _tensors(b)
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x.view(torch.int32), y.view(torch.int32))
+        for x, y in zip(a, b))
+
+
+def _counted(fn):
+    """``fn()`` and what it added to each counter (``halo.copies`` last)."""
+    from latticeboltzmannsimulations_torch.kernels import graphs
+
+    keys = graphs._counters()
+    before = [getattr(*key) for key in keys]
+    out = fn()
+    torch.cuda.synchronize()
+    return out, [getattr(*key) - b for key, b in zip(keys, before)]
+
+
+def _holds_to_eager(graphed, eager, *args, rows_out=0):
+    """``graphed(*args)`` (built, not yet called) against ``eager(*args)``,
+    twice; ``rows_out``: the copies of the lid densities out of the rows a
+    graphed sharded runner keeps, beyond the eager runner's copies."""
+    kept = [t.clone() for t in _tensors(args)]
+    want, eager_counts = _counted(lambda: eager(*args))
+    assert all(bool(torch.isfinite(t).all()) for t in _tensors(want))
+    want_counts = eager_counts[:-1] + [eager_counts[-1] + rows_out]
+    got, counts = _counted(lambda: graphed(*args))
+    assert _same(got, want) and counts == want_counts
+    assert _same(args, kept)
+    first = [t.clone() for t in _tensors(got)]
+    again, counts = _counted(lambda: graphed(*args))
+    assert _same(got, first) and _same(again, want) and counts == want_counts
+
+
+# (at Re=400: each stays finite over the 4 001 steps)
+GRAPH_CASES = {
+    "mrt": dict(collision="mrt"),
+    "srt_van_driest": dict(collision="srt", turbulence="smagorinsky", van_driest=True),
+    "tangential": dict(collision="mrt", boundary="nebb_tangential"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_steps", [1, 2, 7, 2000, 4001])
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_graphed_scan_runner_equals_eager(cuda, case, n_steps):
+    """Up to the body's 2 000 launches in one graph; 4 001 replays the body
+    twice and the odd remainder once."""
+    cfg = SimConfig(**{"nx": 64, "ny": 48, "reynolds": 400.0, **GRAPH_CASES[case]})
+    s0 = _noisy(cfg, cuda)
+    _holds_to_eager(pull.make_scan_runner(cfg, n_steps, device=cuda),
+                    pull._eager_scan_runner(cfg, n_steps, device=cuda), s0)
+
+
+def _noisy(cfg, cuda, seed=3):
+    s = engine.init_state(cfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    noise = torch.randn(s.f.shape, generator=gen, device=cuda)
+    return engine.State(s.f * (1.0 + 1e-3 * noise), s.rho_lid)
+
+
+@pytest.mark.cuda
+def test_graphed_scan_runner_keeps_the_van_driest_plane(cuda):
+    """The graphs read the runner's Cs^2 plane on every replay: with the
+    memory a freed plane would have had refilled between calls, the replays
+    still equal the eager runner."""
+    import gc
+
+    cfg = SimConfig(nx=128, ny=128, reynolds=5000.0, collision="srt",
+                    turbulence="smagorinsky", van_driest=True)
+    run = pull.make_scan_runner(cfg, 20, device=cuda)
+    s0 = engine.init_state(cfg, device=cuda)
+    first = run(s0)
+    gc.collect()
+    junk = [torch.full((cfg.nx, cfg.ny), float("nan"), device=cuda) for _ in range(64)]
+    again = run(s0)
+    want = pull._eager_scan_runner(cfg, 20, device=cuda)(s0)
+    torch.cuda.synchronize()
+    del junk
+    assert _same(first, want) and _same(again, want)
+
+
+@pytest.mark.cuda
+def test_graphed_sweep_runner_takes_new_omegas(cuda):
+    """One runner, called with one set of omegas, another, then the first
+    again: its graphs read the table copied in before each replay, so each
+    call equals the eager runner with the same omegas."""
+    cfg = SimConfig(nx=64, ny=64, reynolds=100.0, collision="srt", turbulence="smagorinsky")
+    n_cav, steps = 4, 30
+    s = _noisy(SimConfig(nx=n_cav * 64, ny=64, reynolds=100.0), cuda)
+    graphed = pull.make_sweep_runner(cfg, n_cav, steps, device=cuda)
+    eager = pull._eager_sweep_runner(cfg, n_cav, steps, device=cuda)
+    for omegas in ([1.2, 1.4, 1.6, 1.8], [1.9, 1.1, 1.5, 1.3], [1.2, 1.4, 1.6, 1.8]):
+        got, counts = _counted(lambda: graphed(s, omegas))
+        want, want_counts = _counted(lambda: eager(s, omegas))
+        assert _same(got, want) and counts == want_counts
+    one = pull.make_scan_runner_omega(cfg, steps, device=cuda)
+    one_eager = pull._eager_sweep_runner(cfg, 1, steps, device=cuda)
+    s1 = _noisy(cfg, cuda)
+    for omega in (1.3, 1.7):
+        assert _same(one(s1, omega), one_eager(s1, [omega]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_steps", [7, 23, 2003])
+def test_graphed_tblock_runner_equals_eager(cuda, n_steps):
+    """K=5 blocks, then the n mod K one-step launches, in one graph."""
+    cfg = SimConfig(nx=130, ny=100, reynolds=1000.0, collision="mrt")
+    _holds_to_eager(tblock.make_scan_runner(cfg, n_steps, device=cuda),
+                    tblock._eager_scan_runner(cfg, n_steps, device=cuda), _noisy(cfg, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_steps", [1, 7, 2001])
+def test_graphed_push_runner_equals_eager(cuda, n_steps):
+    cfg = SimConfig(nx=64, ny=48, reynolds=400.0, collision="mrt")
+    _holds_to_eager(push.make_push_scan_runner(cfg, n_steps, device=cuda),
+                    push._eager_push_scan_runner(cfg, n_steps, device=cuda),
+                    _noisy(cfg, cuda).f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("runner, n_steps", [
+    ("pull", 7), ("pull", 20), ("rdma", 23), ("ppermute", 23), ("rdma", 20),
+])
+def test_graphed_sharded_runners_equal_eager(cuda, runner, n_steps):
+    """On a 2x2 mesh of the card: each step's (block's) refresh and shard
+    launches in the graphs, the remainder through the one-step runner's."""
+    cfg = SimConfig(nx=130, ny=98, reynolds=1000.0, collision="mrt", mesh_shape=(2, 2))
+    mesh = _mesh(cuda, (2, 2))
+    s0 = shard_state(_noisy(dataclasses.replace(cfg, mesh_shape=(1, 1)), cuda), mesh)
+    if runner == "pull":
+        graphed = pull_sharded.make_sharded_runner(cfg, n_steps, mesh)
+        eager = pull_sharded._eager_sharded_runner(cfg, n_steps, mesh)
+        rows_out = 4
+    else:
+        graphed = tblock_sharded.make_sharded_runner(cfg, n_steps, mesh, halo_impl=runner)
+        eager = tblock_sharded._eager_sharded_runner(cfg, n_steps, mesh, halo_impl=runner)
+        rows_out = 4 if n_steps % tblock_sharded.K_STEPS else 0
+    _holds_to_eager(graphed, eager, s0, rows_out=rows_out)
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(cuda):
+    """A launch that fails inside the capture raises out of the runner's
+    first call; the stream is usable afterwards."""
+    from latticeboltzmannsimulations_torch.kernels import graphs
+
+    def launch(one):
+        if one.src == 1:
+            raise RuntimeError("a launch failed")
+        torch.cuda._sleep(10)
+
+    with pytest.raises(RuntimeError, match="a launch failed"):
+        graphs.Graphs(cuda, graphs.plan(3), launch).replay()
+    x = torch.ones(4, device=cuda)
+    assert (x + 1).sum().item() == 8.0
