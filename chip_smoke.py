@@ -13,12 +13,9 @@ the build: a runner kept alive would):
 2. build: ``nvcc`` builds every ``csrc/*.cu`` into one library (one process
    per source, all started together), or finds it built, and prints each
    kernel's registers and spills (``-Xptxas -v``);
-3. exact constant division: ``lbm_cell.cuh``'s ``div_exact<b>`` against the
-   IEEE ``x / b`` over all 2^32 inputs, one launch for each b of 6, 9, 12
-   and 36: 0 mismatches;
-4. kernel vs plain, each from the same start state on the card, to
-   ``atol=2e-5`` (an independent float32 implementation: the order of
-   operations and FMA contraction differ):
+3. kernel vs plain, each from the same start state on the card, to
+   ``atol=2e-5`` (the kernels do the plain versions' float operations in the
+   same order, without FMA contraction: they print max |df| = 0):
    * ``pull_step`` against 20 plain fused steps (``engine.make_fused_step``)
      for SRT, TRT, MRT, MRT+Smagorinsky and SRT+Smagorinsky+Van Driest at
      128^2 and MRT at 1024^2; ``pull_step_tangential`` (the entry
@@ -57,7 +54,7 @@ the build: a runner kept alive would):
      one-step runner against the same launches driven by the two-phase
      copies at 4096^2 and 128^2 over 67 steps: max |d| = 0, one exchange
      launch per block (per step) and no halo copy in the loop;
-5. main paths, each launch counter set to 0 just before a run and read just
+4. main paths, each launch counter set to 0 just before a run and read just
    after it:
    * ``simulate`` and ``run_to_convergence`` at 1024^2 MRT float32 (the
      benchmark's cavity) and the two default-suite Ghia gates (MRT 96^2,
@@ -92,8 +89,10 @@ the build: a runner kept alive would):
      ``"ppermute"`` runner (x strips sent through host-staged ``gloo``),
      gathered on rank 0, against the one-process mesh over 64 steps: max
      |d| = 0; and the two-process exchange's time with its host barriers;
-6. timing with CUDA events: the measured device-copy bandwidth; the
-   benchmark's 1024^2 MRT cavity through ``pull_step`` (MLUPS);
+5. timing with CUDA events: the measured device-copy bandwidth; the
+   benchmark's 1024^2 MRT cavity through ``bench.measure`` (the bench's
+   own measurement, routed to ``pull_step``, its launches counted; MLUPS
+   by CUDA events and on the wall clock, and ``bench.py``'s JSON line);
    ``pull_step_tangential`` and ``pull_step`` in turns at 1024^2 MRT, and
    the plain tangential engine; at 1024^2
    and 2048^2, ``pull_step`` beside ``tblock_step`` for K in ``SWEEP_K``;
@@ -113,7 +112,7 @@ the build: a runner kept alive would):
    kernel ahead of the event pair, so the calls queue and the events see
    the device) and host us per call, beside the bound; both sharded
    runners against their copy-driven forms in turns from the state 7 680
-   steps on; 7. at 96^2 and 128^2, the per-step device time (queue held
+   steps on; 6. at 96^2 and 128^2, the per-step device time (queue held
    busy), host time, end-to-end time and idle share of ``cuda-pull`` and
    ``cuda-tblock``, and on the 2x2 mesh of both sharded runners beside
    their copy-driven forms, in turns.
@@ -214,7 +213,19 @@ along x, each with its own omega) and the surrogate pipeline:
     against the graph launches a chunk takes); ``simulate``'s MLUPS of the
     Re=100 128^2 gate
     (``re100_128_nebb_tangential``) and of the 1024^2 Re=5000 main path,
-    the eager forms swapped in for the runner factories.
+    the eager forms swapped in for the runner factories;
+(p) the bench command, after the timing: ``python -m
+    latticeboltzmannsimulations_torch bench`` as a subprocess, exactly one
+    stdout line with ``bench.py``'s four keys, the 1024^2 MRT cavity on
+    ``cuda-pull`` and a positive value, printed beside the timing phase's
+    ``pull_step`` MLUPS;
+(q) the slow gates, after the tangential lid's main path: the four gates of
+    ``scripts/torch_slow_gates.py`` in process through ``auto``
+    (``re400_256_mrt`` must converge within 1.2 M steps,
+    ``re1000_256_mrt``, ``re100_128_bounce_back`` on the push oracle,
+    ``re100_128_nebb_tangential``), each with its route, its launches
+    counted (one per step on ``cuda-pull``) and its own bounds, beside the
+    JAX package's record; a failed gate fails the script.
 
 The last three lines are ``nvidia-smi``'s line, one JSON object describing
 each kernel, and ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -244,7 +255,7 @@ import torch.distributed as dist
 from torch.multiprocessing.reductions import rebuild_cuda_tensor, reduce_tensor
 
 import latticeboltzmannsimulations_torch as lbt
-from latticeboltzmannsimulations_torch import engine, ml, sim
+from latticeboltzmannsimulations_torch import bench, engine, ml, sim
 from latticeboltzmannsimulations_torch.config import SimConfig
 from latticeboltzmannsimulations_torch.kernels import (
     _build,
@@ -307,14 +318,10 @@ BENCH_CHUNK = 10_000
 BENCH_CHUNKS = 3
 SWEEP_STEPS = 1_920                # a multiple of every K of the sweep
 SWEEP_K = (4, 5, 6, 8, 10, 12, 16)
-# The divisors of lbm_cell.cuh's exact constant division, each checked over
-# all 2^32 inputs.
-DIVISORS = (6, 9, 12, 36)
 AHEAD_N = (1024, 2048, 4096)       # sizes where tblock_step meets pull_step
 # tblock_step counts as ahead only by more than the 1.5% spread of MLUPS
 # between calls (PERF.md): a smaller lead changed sign from call to call.
 AHEAD_MARGIN = 1.015
-BASELINE_MLUPS = 2000.0           # the benchmark's vs_baseline denominator
 BYTES_PER_CELL = 72               # one read and one write of 9 f32 planes
 # Floating-point operations per cell of the kernels' MRT path (no LES),
 # counted from csrc/lbm_cell.cuh: one per add, multiply or divide.
@@ -533,12 +540,7 @@ def busy_time(fn, reps: int) -> tuple[float, float]:
                          "the calls wait for the device, or fill its queue")
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()
-    return out[0]
+nvidia_smi_line = bench.card_line
 
 
 def check_close(name: str, cfg: SimConfig, f_a, f_b, lid_a=None, lid_b=None,
@@ -595,31 +597,6 @@ def compare_tblock_pull(cfg: SimConfig, device, n: int) -> float:
     b = pull.make_scan_runner(cfg, n, device)(s0)
     return check_close(f"tblock K={tblock.K_STEPS} vs pull_step, {n} steps", cfg,
                        a.f, b.f, a.rho_lid, b.rho_lid, atol=TBLOCK_VS_PULL_ATOL)
-
-
-def check_exact_division(device) -> dict:
-    """lbm_cell.cuh's div_exact<b> against the IEEE x / b over all 2^32
-    inputs, one launch per divisor: no input may differ."""
-    lib = _build.load_library()
-    found = {}
-    for b in DIVISORS:
-        mismatches = torch.zeros(1, dtype=torch.int64, device=device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        err = lib.lbm_exact_div_check(b, None, 1 << 32, mismatches.data_ptr(),
-                                      torch.cuda.current_stream(device).cuda_stream)
-        end.record()
-        torch.cuda.synchronize()
-        if err != 0:
-            raise RuntimeError(f"exact_div_check launch failed: "
-                               f"{lib.lbm_error_string(err).decode()}")
-        found[b] = mismatches.item()
-        print(f"  div_exact<{b}> vs x / {b} over all 2^32 inputs: {found[b]} "
-              f"mismatches ({start.elapsed_time(end):.1f} ms)", flush=True)
-    if any(found.values()):
-        raise AssertionError(f"the exact division differs from x / b: {found}")
-    return found
 
 
 def compare_push(name: str, cfg: SimConfig, device) -> float:
@@ -1657,6 +1634,79 @@ def run_cli(args: list[str]) -> tuple[list[str], float]:
     return proc.stdout.splitlines(), wall
 
 
+# The slow gates' routes under auto (scripts/torch_slow_gates.py): the
+# NEBB and tangential lids on the one-step kernel, bounce-back on the push
+# oracle.
+SLOW_GATE_ROUTES = {"re400_256_mrt": "cuda-pull", "re1000_256_mrt": "cuda-pull",
+                    "re100_128_bounce_back": "push-oracle",
+                    "re100_128_nebb_tangential": "cuda-pull"}
+
+
+def load_script(name: str):
+    """``scripts/<name>.py`` loaded by path, as its own module."""
+    spec = importlib.util.spec_from_file_location(
+        f"_script_{name}", os.path.join(REPO, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_slow_gates(device, tmp: str) -> dict:
+    """(q): ``scripts/torch_slow_gates.py``'s four gates in process, each
+    through ``auto`` with its launches counted (set to 0 just before, read
+    just after): the route, one launch of the routed kernel per step, and
+    the gate's own bounds; a failed gate fails the script.  Returns the
+    launch counts of all four."""
+    gates = load_script("torch_slow_gates")
+    total = {name: 0 for name in COUNTERS}
+    for gate in gates.GATES:
+        name, kwargs = gate[0], gate[1]
+        reset_counters()
+        t0 = time.perf_counter()
+        rec = gates.run_gate(*gate, tmp, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counters()
+        want = {n: 0 for n in COUNTERS}
+        if rec["backend"] == "cuda-pull":
+            tangential = kwargs.get("boundary") == "nebb_tangential"
+            want["pull_step_tangential" if tangential else "pull_step"] = rec["steps"]
+        print(f"  {name}: routed to {rec['backend']}, {rec['steps']} steps (JAX "
+              f"{rec['jax_steps']}) in {wall:.2f} s, converged {rec['converged']}, "
+              f"{rec['mlups']} MLUPS, launches "
+              f"{ {k: v for k, v in counts.items() if v} }; R2(Ux) {rec['r2_ux']} "
+              f"(JAX {rec['jax_r2_ux']}, > {rec['r2_min']}), L2 {rec['l2_combined']} "
+              f"(JAX {rec['jax_l2_combined']}, < {rec['l2_max']}); ok {rec['ok']}",
+              flush=True)
+        if rec["backend"] != SLOW_GATE_ROUTES[name]:
+            raise AssertionError(f"{name}: routed to {rec['backend']!r}, not "
+                                 f"{SLOW_GATE_ROUTES[name]!r}")
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts}, expected {want}")
+        if not rec["ok"]:
+            raise AssertionError(f"slow gate {name} failed: {rec}")
+        add_counts(total, counts)
+    return total
+
+
+def run_bench_command(pull_mlups: float) -> None:
+    """(p): ``python -m latticeboltzmannsimulations_torch bench`` as a
+    subprocess: exactly one stdout line, ``bench.py``'s four keys, the
+    benchmark's cavity on ``cuda-pull``, a positive value; printed beside
+    the timing phase's ``pull_step`` MLUPS (CUDA events) of this call."""
+    lines, wall = run_cli(["bench"])
+    if len(lines) != 1:
+        raise AssertionError(f"bench printed {len(lines)} lines on stdout: {lines}")
+    rec = json.loads(lines[0])
+    metric = f"MLUPS {BENCH_N}x{BENCH_N} D2Q9 MRT cavity (cuda-pull)"
+    if (set(rec) != {"metric", "value", "unit", "vs_baseline"} or rec["metric"] != metric
+            or rec["unit"] != "MLUPS" or not rec["value"] > 0):
+        raise AssertionError(f"bench printed {rec}, expected {metric!r} with a value")
+    print(f"  bench: {lines[0]} ({wall:.2f} s wall for the command); "
+          f"{rec['value'] / pull_mlups:.4f} of the timing phase's pull_step "
+          f"{pull_mlups:.1f} MLUPS by CUDA events", flush=True)
+
+
 def read_trace(path: str, steps: int) -> dict:
     """A ``simulate`` profile of a ``steps``-step chunk on ``cuda-pull``:
     ``pull_step``'s kernel events (exactly ``steps`` of them, from the
@@ -2106,9 +2156,6 @@ def main() -> None:
                     print(f"  ptxas: {line.strip()}", flush=True)
         _build.load_library()
 
-    with phase("exact constant division"):
-        check_exact_division(device)
-
     worst = {name: 0.0 for name in REPLACES}
     with phase("kernel vs plain"):
         small = [
@@ -2271,6 +2318,11 @@ def main() -> None:
         print(f"  re1000_512_tang: {TANG_CONTROL_STEPS} steps in "
               f"{time.perf_counter() - t0:.2f} s wall, {control_mlups[0]:.1f} MLUPS",
               flush=True)
+
+    # the slow gates before the phases that start process groups, profilers
+    # and training: the push oracle's gate is bound by the host's pace
+    with phase("main path: the slow gates"), tempfile.TemporaryDirectory() as tmp:
+        add_counts(main_launches, run_slow_gates(device, tmp))
 
     with phase("main path: large cavity"), tempfile.TemporaryDirectory() as tmp:
         large_run = dataclasses.replace(large_cfg, max_steps=8_000,
@@ -2507,39 +2559,33 @@ def main() -> None:
         print(f"  device copy: {copy_bw / 1e9:.1f} GB/s (1 GiB read + 1 GiB "
               f"written per copy)", flush=True)
 
-        runner = pull.make_scan_runner(bench_cfg, BENCH_CHUNK, device)
-        state = runner(engine.init_state(bench_cfg, device))   # warm-up chunk
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(BENCH_CHUNKS):
-            state = runner(state)
-        end.record()
-        torch.cuda.synchronize()
-        elapsed_ms = start.elapsed_time(end)
-        if not bool(torch.isfinite(state.f).all()):
-            raise AssertionError("non-finite populations after the timed chunks")
-        steps = BENCH_CHUNK * BENCH_CHUNKS
+        # the benchmark's measurement (bench.measure: a warm-up chunk, then
+        # BENCH_CHUNKS chunks between two synchronisations) through the
+        # route it takes, its launches counted: the bench's path
+        reset_counters()
+        res = bench.measure(bench_cfg, "auto", BENCH_CHUNK, BENCH_CHUNKS, device)
+        counts = read_counters()
+        want = {name: 0 for name in COUNTERS}
+        want["pull_step"] = BENCH_CHUNK * (BENCH_CHUNKS + 1)
+        if res["route"] != "cuda-pull" or counts != want:
+            raise AssertionError(f"the bench ran {res['route']} with launches {counts}, "
+                                 f"expected cuda-pull with {want}")
+        add_counts(main_launches, counts)
+        print(json.dumps(bench.record(bench_cfg, res)), flush=True)
         cells = bench_cfg.nx * bench_cfg.ny
-        mlups = cells * steps * 1e-6 / (elapsed_ms * 1e-3)
-        print(json.dumps({
-            "metric": (f"MLUPS {bench_cfg.nx}x{bench_cfg.ny} D2Q9 "
-                       f"{bench_cfg.collision.upper()} cavity (cuda-pull)"),
-            "value": round(mlups, 1),
-            "unit": "MLUPS",
-            "vs_baseline": round(mlups / BASELINE_MLUPS, 3),
-        }), flush=True)
         bound_mlups = copy_bw / BYTES_PER_CELL * 1e-6
         b_ms, b_by = bound(cells, bench_cfg.nx)
         timing["pull_step"] = dict(
-            ms=elapsed_ms / steps, bound_ms=b_ms, bound_by=b_by,
+            ms=res["ms_per_step"], bound_ms=b_ms, bound_by=b_by,
             plain_ms=time_plain(engine.make_fused_step(bench_cfg),
                                 engine.init_state(bench_cfg, device)))
+        pull_mlups = cells * 1e-3 / res["ms_per_step"]
         print(f"  pull_step {BENCH_N}^2: {timing['pull_step']['ms']:.5f} ms/step, "
-              f"{mlups:.1f} MLUPS, {mlups / bound_mlups:.3f} of the measured "
-              f"72 B/cell copy bound; plain {timing['pull_step']['plain_ms']:.4f} "
-              f"ms/step; bound {b_ms:.5f} ms/step by {b_by}", flush=True)
+              f"{pull_mlups:.1f} MLUPS by CUDA events ({res['mlups']:.1f} on the wall "
+              f"clock, launches {counts['pull_step']}), {pull_mlups / bound_mlups:.3f} of "
+              f"the measured 72 B/cell copy bound; plain "
+              f"{timing['pull_step']['plain_ms']:.4f} ms/step; bound {b_ms:.5f} "
+              f"ms/step by {b_by}", flush=True)
 
         # the tangential entry beside the NEBB one, in turns, at 1024^2 MRT
         lid_ms = {"nebb": [], "tangential": []}
@@ -2622,7 +2668,10 @@ def main() -> None:
         print(f"  {BENCH_N}^2 push_step {ms:.5f} ms/step ({cells * 1e-3 / ms:.1f} "
               f"MLUPS); plain {timing['push_step']['plain_ms']:.4f} ms/step; bound "
               f"{b_ms:.5f} ms/step by {b_by}", flush=True)
-        del runner, state, lid_start, f0
+        del res, lid_start, f0
+
+    with phase("the bench command"):
+        run_bench_command(pull_mlups)
 
     with phase("timing: sweep form"):
         # In turns with pull_step at 1024^2 (pull, sweep, sweep, pull), per

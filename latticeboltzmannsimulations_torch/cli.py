@@ -15,8 +15,10 @@ and ``run`` prints its summary as JSON on the last line.  ``train`` writes
 ``--weights`` holds no ``.pt``, ``predict`` reads the JAX package's
 ``.msgpack`` weights (``ml.train.load_weights``, without flax), e.g.
 ``predict --weights docs/artifacts/ml_full/cnn_nine --preset cnn_nine``.
-``bench`` times nothing here: the port's headline benchmark is not defined
-yet, and it says so and exits non-zero.
+``bench`` runs the headline benchmark (``bench.main``: MLUPS of the
+1024^2 MRT Re=5000 float32 cavity through the route ``auto`` takes, one
+JSON line on stdout, with ``bench.py``'s keys), on the card unless given
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -195,9 +197,9 @@ def cmd_predict(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    print("bench: the port has no headline benchmark yet (see ROADMAP.md); "
-          "nothing was timed", file=sys.stderr)
-    return 1
+    from . import bench
+
+    return bench.main(args.device)
 
 
 def main(argv=None) -> int:
@@ -259,8 +261,8 @@ def main(argv=None) -> int:
     p.add_argument("--max-steps", type=int, default=300_000)
     p.set_defaults(fn=cmd_predict)
 
-    p = sub.add_parser("bench", help="headline MLUPS benchmark (not defined "
-                                     "for the port yet)")
+    p = sub.add_parser("bench", help="headline MLUPS benchmark (one JSON line; "
+                                     "LBM_BENCH_N, _COLLISION, _CHUNK, _CHUNKS)")
     _add_device_arg(p)
     p.set_defaults(fn=cmd_bench)
 

@@ -7,6 +7,15 @@
 // wall rewrites of the fused pull step: reduced NEBB, or (pull_step.cu's
 // tangential entry only) the Zou-He tangential lid.
 //
+// Every expression follows the plain engine's (engine.make_fused_step and
+// ops/) operation for operation, and the library is built with -fmad=false
+// (kernels/_build.py), so a kernel rounds as the plain engine does on the
+// card and gives its bits (on the CPU too without LES:
+// tests/test_torch_csrc_emulated.py).  A last bit is not harmless here: the
+// exact quotient m0 / 9, a sum in another order and FMA contraction moved a
+// 1.5 M-step Re=1000 run's L2 against Ghia by 0.13 points, off the JAX
+// package's record (PERF.md, section 6).
+//
 // Populations are indexed as in lattice.py: k = 0 rest, 1 (+x), 2 (+y),
 // 3 (-x), 4 (-y), 5 (+x+y), 6 (-x+y), 7 (-x-y), 8 (+x-y); y index 0 is the
 // lid.  Arrays of 9 floats are indexed with constants only, so after
@@ -46,30 +55,15 @@ struct Params {
 };
 
 // x / b for the constant divisors of the MRT back-transform (b = 6, 9, 12,
-// 36), correctly rounded for every float x: the same bits as the IEEE
-// division x / b, at a fraction of its instructions.  A multiply by the
-// nearest float to 1/b and one Markstein correction, r = x - q b (exact in
-// an FMA) and q + r (1/b), give the correctly rounded quotient of any x
-// whose quotient is normal, because 1/b is within half an ulp and q within
-// one ulp.  A zero x gives q = x * (1/b), a zero of x's sign, as x / b
-// does (a flow at rest has many zero moments, and the IEEE division sends
-// a zero dividend down its slow path).  The rest (0 < |x| < 2^-100, where
-// the quotient or the residual may be subnormal; inf and NaN, where the
-// residual is NaN) goes to the IEEE division.  chip_smoke.py checks all
-// 2^32 inputs for each b on the card; tests/test_torch_csrc_emulated.py a
-// sample on the CPU.  __fmul_rn and __fmaf_rn keep the compiler from
-// contracting or reassociating the three operations.
+// 36), as the plain engine computes it: x times the reciprocal rounded to
+// float.  PyTorch divides a tensor by a scalar that way on the card (and
+// ops/collision.py writes the product out, so the CPU agrees); the JAX
+// package's runs on the TPU track this product, not the correctly rounded
+// quotient, whose long runs drifted from them (PERF.md, section 6).
 template <int kB>
-__device__ __forceinline__ float div_exact(const float x) {
-  constexpr float b = static_cast<float>(kB);
-  constexpr float rcp = 1.0f / b;
-  const float ax = fabsf(x);
-  const float q = __fmul_rn(x, rcp);
-  if (ax >= 0x1p-100f && ax <= 3.40282347e38f) {
-    const float r = __fmaf_rn(-q, b, x);
-    return __fmaf_rn(r, rcp, q);
-  }
-  return ax == 0.0f ? q : x / b;
+__device__ __forceinline__ float div_const(const float x) {
+  constexpr float rcp = 1.0f / static_cast<float>(kB);
+  return x * rcp;
 }
 
 constexpr float W0 = 4.0f / 9.0f;
@@ -162,7 +156,10 @@ __device__ __forceinline__ void cell_collide(const float g[9], const float e[9],
     // MRT in the Gram-Schmidt moment space.
     const float s_ax = g[1] + g[2] + g[3] + g[4];
     const float s_di = g[5] + g[6] + g[7] + g[8];
-    const float m0 = g[0] + s_ax + s_di;
+    // the density moment added one by one, as the plain engine's mrt_moments
+    // does: (g0 + s_ax) + s_di rounds differently, and its r = m0 / 9 feeds
+    // every population, so the difference biased the mass a run carries
+    const float m0 = g[0] + g[1] + g[2] + g[3] + g[4] + g[5] + g[6] + g[7] + g[8];
     const float jx = g[1] - g[3] + g[5] - g[6] - g[7] + g[8];
     const float jy = g[2] - g[4] + g[5] + g[6] - g[7] - g[8];
     float me = -4.0f * g[0] - s_ax + 2.0f * s_di;
@@ -179,23 +176,23 @@ __device__ __forceinline__ void cell_collide(const float g[9], const float e[9],
     pxx -= omega * (pxx - (jx2 - jy2));
     pxy -= omega * (pxy - jx * jy);
     // f = M^-1 m with exact rational coefficients.
-    // (The divisions by 6, 9, 12 and 36 are div_exact: the same bits.)
-    const float r = div_exact<9>(m0);
-    const float e36 = div_exact<36>(me), eps36 = div_exact<36>(meps);
+    // (x / b is div_const: the plain engine's x * (1 / b).)
+    const float r = div_const<9>(m0);
+    const float e36 = div_const<36>(me), eps36 = div_const<36>(meps);
     const float ax_e = -e36 - 2.0f * eps36;
     const float di_e = 2.0f * e36 + eps36;
-    const float jx6 = div_exact<6>(jx), jy6 = div_exact<6>(jy);
-    const float qx6 = div_exact<6>(qx), qy6 = div_exact<6>(qy);
+    const float jx6 = div_const<6>(jx), jy6 = div_const<6>(jy);
+    const float qx6 = div_const<6>(qx), qy6 = div_const<6>(qy);
     const float pxx4 = pxx / 4.0f, pxy4 = pxy / 4.0f;
     o[0] = r - 4.0f * e36 + 4.0f * eps36;
     o[1] = r + ax_e + (jx6 - qx6) + pxx4;
     o[2] = r + ax_e + (jy6 - qy6) - pxx4;
     o[3] = r + ax_e + (-jx6 + qx6) + pxx4;
     o[4] = r + ax_e + (-jy6 + qy6) - pxx4;
-    o[5] = r + di_e + div_exact<6>(jx + jy) + div_exact<12>(qx + qy) + pxy4;
-    o[6] = r + di_e + div_exact<6>(-jx + jy) + div_exact<12>(-qx + qy) - pxy4;
-    o[7] = r + di_e + div_exact<6>(-jx - jy) + div_exact<12>(-qx - qy) + pxy4;
-    o[8] = r + di_e + div_exact<6>(jx - jy) + div_exact<12>(qx - qy) - pxy4;
+    o[5] = r + di_e + div_const<6>(jx + jy) + div_const<12>(qx + qy) + pxy4;
+    o[6] = r + di_e + div_const<6>(-jx + jy) + div_const<12>(-qx + qy) - pxy4;
+    o[7] = r + di_e + div_const<6>(-jx - jy) + div_const<12>(-qx - qy) + pxy4;
+    o[8] = r + di_e + div_const<6>(jx - jy) + div_const<12>(qx - qy) - pxy4;
   }
 }
 

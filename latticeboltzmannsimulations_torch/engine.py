@@ -35,7 +35,7 @@ import torch
 from .config import SimConfig, resolve_device
 from .ops import boundary as bc_ops
 from .ops import collision as coll
-from .ops.equilibrium import equilibrium, macroscopics
+from .ops.equilibrium import equilibrium, macroscopics, population_sum
 from .ops.streaming import gather_pull, stream_push
 
 
@@ -245,14 +245,14 @@ def _fused_gather_bc_tangential(cfg: SimConfig, f):
     g[8, 0, 0] = g[6, 0, 0] + (1.0 / 6.0) * u_lid
     g[5, 0, 0] = u_lid / 12.0
     g[7, 0, 0] = -u_lid / 12.0
-    g[0, 0, 0] = 1.0 - g[1:, 0, 0].sum(dim=0)
+    g[0, 0, 0] = 1.0 - population_sum(g[:, 0, 0], 1)
     e = nx - 1
     g[3, e, 0] = g[1, e, 0] - (2.0 / 3.0) * u_lid
     g[4, e, 0] = g[2, e, 0]
     g[7, e, 0] = g[5, e, 0] - (1.0 / 6.0) * u_lid
     g[6, e, 0] = -u_lid / 12.0
     g[8, e, 0] = u_lid / 12.0
-    g[0, e, 0] = 1.0 - g[1:, e, 0].sum(dim=0)
+    g[0, e, 0] = 1.0 - population_sum(g[:, e, 0], 1)
     return g
 
 

@@ -27,7 +27,10 @@ SOURCES = tuple(sorted(CSRC.glob("*.cu")))
 HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+# -fmad=false: no multiply and add is contracted into an FMA, so the kernels
+# round every operation as the plain PyTorch engine does (each op its own
+# IEEE rounding); csrc/lbm_cell.cuh's explicit __fmaf_rn stay FMAs.
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v")
 LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 BUILD_TIMEOUT_S = 600
@@ -170,15 +173,9 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         p,                          # stream
     ]
     lib.lbm_enable_peer_access.argtypes = [i, i]   # device, peer
-    lib.lbm_exact_div_check.argtypes = [
-        i, p, ctypes.c_longlong,    # divisor, bit patterns (null: 0 .. count - 1), count
-        p,                          # mismatch counter (uint64)
-        p,                          # stream
-    ]
     for fn in (lib.lbm_pull_step, lib.lbm_pull_step_tangential, lib.lbm_pull_sweep_step,
                lib.lbm_tblock_step, lib.lbm_push_step, lib.lbm_pull_sharded_step, lib.lbm_tblock_sharded_step,
-               lib.lbm_halo_exchange, lib.lbm_enable_peer_access,
-               lib.lbm_exact_div_check):
+               lib.lbm_halo_exchange, lib.lbm_enable_peer_access):
         fn.restype = ctypes.c_int
     lib.lbm_error_string.argtypes = [ctypes.c_int]
     lib.lbm_error_string.restype = ctypes.c_char_p

@@ -37,7 +37,7 @@ from __future__ import annotations
 import torch
 
 from .. import lattice
-from .equilibrium import lid_row_density
+from .equilibrium import lid_row_density, population_sum
 
 _OPP = [int(k) for k in lattice.OPP]
 
@@ -99,7 +99,7 @@ def nebb_tangential(f: torch.Tensor, feq: torch.Tensor, u_lid: float) -> torch.T
     f[8, 0, 0] = f[6, 0, 0] + (1.0 / 6.0) * u_lid
     f[5, 0, 0] = u_lid / 12.0
     f[7, 0, 0] = -u_lid / 12.0
-    f[0, 0, 0] = 1.0 - f[1:, 0, 0].sum(dim=0)
+    f[0, 0, 0] = 1.0 - population_sum(f[:, 0, 0], 1)
     # Upper-right corner (nx-1, 0).
     e = nx - 1
     f[3, e, 0] = f[1, e, 0] - (2.0 / 3.0) * u_lid
@@ -107,7 +107,7 @@ def nebb_tangential(f: torch.Tensor, feq: torch.Tensor, u_lid: float) -> torch.T
     f[7, e, 0] = f[5, e, 0] - (1.0 / 6.0) * u_lid
     f[6, e, 0] = -u_lid / 12.0
     f[8, e, 0] = u_lid / 12.0
-    f[0, e, 0] = 1.0 - f[1:, e, 0].sum(dim=0)
+    f[0, e, 0] = 1.0 - population_sum(f[:, e, 0], 1)
     return f
 
 

@@ -84,25 +84,36 @@ def mrt_moment_equilibrium(rho: torch.Tensor, jx: torch.Tensor, jy: torch.Tensor
     )
 
 
+def _reciprocal(m: torch.Tensor, b: float) -> float:
+    """1 / b rounded to ``m``'s precision, as a Python float."""
+    return float(torch.tensor(1.0, dtype=m.dtype) / b)
+
+
 def mrt_from_moments(m: torch.Tensor) -> torch.Tensor:
-    """Inverse transform f = M^-1 m, unrolled with exact rational coefficients."""
-    r = m[0] / 9.0
+    """Inverse transform f = M^-1 m, unrolled with exact rational coefficients.
+
+    Each x / b is x * (1 / b), the reciprocal rounded to the working
+    precision: what PyTorch computes for a tensor divided by a scalar on the
+    card, written out so that the CPU gives the same bits, and the product
+    the CUDA kernels take (``csrc/lbm_cell.cuh``, ``div_const``)."""
+    inv4, inv6, inv9, inv12, inv36 = (_reciprocal(m, b) for b in (4.0, 6.0, 9.0, 12.0, 36.0))
+    r = m[0] * inv9
     e = m[1]
     eps = m[2]
     jx, qx, jy, qy = m[3], m[4], m[5], m[6]
     pxx, pxy = m[7], m[8]
-    e36, eps36 = e / 36.0, eps / 36.0
+    e36, eps36 = e * inv36, eps * inv36
     f0 = r - 4.0 * e36 + 4.0 * eps36
     ax_e = -e36 - 2.0 * eps36          # axis populations: -e/36 - eps/18
     di_e = 2.0 * e36 + eps36           # diagonal populations: e/18 + eps/36
-    f1 = r + ax_e + (jx / 6.0 - qx / 6.0) + pxx / 4.0
-    f2 = r + ax_e + (jy / 6.0 - qy / 6.0) - pxx / 4.0
-    f3 = r + ax_e + (-jx / 6.0 + qx / 6.0) + pxx / 4.0
-    f4 = r + ax_e + (-jy / 6.0 + qy / 6.0) - pxx / 4.0
-    f5 = r + di_e + (jx + jy) / 6.0 + (qx + qy) / 12.0 + pxy / 4.0
-    f6 = r + di_e + (-jx + jy) / 6.0 + (-qx + qy) / 12.0 - pxy / 4.0
-    f7 = r + di_e + (-jx - jy) / 6.0 + (-qx - qy) / 12.0 + pxy / 4.0
-    f8 = r + di_e + (jx - jy) / 6.0 + (qx - qy) / 12.0 - pxy / 4.0
+    f1 = r + ax_e + (jx * inv6 - qx * inv6) + pxx * inv4
+    f2 = r + ax_e + (jy * inv6 - qy * inv6) - pxx * inv4
+    f3 = r + ax_e + (-jx * inv6 + qx * inv6) + pxx * inv4
+    f4 = r + ax_e + (-jy * inv6 + qy * inv6) - pxx * inv4
+    f5 = r + di_e + (jx + jy) * inv6 + (qx + qy) * inv12 + pxy * inv4
+    f6 = r + di_e + (-jx + jy) * inv6 + (-qx + qy) * inv12 - pxy * inv4
+    f7 = r + di_e + (-jx - jy) * inv6 + (-qx - qy) * inv12 + pxy * inv4
+    f8 = r + di_e + (jx - jy) * inv6 + (qx - qy) * inv12 - pxy * inv4
     return torch.stack([f0, f1, f2, f3, f4, f5, f6, f7, f8])
 
 

@@ -41,12 +41,23 @@ def equilibrium(rho: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return torch.stack(planes)
 
 
+def population_sum(f: torch.Tensor, start: int = 0) -> torch.Tensor:
+    """``f[start] + ... + f[8]`` over the leading population axis, added one
+    by one in lattice order: the same float operations on every device and
+    for every shape (``torch.sum``'s order depends on both), and the order
+    the CUDA kernels add in (``csrc/lbm_cell.cuh``)."""
+    total = f[start]
+    for k in range(start + 1, lattice.Q):
+        total = total + f[k]
+    return total
+
+
 def macroscopics(f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Density and velocity moments of ``f (9, X, Y)``.
 
     rho = sum_k f_k ;  u = sum_k c_k f_k / rho   (reference: MRT.py:292,320-321)
     """
-    rho = torch.sum(f, dim=0)
+    rho = population_sum(f)
     jx = f[1] - f[3] + f[5] - f[6] - f[7] + f[8]
     jy = f[2] - f[4] + f[5] + f[6] - f[7] - f[8]
     u = torch.stack([jx, jy]) / rho[None]

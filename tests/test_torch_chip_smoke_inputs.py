@@ -1,8 +1,11 @@
 """``.chiprunignore`` leaves ``docs/artifacts`` out of the copy of the repo
 that a run on the card gets, entry by entry, all but the files
-``chip_smoke.py`` reads there: a file added to ``docs/artifacts`` that the
-list does not name would reach that copy unseen."""
+``chip_smoke.py`` and the port's slow gates and validation runs
+(``scripts/torch_slow_gates.py``, ``scripts/torch_validate.py``) read there:
+a file added to ``docs/artifacts`` that the list does not name would reach
+that copy unseen."""
 
+import importlib.util
 import os
 from pathlib import Path
 
@@ -10,6 +13,14 @@ import chip_smoke
 
 REPO = Path(__file__).resolve().parent.parent
 ARTIFACTS = REPO / "docs" / "artifacts"
+
+
+def _script(name: str):
+    spec = importlib.util.spec_from_file_location(
+        f"_script_{name}", REPO / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _listed() -> set[str]:
@@ -23,6 +34,9 @@ def _needed() -> set[str]:
              for c in "xy"]
     paths = [s + ext for s in stems for ext in (".msgpack", ".json")]
     paths.append(chip_smoke.ARTIFACT_CKPT)
+    validate = _script("torch_validate")
+    paths += [_script("torch_slow_gates").JAX_RECORD, *validate.JAX_RECORDS,
+              *validate.JAX_HISTORY.values()]
     return {Path(p).resolve().relative_to(REPO).as_posix() for p in paths}
 
 

@@ -5,7 +5,8 @@ package's ``cli.main``, and ``simulate``'s profiler trace.
 checkpoints) and its summary agrees with JAX's on ``jit`` to 1e-10 in
 float64; ``datagen``, ``train`` and ``predict`` run end to end at 48^2 with
 ``cnn_one``, and ``predict`` serves the JAX CLI's ``.msgpack`` weights with
-the JAX CLI's metrics; a mesh runs on the CPU; ``bench`` exits non-zero."""
+the JAX CLI's metrics; a mesh runs on the CPU; ``bench`` prints its one JSON line on the CPU
+when asked."""
 
 import json
 import os
@@ -140,9 +141,18 @@ def test_cli_refuses_a_mesh_larger_than_the_cards(monkeypatch):
         t_cli.main(["datagen", "--mesh", "2x1"])
 
 
-def test_cli_bench_exits_nonzero(capsys):
-    assert t_cli.main(["bench"]) != 0
-    assert "no headline benchmark" in capsys.readouterr().err
+def test_cli_bench_runs_on_the_cpu_when_asked(capsys, monkeypatch, one_thread):
+    for key, value in {"LBM_BENCH_N": "32", "LBM_BENCH_CHUNK": "3",
+                       "LBM_BENCH_CHUNKS": "1"}.items():
+        monkeypatch.setenv(key, value)
+    assert t_cli.main(["bench", "--device", "cpu"]) == 0
+    out = capsys.readouterr()
+    lines = out.out.strip().splitlines()
+    assert len(lines) == 1, out.out
+    rec = json.loads(lines[0])
+    assert set(rec) == {"metric", "value", "unit", "vs_baseline"}, rec
+    assert rec["metric"] == "MLUPS 32x32 D2Q9 MRT cavity (torch)" and rec["value"] > 0
+    assert "route torch" in out.err
 
 
 def test_cli_takes_the_port_routes_and_devices_only(tmp_path, capsys):

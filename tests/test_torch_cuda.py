@@ -19,7 +19,6 @@ import latticeboltzmannsimulations_torch as lbt
 from latticeboltzmannsimulations_torch import engine
 from latticeboltzmannsimulations_torch.config import SimConfig
 from latticeboltzmannsimulations_torch.kernels import (
-    _build,
     halo_rdma,
     pull,
     pull_sharded,
@@ -351,16 +350,27 @@ def test_tblock_equals_pull_step_on_small_and_ragged_fields(cuda, nx, ny, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("divisor", [6, 9, 12, 36])
-def test_exact_division_over_every_float(cuda, divisor):
-    """lbm_cell.cuh's div_exact<b> gives the bits of the IEEE x / b for all
-    2^32 inputs (one launch)."""
-    mismatches = torch.zeros(1, dtype=torch.int64, device=cuda)
-    err = _build.load_library().lbm_exact_div_check(
-        divisor, None, 1 << 32, mismatches.data_ptr(),
-        torch.cuda.current_stream(cuda).cuda_stream)
-    assert err == 0
-    assert mismatches.item() == 0
+@pytest.mark.parametrize("lid", ["nebb", "nebb_tangential"])
+@pytest.mark.parametrize("kw", [
+    dict(collision="srt"),
+    dict(collision="trt"),
+    dict(collision="mrt"),
+    dict(collision="mrt", turbulence="smagorinsky", reynolds=5000.0),
+    dict(collision="srt", turbulence="smagorinsky", van_driest=True, reynolds=5000.0),
+], ids=["srt", "trt", "mrt", "mrt_smagorinsky", "srt_van_driest"])
+def test_kernel_equals_plain_bit_for_bit(cuda, kw, lid):
+    """On the card the kernel rounds as the plain engine does, LES too: the
+    same float operations in the same order, no FMA contraction, x / b as
+    x * (1 / b), correctly rounded division and square root on both."""
+    cfg = SimConfig(**{"nx": 137, "ny": 93, "reynolds": 400.0, "boundary": lid, **kw})
+    plain = engine.make_fused_step(cfg)
+    s0 = engine.init_state(cfg, device=cuda)
+    s_k, s_p = pull.make_scan_runner(cfg, 20, device=cuda)(s0), s0
+    for _ in range(20):
+        s_p = plain(s_p)
+    torch.cuda.synchronize()
+    assert torch.isfinite(s_p.f).all()
+    assert torch.equal(s_k.f, s_p.f) and torch.equal(s_k.rho_lid, s_p.rho_lid)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
-"""The port and chip_smoke.py import neither JAX (nor flax, optax or
-msgpack) nor the JAX package: the machine with the card has none of them.
+"""The port, its scripts (``scripts/torch_*.py``) and chip_smoke.py import
+neither JAX (nor flax, optax or msgpack) nor the JAX package: the machine
+with the card has none of them.
 The port's reader of flax's msgpack files works with all four blocked."""
 
 import os
@@ -17,7 +18,11 @@ import importlib, pkgutil, sys
 import latticeboltzmannsimulations_torch as port
 for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     importlib.import_module(m.name)
+import latticeboltzmannsimulations_torch.bench
 import chip_smoke
+sys.path.insert(0, "scripts")
+for name in ("torch_bench_backends", "torch_slow_gates", "torch_validate"):
+    importlib.import_module(name)
 bad = sorted(k for k in sys.modules
              if k in ("jax", "flax", "optax", "msgpack")
              or k.startswith(("jax.", "jaxlib", "flax.", "optax.", "msgpack.",
@@ -39,7 +44,7 @@ def test_importing_every_module_loads_no_jax():
 def test_sources_never_name_jax_or_the_jax_package():
     files = (sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
              + sorted(PORT.rglob("*.cuh")) + sorted(PORT.rglob("*.cpp"))
-             + [REPO / "chip_smoke.py"])
+             + sorted((REPO / "scripts").glob("torch_*.py")) + [REPO / "chip_smoke.py"])
     names = {p.name for p in files}
     assert {"tblock.py", "push.py", "tblock_step.cu", "push_step.cu",
             "lbm_cell.cuh", "boundary.py", "mesh.py", "halo.py", "pull_sharded.py",
@@ -48,7 +53,8 @@ def test_sources_never_name_jax_or_the_jax_package():
             "halo_exchange.cu", "datagen.py", "models.py", "predict.py",
             "scaling.py", "train.py", "checkpoint.py", "cli.py", "__main__.py",
             "vtk.py", "viz.py", "vortex.py", "engine.py", "lbm_kernel.cpp",
-            "flax_msgpack.py"} <= names
+            "flax_msgpack.py", "bench.py", "torch_bench_backends.py",
+            "torch_slow_gates.py", "torch_validate.py"} <= names
     jax_import = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|msgpack)\b", re.M)
     for path in files:
         text = path.read_text()

@@ -130,3 +130,23 @@ def test_override_wall_velocity_matches(lid_corners):
     # the inputs are left alone, as JAX's immutable arrays are
     np.testing.assert_array_equal(u_in.numpy(), u)
     np.testing.assert_array_equal(rho_in.numpy(), rho)
+
+
+def test_population_sum_adds_in_lattice_order_for_every_shape():
+    """The density is f0 + f1 + ... + f8 added one by one, in float32 the
+    same bits for a field alone and inside a wider stack (torch.sum's order
+    depends on the shape), and the order the CUDA kernels add in."""
+    rng = np.random.default_rng(5)
+    f = torch.from_numpy((rng.random((9, NX, NY)) * np.logspace(-3, 0, 9)[:, None, None])
+                         .astype(np.float32))
+    want = f[0]
+    for k in range(1, 9):
+        want = want + f[k]
+    assert torch.equal(t_eq.population_sum(f), want)
+    assert torch.equal(t_eq.macroscopics(f)[0], want)
+    wide = torch.cat([f, torch.from_numpy(rng.random((9, 3 * NX, NY)).astype(np.float32))], 1)
+    assert torch.equal(t_eq.population_sum(wide)[:NX], want)
+    tail = f[1]
+    for k in range(2, 9):
+        tail = tail + f[k]
+    assert torch.equal(t_eq.population_sum(f, 1), tail)
