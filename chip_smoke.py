@@ -28,7 +28,11 @@ the build: a runner kept alive would):
      run's 128^2, which must agree exactly;
    * ``push_step`` against 20 push-oracle steps
      (``engine.make_push_oracle_step``) for the same four cases at 128^2 and
-     MRT at 1024^2;
+     MRT at 1024^2, and its entry ``lbm_push_step_wall`` for the two walls
+     only the push engines implement, ``push_step_west_eq``
+     (``nebb_west_eq``) and ``push_step_bounce_back`` (``bounce_back``),
+     for the same four cases at 128^2, at the main path's 48^2 and MRT at
+     1024^2; bit for bit (atol 0);
    * on a 2x2 mesh of this one card (``devices=[card] * 4``, each shard with
      its real wall flags and halo strips): ``pull_sharded_step`` (SRT, TRT,
      MRT, MRT+Smagorinsky, SRT+Smagorinsky+Van Driest) and
@@ -70,7 +74,8 @@ the build: a runner kept alive would):
      picks another backend; the Re=100 Ghia gate at 128^2 through
      ``cuda-tblock``;
    * the Re=100 Ghia gate at 96^2 through ``cuda-push``;
-   * a 48^2 ``bounce_back`` run, which routes to the push oracle;
+   * 48^2 ``bounce_back`` and ``nebb_west_eq`` runs through ``auto``, which
+     routes them to ``cuda-push`` (the push kernel's wall entry);
    * the sharded cavity: ``simulate`` at 4096^2 MRT float32 Re=5000 on a
      2x2 mesh of this card with ``backend="auto"`` and through the sharded
      kernel that auto does not take there (``cuda-sharded`` or
@@ -99,7 +104,8 @@ the build: a runner kept alive would):
    at 1024^2, 2048^2 and 4096^2, ``pull_step`` and ``tblock_step`` (default
    K) in turns from rest and from the state after 1 920 steps, which sets
    where ``auto`` takes the latter;
-   ``push_step`` at 1024^2; each kernel's plain version; at 4096^2 on the
+   ``push_step`` at 1024^2, and each of its other two walls in turns with
+   it (nebb, wall, wall, nebb); each kernel's plain version; at 4096^2 on the
    2x2 mesh: both sharded runners from rest in ``simulate``'s calls, with
    the one-step runner's pad and unpad copies timed apart; from a state
    further on,
@@ -195,8 +201,8 @@ along x, each with its own omega) and the surrogate pipeline:
     128^2 over 1, 2, 7, 2 000 and 4 001 steps (the 2 000-launch body
     replayed twice and an odd remainder), the sweep at 32 x 384^2 over 200
     steps with its omegas changed between calls, ``tblock`` over 2 003
-    steps at 128^2 and 67 at 2048^2, ``push`` over 7 and 2 001 at 128^2 and
-    67 at 1024^2, and both sharded runners (the temporal-block one under
+    steps at 128^2 and 67 at 2048^2, ``push`` (each of its three walls)
+    over 7 and 2 001 at 128^2 and 67 at 1024^2, and both sharded runners (the temporal-block one under
     both transports) on the 2x2 mesh of the card over 2 003 steps at 128^2
     and 67 at 4096^2: max |d| = 0, the input untouched, the state a call
     returned unchanged by the next, every launch counter (and
@@ -222,9 +228,10 @@ along x, each with its own omega) and the surrogate pipeline:
 (q) the slow gates, after the tangential lid's main path: the four gates of
     ``scripts/torch_slow_gates.py`` in process through ``auto``
     (``re400_256_mrt`` must converge within 1.2 M steps,
-    ``re1000_256_mrt``, ``re100_128_bounce_back`` on the push oracle,
-    ``re100_128_nebb_tangential``), each with its route, its launches
-    counted (one per step on ``cuda-pull``) and its own bounds, beside the
+    ``re1000_256_mrt``, ``re100_128_bounce_back`` on the push kernel,
+    ``re100_128_nebb_tangential``), each with its route and wall time, its
+    launches counted (one per step on the routed kernel) and its own
+    bounds, beside the
     JAX package's record; a failed gate fails the script.
 
 The last three lines are ``nvidia-smi``'s line, one JSON object describing
@@ -289,6 +296,12 @@ REPLACES = {
     "pull_step": "kernels/pallas_pull.py:189 (_make_kernel)",
     "tblock_step": "kernels/pallas_pull_tblock.py:72 (_make_kernel)",
     "push_step": "kernels/pallas_push.py:65 (_make_kernel)",
+    # no Pallas kernel: the JAX package runs these walls on its push oracle
+    # (the Pallas push kernel refuses them, kernels/pallas_push.py:178-181)
+    "push_step_west_eq": ("sim.py:64-90 (_push_style: boundary='nebb_west_eq' on the "
+                          "push oracle; kernels/pallas_push.py:65 refuses it)"),
+    "push_step_bounce_back": ("sim.py:64-90 (_push_style: boundary='bounce_back' on the "
+                              "push oracle; kernels/pallas_push.py:65 refuses it)"),
     "pull_sharded_step": "kernels/pallas_pull_sharded.py:84 (_make_local_kernel)",
     "tblock_sharded_step": "kernels/pallas_pull_tblock_sharded.py:57 (_make_kernel)",
     "halo_exchange": ("kernels/halo_rdma.py:137 (make_x_halo_exchange; "
@@ -302,9 +315,13 @@ REPLACES = {
 SOURCES = {name: f"latticeboltzmannsimulations_torch/csrc/{name}.cu" for name in REPLACES}
 SOURCES["pull_sweep_step"] = SOURCES["pull_step"]     # a second entry of that source
 SOURCES["pull_step_tangential"] = SOURCES["pull_step"]  # and a third
+# the entry lbm_push_step_wall of push_step.cu, for the two walls
+SOURCES["push_step_west_eq"] = SOURCES["push_step_bounce_back"] = SOURCES["push_step"]
 # Each kernel's launch counter: (module, attribute).
 COUNTERS = {"pull_step": (pull, "launches"), "tblock_step": (tblock, "launches"),
             "push_step": (push, "launches"),
+            "push_step_west_eq": (push, "west_eq_launches"),
+            "push_step_bounce_back": (push, "bounce_back_launches"),
             "pull_sharded_step": (pull_sharded, "launches"),
             "tblock_sharded_step": (tblock_sharded, "launches"),
             "halo_exchange": (halo_rdma, "launches"),
@@ -599,15 +616,21 @@ def compare_tblock_pull(cfg: SimConfig, device, n: int) -> float:
                        a.f, b.f, a.rho_lid, b.rho_lid, atol=TBLOCK_VS_PULL_ATOL)
 
 
+# The push kernel's walls: its counter's name in COUNTERS by boundary.
+PUSH_KERNELS = {"nebb": "push_step", "nebb_west_eq": "push_step_west_eq",
+                "bounce_back": "push_step_bounce_back"}
+
+
 def compare_push(name: str, cfg: SimConfig, device) -> float:
-    """20 push-kernel steps against 20 push-oracle steps."""
+    """20 push-kernel steps against 20 push-oracle steps, bit for bit: the
+    kernel does the oracle's operations in its order (PERF.md, section 6)."""
     plain = engine.make_push_oracle_step(cfg)
     kernel = push.make_push_step(cfg, device)
     f_plain = f_kernel = engine.init_state(cfg, device).f
     for _ in range(COMPARE_STEPS):
         f_plain = plain(f_plain)
         f_kernel = kernel(f_kernel)
-    return check_close(f"push {name}", cfg, f_kernel, f_plain)
+    return check_close(f"push {cfg.boundary} {name}", cfg, f_kernel, f_plain, atol=0.0)
 
 
 def check_runner_ping_pong(device) -> None:
@@ -1137,7 +1160,7 @@ def run_main_path(cfg: SimConfig, device, out_dir: str, backend: str,
     want.update({
         "cuda-pull": {one_step: steps},
         "cuda-tblock": {"pull_step": chunks * rem, "tblock_step": chunks * blocks},
-        "cuda-push": {"push_step": steps},
+        "cuda-push": {PUSH_KERNELS.get(cfg.boundary, "push_step"): steps},
         # one exchange launch per step (per block) on the mesh of this card
         "cuda-sharded": {"pull_sharded_step": shards * steps, "halo_exchange": steps},
         "cuda-sharded-tblock": {"pull_sharded_step": shards * chunks * s_rem,
@@ -1554,6 +1577,13 @@ def run_datagen_mesh(device) -> dict:
     return counts
 
 
+def push_run_config(wall: str) -> SimConfig:
+    """The main path's run of a wall that only the push engines implement:
+    48^2 SRT Re=100, 200 steps in two intervals."""
+    return SimConfig(nx=48, ny=48, reynolds=100.0, boundary=wall, max_steps=200,
+                     report_interval=100)
+
+
 def ckpt_config(mesh_shape=(1, 1)) -> SimConfig:
     """The cavity of (l): 256^2 MRT at Re 1000, run without a convergence
     stop."""
@@ -1636,9 +1666,9 @@ def run_cli(args: list[str]) -> tuple[list[str], float]:
 
 # The slow gates' routes under auto (scripts/torch_slow_gates.py): the
 # NEBB and tangential lids on the one-step kernel, bounce-back on the push
-# oracle.
+# kernel.
 SLOW_GATE_ROUTES = {"re400_256_mrt": "cuda-pull", "re1000_256_mrt": "cuda-pull",
-                    "re100_128_bounce_back": "push-oracle",
+                    "re100_128_bounce_back": "cuda-push",
                     "re100_128_nebb_tangential": "cuda-pull"}
 
 
@@ -1671,6 +1701,8 @@ def run_slow_gates(device, tmp: str) -> dict:
         if rec["backend"] == "cuda-pull":
             tangential = kwargs.get("boundary") == "nebb_tangential"
             want["pull_step_tangential" if tangential else "pull_step"] = rec["steps"]
+        elif rec["backend"] == "cuda-push":
+            want[PUSH_KERNELS[kwargs.get("boundary", "nebb")]] = rec["steps"]
         print(f"  {name}: routed to {rec['backend']}, {rec['steps']} steps (JAX "
               f"{rec['jax_steps']}) in {wall:.2f} s, converged {rec['converged']}, "
               f"{rec['mlups']} MLUPS, launches "
@@ -1941,7 +1973,7 @@ def check_graphs(device, sweep_cfg: SimConfig, sharded_cfg: SimConfig) -> dict:
     ``pull`` (MRT, SRT + Smagorinsky + Van Driest, the tangential lid) at
     128^2 over ``GRAPH_STEPS``; the sweep at 32 x 384^2, its omegas changed
     between calls; ``tblock`` over a count of steps that K does not divide;
-    ``push``; both sharded runners (the temporal-block one under both
+    ``push`` with each of its walls; both sharded runners (the temporal-block one under both
     transports) on the 2x2 mesh of the card at 128^2 and 4096^2.  Returns
     the capture's seconds per runner: the first call's wall time less the
     second's, for the longest case of each."""
@@ -1982,13 +2014,14 @@ def check_graphs(device, sweep_cfg: SimConfig, sharded_cfg: SimConfig) -> dict:
                            (noisy_state(cfg, device),))
         held(f"cuda-tblock {n}^2, {steps} steps", t)
     for n, counts in GRAPH_PUSH_STEPS.items():
-        cfg = graph_config(n, one_card)
-        f0 = noisy_state(cfg, device).f
-        for steps in counts:
-            t = graph_vs_eager(f"push {n}^2, {steps} steps",
-                               push.make_push_scan_runner(cfg, steps, device),
-                               push._eager_push_scan_runner(cfg, steps, device), (f0,))
-            held(f"cuda-push {n}^2, {steps} steps", t)
+        for wall in PUSH_KERNELS:
+            cfg = dataclasses.replace(graph_config(n, one_card), boundary=wall)
+            f0 = noisy_state(cfg, device).f
+            for steps in counts:
+                t = graph_vs_eager(f"push {wall} {n}^2, {steps} steps",
+                                   push.make_push_scan_runner(cfg, steps, device),
+                                   push._eager_push_scan_runner(cfg, steps, device), (f0,))
+            held(f"cuda-push {wall} {n}^2, {steps} steps", t)
     for n, steps in GRAPH_SHARDED_STEPS.items():
         cfg = graph_config(n, sharded_cfg)
         mesh = sharded_mesh(device)
@@ -2206,11 +2239,16 @@ def main() -> None:
                     SimConfig(nx=128, ny=128, reynolds=100.0, collision="mrt")):
             worst["tblock_step"] = max(worst["tblock_step"],
                                        compare_tblock_pull(cfg, device, 64))
-        for name, kw in small:
-            worst["push_step"] = max(worst["push_step"], compare_push(
-                name, SimConfig(nx=128, ny=128, **kw), device))
-        worst["push_step"] = max(worst["push_step"],
-                                 compare_push("mrt", bench_cfg, device))
+        # each wall of the push kernel, bit for bit, at 128^2, at the 48^2
+        # of the main path's runs (the new walls) and at 1024^2
+        for wall, key in PUSH_KERNELS.items():
+            cases = [(name, SimConfig(nx=128, ny=128, boundary=wall, **kw))
+                     for name, kw in small]
+            cases.append(("mrt", dataclasses.replace(bench_cfg, boundary=wall)))
+            if wall != "nebb":
+                cases.append(("srt re=100", push_run_config(wall)))
+            for name, cfg in cases:
+                worst[key] = max(worst[key], compare_push(name, cfg, device))
 
     with phase("kernel vs plain: sharded"):
         n = SHARDED_COMPARE_N
@@ -2320,7 +2358,7 @@ def main() -> None:
               flush=True)
 
     # the slow gates before the phases that start process groups, profilers
-    # and training: the push oracle's gate is bound by the host's pace
+    # and training, so that the gates' wall times are read on a quiet host
     with phase("main path: the slow gates"), tempfile.TemporaryDirectory() as tmp:
         add_counts(main_launches, run_slow_gates(device, tmp))
 
@@ -2344,10 +2382,10 @@ def main() -> None:
                       max_steps=12_000, report_interval=2_000),
             device, tmp, "cuda-push", "cuda-push",
             {"r2_ux": (">", 0.99), "l2_combined": ("<", 0.05)}))
-        run_main_path(
-            SimConfig(nx=48, ny=48, reynolds=100.0, boundary="bounce_back",
-                      max_steps=200, report_interval=100),
-            device, tmp, "auto", "push-oracle")
+        # the walls only the push engines implement: auto takes the kernel
+        for wall in ("bounce_back", "nebb_west_eq"):
+            add_counts(main_launches, run_main_path(
+                push_run_config(wall), device, tmp, "auto", "cuda-push"))
     with phase("main path: sharded cavity"), tempfile.TemporaryDirectory() as tmp:
         mesh_devices = [device] * (SHARDED_MESH[0] * SHARDED_MESH[1])
         sharded_run = dataclasses.replace(sharded_cfg, max_steps=2_000,
@@ -2668,6 +2706,28 @@ def main() -> None:
         print(f"  {BENCH_N}^2 push_step {ms:.5f} ms/step ({cells * 1e-3 / ms:.1f} "
               f"MLUPS); plain {timing['push_step']['plain_ms']:.4f} ms/step; bound "
               f"{b_ms:.5f} ms/step by {b_by}", flush=True)
+        # the push kernel's other two walls, each in turns with its NEBB form
+        # (nebb, wall, wall, nebb) at 1024^2 MRT, by CUDA events; the bound
+        # is the same 72 B/cell (the walls are O(perimeter))
+        for wall in ("nebb_west_eq", "bounce_back"):
+            wall_cfg = dataclasses.replace(bench_cfg, boundary=wall)
+            runners = {"nebb": push.make_push_scan_runner(bench_cfg, SWEEP_STEPS, device),
+                       wall: push.make_push_scan_runner(wall_cfg, SWEEP_STEPS, device)}
+            for run in runners.values():
+                run(f0)
+            ms = {"nebb": [], wall: []}
+            for name in ("nebb", wall, wall, "nebb"):
+                ms[name].append(cuda_time_ms(lambda: runners[name](f0), 1) / SWEEP_STEPS)
+            wall_ms = sum(ms[wall]) / 2
+            timing[PUSH_KERNELS[wall]] = dict(
+                ms=wall_ms, bound_ms=b_ms, bound_by=b_by,
+                plain_ms=time_plain(engine.make_push_oracle_step(wall_cfg), f0))
+            print(f"  {BENCH_N}^2 push_step {wall} in turns with nebb: {ms} ms/step; "
+                  f"{wall}/nebb time {wall_ms / (sum(ms['nebb']) / 2):.4f}; "
+                  f"{cells * 1e-3 / wall_ms:.1f} MLUPS, {b_ms / wall_ms:.3f} of the bound "
+                  f"{b_ms:.5f} ms/step by {b_by}; plain (push oracle) "
+                  f"{timing[PUSH_KERNELS[wall]]['plain_ms']:.4f} ms/step", flush=True)
+            del runners
         del res, lid_start, f0
 
     with phase("the bench command"):

@@ -96,8 +96,11 @@ __device__ __forceinline__ void trt_pair(const float g[9], const float e[9],
   o[b] = g[b] - omega * (fp - ep) + om * (fm - em);
 }
 
-// Moments of g with the wall overrides ("wall" lid corners: the two top
-// corners belong to the side walls) and the lid-row density closure.
+// Moments of g with the wall overrides and the lid-row density closure.
+// The two top corners belong to the side walls ("wall" lid corners, every
+// kernel's rule), or with kLidCorners to the lid (the push engine's
+// nebb_west_eq, after the reference NumPy engine).
+template <bool kLidCorners = false>
 __device__ __forceinline__ void cell_macros(const float g[9], const bool side,
                                             const bool bottom, const bool lid,
                                             const float u_lid, float& rho,
@@ -106,7 +109,7 @@ __device__ __forceinline__ void cell_macros(const float g[9], const bool side,
   ux = (g[1] - g[3] + g[5] - g[6] - g[7] + g[8]) / rho;
   uy = (g[2] - g[4] + g[5] + g[6] - g[7] - g[8]) / rho;
   if (side || bottom) { ux = 0.0f; uy = 0.0f; }
-  if (lid && !side) {
+  if (lid && (kLidCorners || !side)) {
     ux = u_lid;
     uy = 0.0f;
     rho = g[0] + g[1] + g[3] + 2.0f * (g[2] + g[5] + g[6]);

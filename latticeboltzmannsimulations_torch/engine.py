@@ -17,8 +17,9 @@ Beside the fused step it has the JAX engine's two oracles:
 ``make_push_oracle_step``
     The unfused collide -> stream -> BC step in the reference NumPy
     engine's order (reference: ``MRT.py:286-453``), on the plain
-    pre-collision field ``f``.  It is the only engine of the non-NEBB walls
-    ``bounce_back`` and ``nebb_west_eq``.
+    pre-collision field ``f``.  It and the push kernel, whose plain version
+    it is, are the engines of the non-NEBB walls ``bounce_back`` and
+    ``nebb_west_eq``.
 ``make_pull_oracle_step``
     The reference pull-kernel semantics written out — gather, NEBB from the
     previous step's equilibrium, macros, collide — with the equilibrium

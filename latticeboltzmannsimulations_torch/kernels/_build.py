@@ -152,6 +152,12 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         *scalars,
         p,                          # stream
     ]
+    lib.lbm_push_step_wall.argtypes = [
+        p, p,                       # f, f_out
+        *scalars,
+        i,                          # wall kind (push.WALLS)
+        p,                          # stream
+    ]
     lib.lbm_pull_sharded_step.argtypes = [
         p, p, p, p, p,              # f, rho_lid_prev, cs2_plane, f_out, rho_lid_out
         i, i, i, i,                 # lx, ly, pitch, y0 of the carry
@@ -174,7 +180,8 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ]
     lib.lbm_enable_peer_access.argtypes = [i, i]   # device, peer
     for fn in (lib.lbm_pull_step, lib.lbm_pull_step_tangential, lib.lbm_pull_sweep_step,
-               lib.lbm_tblock_step, lib.lbm_push_step, lib.lbm_pull_sharded_step, lib.lbm_tblock_sharded_step,
+               lib.lbm_tblock_step, lib.lbm_push_step, lib.lbm_push_step_wall,
+               lib.lbm_pull_sharded_step, lib.lbm_tblock_sharded_step,
                lib.lbm_halo_exchange, lib.lbm_enable_peer_access):
         fn.restype = ctypes.c_int
     lib.lbm_error_string.argtypes = [ctypes.c_int]

@@ -130,7 +130,8 @@ def _counters() -> List[Tuple[object, str]]:
     from . import halo_rdma, pull, pull_sharded, push, tblock, tblock_sharded
 
     return [(pull, "launches"), (pull, "tangential_launches"), (pull, "sweep_launches"),
-            (tblock, "launches"), (push, "launches"), (pull_sharded, "launches"),
+            (tblock, "launches"), (push, "launches"), (push, "west_eq_launches"),
+            (push, "bounce_back_launches"), (pull_sharded, "launches"),
             (tblock_sharded, "launches"), (halo_rdma, "launches"), (halo, "copies")]
 
 

@@ -3,11 +3,16 @@
 Counterpart of the JAX package's ``kernels/pallas_push.py``
 (``make_push_step``, ``make_push_scan_runner``): one step on the plain
 pre-collision field ``f``, in the reference NumPy engine's order (moments,
-wall-velocity override, feq, collision, push stream, full NEBB with this
-step's feq).  The kernel is ``csrc/push_step.cu``; its plain PyTorch version
-is the push oracle, ``engine.make_push_oracle_step``.  Like the JAX
-package's push kernel it is taken only when asked for
-(``backend="cuda-push"``); the pull kernels stay the production path.
+wall-velocity override, feq, collision, push stream, walls with this step's
+feq).  The kernel is ``csrc/push_step.cu``; its plain PyTorch version is the
+push oracle, ``engine.make_push_oracle_step``.  It serves three walls: the
+full NEBB (``boundary="nebb"``, the entry ``lbm_push_step``, as the JAX
+package's push kernel), and the two walls that the JAX package runs only on
+its push oracle, ``nebb_west_eq`` and ``bounce_back`` (the entry
+``lbm_push_step_wall``, the wall kind its argument).  For NEBB it is taken
+only when asked for (``backend="cuda-push"``), the pull kernels staying the
+production path; for the other two ``backend="auto"`` takes it on the card
+(``sim._select_backend``).
 
 A step on CUDA tensors launches the kernel or raises; a step on CPU tensors
 runs the plain version.  There is no fallback from one to the other.  On
@@ -15,7 +20,8 @@ the card the runner replays its chunk as CUDA graphs
 (``kernels/graphs.py``); ``_eager_push_scan_runner`` launches the same
 steps one by one from the host, the form the graphs are held to.
 
-``launches`` counts the kernel's launches in this process.
+``launches`` counts the NEBB kernel's launches in this process,
+``west_eq_launches`` and ``bounce_back_launches`` the other two walls'.
 """
 
 from __future__ import annotations
@@ -27,19 +33,26 @@ from ..engine import State, _check_device, make_push_oracle_step
 from . import _build, graphs, pull
 
 launches = 0
+west_eq_launches = 0
+bounce_back_launches = 0
+
+# The push kernel's walls by csrc/push_step.cu's enum Wall: NEBB through the
+# entry lbm_push_step, the other two through lbm_push_step_wall.
+WALLS = {"nebb": 0, "nebb_west_eq": 1, "bounce_back": 2}
 
 
 def unsupported_reason(cfg: SimConfig) -> str | None:
     """Why the kernel cannot run this configuration, or None if it can."""
-    if cfg.boundary != "nebb":
-        return (f"the push kernel implements the NEBB walls, not "
-                f"{cfg.boundary!r}; the push oracle runs the others")
-    reason = pull.unsupported_reason(cfg)
-    if reason is not None:
-        return reason
+    if cfg.precision != "float32":
+        return "the CUDA kernel is float32; use the push oracle for float64"
+    if cfg.boundary not in WALLS:
+        return (f"the push kernel implements the NEBB, NEBB west-equilibrium and "
+                f"bounce-back walls, not {cfg.boundary!r}")
+    if cfg.mesh_shape != (1, 1):
+        return "the CUDA kernel runs on one device"
     if cfg.turbulence == "smagorinsky" and cfg.van_driest:
-        return ("the push kernel has no Van Driest Cs^2 plane; use the "
-                "one-step pull kernel")
+        return ("the push kernel has no Van Driest Cs^2 plane; use the push "
+                "oracle, or for NEBB the one-step pull kernel")
     if -(-cfg.ny // 32) > 65535:
         return f"ny={cfg.ny} needs more than 65535 tiles of 32 rows"
     return None
@@ -56,14 +69,24 @@ def _check_f(cfg: SimConfig, f: torch.Tensor, device: torch.device) -> None:
     pull._check_tensor("f", f, (9, cfg.nx, cfg.ny), device)
 
 
-def _launch(lib, f_ptr: int, f_out_ptr: int, scalars: tuple, stream: int) -> None:
-    global launches
-    err = lib.lbm_push_step(f_ptr, f_out_ptr, *scalars, stream)
+def _launch(lib, boundary: str, f_ptr: int, f_out_ptr: int, scalars: tuple,
+            stream: int) -> None:
+    """One launch of the entry of ``boundary``'s walls, counted."""
+    global launches, west_eq_launches, bounce_back_launches
+    if boundary == "nebb":
+        err = lib.lbm_push_step(f_ptr, f_out_ptr, *scalars, stream)
+    else:
+        err = lib.lbm_push_step_wall(f_ptr, f_out_ptr, *scalars, WALLS[boundary], stream)
     if err != 0:
         raise RuntimeError(
-            f"push_step launch failed: {lib.lbm_error_string(err).decode()}"
+            f"push_step launch failed ({boundary}): {lib.lbm_error_string(err).decode()}"
         )
-    launches += 1
+    if boundary == "nebb":
+        launches += 1
+    elif boundary == "nebb_west_eq":
+        west_eq_launches += 1
+    else:
+        bounce_back_launches += 1
 
 
 def push_step(cfg: SimConfig, f: torch.Tensor, f_out: torch.Tensor) -> None:
@@ -79,7 +102,7 @@ def push_step(cfg: SimConfig, f: torch.Tensor, f_out: torch.Tensor) -> None:
     if f_out.data_ptr() == f.data_ptr():
         raise ValueError("the push step cannot run in place; give it two buffers")
     with torch.cuda.device(device):
-        _launch(_build.load_library(), f.data_ptr(), f_out.data_ptr(),
+        _launch(_build.load_library(), cfg.boundary, f.data_ptr(), f_out.data_ptr(),
                 pull._scalars(cfg), torch.cuda.current_stream(device).cuda_stream)
 
 
@@ -126,7 +149,7 @@ def make_push_scan_runner(cfg: SimConfig, n_steps: int, device="cuda"):
     scalars = pull._scalars(cfg)
 
     def launch(one: graphs.Launch, bufs) -> None:
-        _launch(_build.load_library(), bufs[one.src][0].data_ptr(),
+        _launch(_build.load_library(), cfg.boundary, bufs[one.src][0].data_ptr(),
                 bufs[one.dst][0].data_ptr(), scalars,
                 torch.cuda.current_stream(device).cuda_stream)
 
@@ -161,7 +184,7 @@ def _eager_push_scan_runner(cfg: SimConfig, n_steps: int, device="cuda"):
             stream = torch.cuda.current_stream(device).cuda_stream
             for i in range(n_steps):
                 dst = bufs[i % 2].data_ptr()
-                _launch(lib, src, dst, scalars, stream)
+                _launch(lib, cfg.boundary, src, dst, scalars, stream)
                 src = dst
         return bufs[(n_steps - 1) % 2]
 

@@ -12,10 +12,13 @@ Backends:
   ``K`` steps per launch.  ``"auto"`` picks it for float32 NEBB fields of
   at least ``TBLOCK_AUTO_MIN_CELLS`` cells without Van Driest damping.
 * ``"cuda-push"`` — the push CUDA kernel (``kernels/push.py``), on the plain
-  pre-collision field; only when asked for, as the JAX driver's
+  pre-collision field.  ``"auto"`` picks it on a CUDA device for the
+  float32 ``bounce_back`` and ``nebb_west_eq`` walls without Van Driest
+  damping; for NEBB only when asked for, as the JAX driver's
   ``pallas-push``.
 * ``"push-oracle"`` — the plain push engine (``engine.make_push_oracle_step``),
-  the only engine of the ``bounce_back`` and ``nebb_west_eq`` walls.
+  for the ``bounce_back`` and ``nebb_west_eq`` walls where the push kernel
+  does not serve them: on the CPU, in float64, with Van Driest damping.
 * ``"torch"`` — the plain fused engine (``engine.py``), for what the kernels
   do not take (float64), and on the CPU.
 
@@ -159,7 +162,7 @@ SHARDED_TBLOCK_HALO_IMPL = "rdma"
 BACKENDS = ("auto", "cuda-pull", "cuda-tblock", "cuda-push", "push-oracle", "torch",
             "cuda-sharded", "cuda-sharded-tblock", "sharded")
 _SHARDED = ("cuda-sharded", "cuda-sharded-tblock", "sharded")
-# Walls that only the push oracle implements.
+# Walls that only the push engines (the push kernel and its oracle) implement.
 _PUSH_ONLY = ("bounce_back", "nebb_west_eq")
 
 
@@ -254,8 +257,10 @@ def _select_backend(cfg: SimConfig, backend: str, device: Placement) -> Backend:
     one device ``auto`` on the card takes a kernel for float32 NEBB (the
     temporal-block one from ``TBLOCK_AUTO_MIN_CELLS`` cells) and the one-step
     kernel for the float32 tangential lid at every size (the temporal-block
-    kernel refuses it), the plain fused engine for float64 and on the CPU,
-    and the push oracle for the walls only it implements.  A mesh, or a sharded backend, goes to
+    kernel refuses it), the plain fused engine for float64 and on the CPU;
+    for the walls only the push engines implement, the push kernel on the
+    card where it serves the configuration, the push oracle otherwise.  A
+    mesh, or a sharded backend, goes to
     ``_select_sharded``; ``device`` is then the ``Mesh`` (or, for a 1 x 1
     mesh, its one device), and ``cuda-sharded-tblock`` refreshes its halo
     through ``SHARDED_TBLOCK_HALO_IMPL`` ("rdma": one exchange kernel
@@ -295,7 +300,11 @@ def _select_backend(cfg: SimConfig, backend: str, device: Placement) -> Backend:
     if backend == "push-oracle" or cfg.boundary in _PUSH_ONLY:
         if backend not in ("auto", "push-oracle"):
             raise ValueError(f"boundary {cfg.boundary!r} runs only on the push "
-                             f"oracle, not on backend {backend!r}")
+                             f"engines (cuda-push, push-oracle), not on backend "
+                             f"{backend!r}")
+        if (backend == "auto" and device.type == "cuda"
+                and push.unsupported_reason(cfg) is None):
+            return Backend("cuda-push", kernels["cuda-push"][1], pushed)
         return Backend("push-oracle",
                        lambda n: engine.make_push_scan_runner(cfg, n, device), pushed)
     if backend == "auto" and device.type == "cuda" and pull.unsupported_reason(cfg) is None:

@@ -1,10 +1,13 @@
 #!/usr/bin/env python
 """Flagship physics validation on the card: the port's counterpart of
-``scripts/validate_tpu.py`` and of BASELINE config 3 in
-``scripts/r5_validate.py`` (``re10000_1024_mrt_les``).
+``scripts/validate_tpu.py`` and of every run of ``scripts/r5_validate.py``
+(the BC-closure controls on the tangential and bounce-back walls, the
+re-measured rollup rows, the fine-interval runs and BASELINE config 3,
+``re10000_1024_mrt_les``).
 
 Each run goes through ``simulate(backend="auto")`` in float32 to its step
-cap, and its record keeps the JAX scripts' keys, with the route taken
+cap (``re1000_512_bb`` on the push kernel, ``cuda-push``), and its record
+keeps the JAX scripts' keys, with the route taken
 (``backend``), the card, and the JAX package's record of the same run
 beside it (``jax_r2_ux``, ``jax_l2_pct``: ``docs/artifacts/validation.json``
 and ``validation_r5.json``).  A run passes when it comes within
@@ -56,7 +59,25 @@ RUNS = [
     ("re1000_512_mrt", 512, 1000.0, "mrt", "none", "nebb", 1_500_000, 100_000),
     ("re3200_384_mrt", 384, 3200.0, "mrt", "none", "nebb", 4_000_000, 100_000),
     ("re5000_384_mrt_les", 384, 5000.0, "mrt", "smagorinsky", "nebb", 1_500_000, 100_000),
-    # BASELINE config 3, scripts/r5_validate.py:71-72: plain Smagorinsky
+    # scripts/r5_validate.py:50-72, each with its own cap and interval.
+    # A. BC-closure controls at the Re=1000 flagship
+    ("re1000_512_tang", 512, 1000.0, "mrt", "none", "nebb_tangential",
+     4_000_000, 100_000),
+    ("re1000_512_bb", 512, 1000.0, "mrt", "none", "bounce_back",
+     1_500_000, 100_000),
+    # B. the rollup rows re-measured under the current harness
+    ("re3200_384_mrt_les", 384, 3200.0, "mrt", "smagorinsky", "nebb",
+     2_000_000, 200_000),
+    ("re3200_384_srt_les", 384, 3200.0, "srt", "smagorinsky", "nebb",
+     2_000_000, 200_000),
+    ("re400_192_srt", 192, 400.0, "srt", "none", "nebb",
+     1_600_000, 200_000),
+    # C. the convergence-gate runs (fine report interval)
+    ("re1000_512_mrt_fine", 512, 1000.0, "mrt", "none", "nebb",
+     4_000_000, 10_000),
+    ("re3200_384_mrt_fine", 384, 3200.0, "mrt", "none", "nebb",
+     8_000_000, 10_000),
+    # D. BASELINE config 3: plain Smagorinsky
     ("re10000_1024_mrt_les", 1024, 10000.0, "mrt", "smagorinsky", "nebb",
      3_000_000, 150_000),
 ]

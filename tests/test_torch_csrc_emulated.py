@@ -377,16 +377,38 @@ def test_pull_step_equals_plain_bit_for_bit(lib, case, lid):
     _equal(_pull_steps(lib, cfg, s0, BIT_STEPS), want)
 
 
-@pytest.mark.parametrize("case", BIT_CASES)
-def test_push_step_equals_oracle_bit_for_bit(lib, case):
-    cfg = _cfg(70, 46, case)
-    f = f_plain = _start(cfg).f
-    oracle = engine.make_push_oracle_step(cfg)
-    for _ in range(BIT_STEPS):
+# The push kernel's wall kinds: the full NEBB, and the two walls of the
+# entry lbm_push_step_wall (nebb_west_eq: the lid corners move with the lid;
+# bounce_back: the Bouzidi lid's u_lid / 6 and the static corner closure).
+PUSH_WALLS = ("nebb", "nebb_west_eq", "bounce_back")
+
+
+def _push_steps(lib, cfg, f, n):
+    """``n`` launches of the emulated push kernel through the wrapper's
+    ``_launch``, which picks the entry of ``cfg.boundary``."""
+    for _ in range(n):
         out = torch.empty_like(f)
-        push._launch(lib, f.data_ptr(), out.data_ptr(), pull._scalars(cfg), None)
-        f, f_plain = out, oracle(f_plain)
-    assert torch.equal(f, f_plain)
+        push._launch(lib, cfg.boundary, f.data_ptr(), out.data_ptr(),
+                     pull._scalars(cfg), None)
+        f = out
+    return f
+
+
+def _push_oracle(cfg, f, n):
+    oracle = engine.make_push_oracle_step(cfg)
+    for _ in range(n):
+        f = oracle(f)
+    return f
+
+
+@pytest.mark.parametrize("wall", PUSH_WALLS)
+@pytest.mark.parametrize("case", BIT_CASES)
+def test_push_step_equals_oracle_bit_for_bit(lib, case, wall):
+    cfg = _cfg(70, 46, case, boundary=wall)
+    f0 = _start(cfg).f
+    want = _push_oracle(cfg, f0, BIT_STEPS)
+    assert torch.isfinite(want).all()
+    assert torch.equal(_push_steps(lib, cfg, f0, BIT_STEPS), want)
 
 
 @pytest.mark.parametrize("case", ["trt", "mrt"])
@@ -484,16 +506,13 @@ def test_tblock_step_equals_pull_step(lib, nx, ny, k):
     _equal(_tblock_steps(lib, cfg, s0, 2, k), _pull_steps(lib, cfg, s0, 2 * k))
 
 
+@pytest.mark.parametrize("wall", PUSH_WALLS)
 @pytest.mark.parametrize("case", ["srt", "trt", "mrt", "mrt_smagorinsky"])
-def test_push_step_matches_oracle(lib, case):
-    cfg = _cfg(70, 46, case)
-    f = f_plain = _start(cfg).f
-    oracle = engine.make_push_oracle_step(cfg)
-    for _ in range(STEPS):
-        out = torch.empty_like(f)
-        push._launch(lib, f.data_ptr(), out.data_ptr(), pull._scalars(cfg), None)
-        f, f_plain = out, oracle(f_plain)
-    torch.testing.assert_close(f, f_plain, rtol=0, atol=ATOL)
+def test_push_step_matches_oracle(lib, case, wall):
+    cfg = _cfg(70, 46, case, boundary=wall)
+    f0 = _start(cfg).f
+    torch.testing.assert_close(_push_steps(lib, cfg, f0, STEPS),
+                               _push_oracle(cfg, f0, STEPS), rtol=0, atol=ATOL)
 
 
 @pytest.mark.parametrize("case", list(CASES))

@@ -11,6 +11,7 @@ halo exchange kernel and the runners it drives are held to their copies
 exactly (``torch.equal``): it only moves values."""
 
 import dataclasses
+import json
 
 import pytest
 import torch
@@ -410,19 +411,28 @@ def test_simulate_and_run_to_convergence_through_tblock(cuda, tmp_path):
     assert res.mean_u_history == pytest.approx(ref.mean_u_history, rel=0, abs=1e-7)
 
 
+# The push kernel's walls and each one's launch counter.
+PUSH_COUNTERS = {"nebb": "launches", "nebb_west_eq": "west_eq_launches",
+                 "bounce_back": "bounce_back_launches"}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("wall", list(PUSH_COUNTERS))
 @pytest.mark.parametrize("case", list(CASES))
-def test_push_kernel_matches_oracle(cuda, case):
-    """20 push steps on a field that is no multiple of the 16 x 32 tile."""
-    cfg = SimConfig(**{"nx": 70, "ny": 90, "reynolds": 400.0, **CASES[case]})
+def test_push_kernel_matches_oracle(cuda, case, wall):
+    """20 push steps on a field that is no multiple of the 16 x 32 tile,
+    each launch counted on its wall's entry."""
+    cfg = SimConfig(**{"nx": 70, "ny": 90, "reynolds": 400.0, "boundary": wall,
+                       **CASES[case]})
     plain = engine.make_push_oracle_step(cfg)
     kernel = push.make_push_step(cfg, device=cuda)
-    before = push.launches
+    before = {name: getattr(push, name) for name in PUSH_COUNTERS.values()}
     f_p = f_k = engine.init_state(cfg, device=cuda).f
     for _ in range(20):
         f_p, f_k = plain(f_p), kernel(f_k)
     torch.cuda.synchronize()
-    assert push.launches - before == 20
+    assert {name: getattr(push, name) - n for name, n in before.items()} == {
+        name: 20 if name == PUSH_COUNTERS[wall] else 0 for name in before}
     torch.testing.assert_close(f_k, f_p, rtol=0, atol=ATOL)
 
 
@@ -447,8 +457,15 @@ def test_push_refusals(cuda):
     f = engine.init_state(cfg, device=cuda).f
     with pytest.raises(ValueError, match="in place"):
         push.push_step(cfg, f, f)
+    # bounce_back, once refused, runs: one step equals the push oracle's
+    bb = SimConfig(nx=32, ny=32, boundary="bounce_back")
+    f_bb = engine.init_state(bb, device=cuda).f
+    out = push.make_push_step(bb, device=cuda)(f_bb)
+    torch.testing.assert_close(out, engine.make_push_oracle_step(bb)(f_bb), rtol=0,
+                               atol=ATOL)
     with pytest.raises(ValueError, match="NEBB"):
-        push.make_push_step(SimConfig(nx=32, ny=32, boundary="bounce_back"), device=cuda)
+        push.make_push_step(SimConfig(nx=32, ny=32, boundary="nebb_tangential"),
+                            device=cuda)
     with pytest.raises(ValueError, match="Van Driest"):
         push.make_push_step(SimConfig(nx=32, ny=32, turbulence="smagorinsky",
                                       van_driest=True), device=cuda)
@@ -457,11 +474,51 @@ def test_push_refusals(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("boundary", ["bounce_back", "nebb_west_eq"])
 def test_push_oracle_route_on_the_card(cuda, tmp_path, boundary):
+    """The push oracle on the card when asked for, and for these walls
+    where the push kernel does not serve them (Van Driest); ``auto`` takes
+    the push kernel otherwise."""
     cfg = SimConfig(nx=48, ny=48, reynolds=100.0, boundary=boundary,
                     max_steps=200, report_interval=100)
-    s = simulate(cfg, SimOptions(out_dir=str(tmp_path), verbose=False), device=cuda)
+    s = simulate(cfg, SimOptions(out_dir=str(tmp_path / "oracle"), verbose=False,
+                                 backend="push-oracle"), device=cuda)
     assert s.backend == "push-oracle" and s.steps == 200
     assert s.r2_ux is not None and torch.isfinite(torch.tensor(s.r2_ux))
+    vd = dataclasses.replace(cfg, turbulence="smagorinsky", van_driest=True,
+                             max_steps=100)
+    s = simulate(vd, SimOptions(out_dir=str(tmp_path / "vd"), verbose=False), device=cuda)
+    assert s.backend == "push-oracle" and s.steps == 100
+
+
+def _metrics(path):
+    """A run's metrics records without their wall times, MLUPS and route."""
+    drop = ("t", "mlups", "backend")
+    return [{k: v for k, v in json.loads(line).items() if k not in drop}
+            for line in path.read_text().splitlines()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("boundary", list(PUSH_COUNTERS))
+def test_cuda_push_simulate_equals_push_oracle(cuda, tmp_path, boundary):
+    """``simulate`` through ``cuda-push`` (``auto``'s route for the walls
+    only the push engines implement, asked for with NEBB) over four report
+    intervals, with the mass correction, equals ``backend="push-oracle"``
+    bit for bit: the kernel does the oracle's operations in its order.
+    Mean u and the Ghia scores of every interval, and the final scores."""
+    cfg = SimConfig(nx=64, ny=64, reynolds=100.0, collision="mrt", boundary=boundary,
+                    max_steps=400, report_interval=100)
+    backend = "cuda-push" if boundary == "nebb" else "auto"
+    counter = PUSH_COUNTERS[boundary]
+    before = getattr(push, counter)
+    k = simulate(cfg, SimOptions(out_dir=str(tmp_path / "kernel"), verbose=False,
+                                 backend=backend), device=cuda)
+    torch.cuda.synchronize()
+    assert k.backend == "cuda-push" and getattr(push, counter) - before == 400
+    o = simulate(cfg, SimOptions(out_dir=str(tmp_path / "oracle"), verbose=False,
+                                 backend="push-oracle"), device=cuda)
+    assert o.backend == "push-oracle" and k.steps == o.steps == 400
+    assert (k.r2_ux, k.r2_uy, k.l2_combined) == (o.r2_ux, o.r2_uy, o.l2_combined)
+    assert (_metrics(tmp_path / "kernel" / "ldc_metrics.jsonl")
+            == _metrics(tmp_path / "oracle" / "ldc_metrics.jsonl"))
 
 
 # The sharded kernels, on meshes of one card: each shard runs its kernel with

@@ -33,7 +33,9 @@ CASES = {
     "nebb_srt_van_driest": dict(collision="srt", turbulence="smagorinsky",
                                 van_driest=True, reynolds=5000.0),
     "nebb_west_eq_mrt": dict(collision="mrt", boundary="nebb_west_eq"),
+    "nebb_west_eq_trt": dict(collision="trt", boundary="nebb_west_eq"),
     "bounce_back_srt": dict(collision="srt", boundary="bounce_back"),
+    "bounce_back_trt": dict(collision="trt", boundary="bounce_back"),
     "bounce_back_mrt": dict(collision="mrt", boundary="bounce_back"),
     "nebb_tangential_mrt": dict(collision="mrt", boundary="nebb_tangential"),
 }
@@ -120,6 +122,31 @@ def test_push_module_matches_pallas_interpret(case, precision):
                                atol=TOL[precision])
 
 
+@pytest.mark.parametrize("case", ["nebb_west_eq_mrt", "nebb_west_eq_trt",
+                                  "bounce_back_srt", "bounce_back_trt",
+                                  "bounce_back_mrt"])
+def test_push_module_matches_jax_oracle(case):
+    """The module for the walls that the Pallas push kernel refuses
+    (``nebb_west_eq``, ``bounce_back``; the JAX package runs them on its push
+    oracle) against the JAX push oracle: float32, atol 2e-5 over 20 steps,
+    the step and the scan runner, whose wrappers run the plain version on
+    CPU tensors."""
+    tc, jc = _configs("float32", **CASES[case])
+    f0 = _start_f(jc, seed=3)
+    j_step = jax.jit(j_eng.make_push_oracle_step(jc))
+    f_j = jnp.asarray(f0)
+    for _ in range(STEPS["float32"]):
+        f_j = j_step(f_j)
+    step = push.make_push_step(tc, device="cpu")
+    f_t = torch.tensor(f0)
+    for _ in range(STEPS["float32"]):
+        f_t = step(f_t)
+    np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), rtol=0,
+                               atol=TOL["float32"])
+    f_run = push.make_push_scan_runner(tc, STEPS["float32"], device="cpu")(torch.tensor(f0))
+    assert torch.equal(f_run, f_t)
+
+
 def test_push_runners_on_cpu_equal_stepping():
     cfg = TConfig(nx=20, ny=16, reynolds=400.0, collision="mrt")
     f0 = t_eng.init_state(cfg, device="cpu").f
@@ -136,7 +163,8 @@ def test_push_runners_on_cpu_equal_stepping():
 
 @pytest.mark.parametrize("kw, reason", [
     (dict(precision="float64"), "float32"),
-    (dict(boundary="bounce_back"), "NEBB"),
+    (dict(boundary="bounce_back", turbulence="smagorinsky", van_driest=True),
+     "Van Driest"),
     (dict(boundary="nebb_tangential"), "NEBB"),
     (dict(turbulence="smagorinsky", van_driest=True), "Van Driest"),
     (dict(mesh_shape=(2, 1)), "one device"),
@@ -159,3 +187,5 @@ def test_push_step_takes_cuda_tensors_only():
         push.push_step(cfg, f.double(), torch.empty_like(f))
     assert push.unsupported_reason(TConfig(nx=16, ny=16, collision="trt",
                                            turbulence="smagorinsky")) is None
+    for wall in ("nebb_west_eq", "bounce_back"):
+        assert push.unsupported_reason(TConfig(nx=16, ny=16, boundary=wall)) is None

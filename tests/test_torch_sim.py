@@ -91,12 +91,23 @@ CUDA = torch.device("cuda", 0)
     (dict(boundary="nebb_tangential", precision="float64"), "auto", CUDA, "torch"),
     (dict(), "cuda-pull", CUDA, "cuda-pull"),
     (dict(), "torch", CUDA, "torch"),
-    # The push scheme: walls only the push oracle implements, on any device;
-    # the push kernel only when asked for.
+    # The push scheme: the walls only the push engines implement go to the
+    # push kernel on the card where it serves them (float32, no Van
+    # Driest), to the push oracle otherwise; for NEBB the push kernel only
+    # when asked for.
     (dict(boundary="bounce_back"), "auto", CPU, "push-oracle"),
     (dict(boundary="nebb_west_eq"), "auto", CPU, "push-oracle"),
-    (dict(boundary="bounce_back"), "auto", CUDA, "push-oracle"),
+    (dict(boundary="bounce_back"), "auto", CUDA, "cuda-push"),
+    (dict(boundary="nebb_west_eq"), "auto", CUDA, "cuda-push"),
+    (dict(boundary="bounce_back", turbulence="smagorinsky"), "auto", CUDA, "cuda-push"),
+    (dict(boundary="bounce_back", turbulence="smagorinsky", van_driest=True), "auto",
+     CUDA, "push-oracle"),
+    (dict(boundary="nebb_west_eq", turbulence="smagorinsky", van_driest=True), "auto",
+     CUDA, "push-oracle"),
+    (dict(boundary="bounce_back", precision="float64"), "auto", CUDA, "push-oracle"),
     (dict(boundary="nebb_west_eq", precision="float64"), "auto", CUDA, "push-oracle"),
+    (dict(boundary="bounce_back"), "push-oracle", CUDA, "push-oracle"),
+    (dict(boundary="nebb_west_eq"), "cuda-push", CUDA, "cuda-push"),
     (dict(boundary="nebb_west_eq"), "push-oracle", CPU, "push-oracle"),
     (dict(), "push-oracle", CUDA, "push-oracle"),
     (dict(), "cuda-push", CUDA, "cuda-push"),
@@ -115,6 +126,8 @@ def test_backend_routing(kw, backend, device, expect):
     (dict(), "cuda-pull", ValueError),               # CPU: the kernel needs the card
     (dict(), "pallas", ValueError),
     (dict(), "cuda-push", ValueError),               # CPU
+    (dict(boundary="bounce_back"), "cuda-push", ValueError),   # CPU
+    (dict(boundary="nebb_west_eq"), "cuda-push", ValueError),  # CPU
     (dict(nx=64, ny=64), "cuda-tblock", ValueError),  # CPU
     (dict(boundary="bounce_back"), "torch", ValueError),
     # The push oracle runs these walls on one device only, as in the JAX driver.
@@ -129,7 +142,8 @@ def test_backend_routing_refuses(kw, backend, exc):
 
 
 @pytest.mark.parametrize("kw, backend, match", [
-    (dict(boundary="bounce_back"), "cuda-push", "NEBB"),
+    (dict(boundary="bounce_back", turbulence="smagorinsky", van_driest=True),
+     "cuda-push", "Van Driest"),
     (dict(boundary="nebb_west_eq"), "cuda-pull", "NEBB"),
     (dict(boundary="bounce_back"), "cuda-tblock", "NEBB"),
     (dict(precision="float64"), "cuda-push", "float32"),
