@@ -232,7 +232,24 @@ along x, each with its own omega) and the surrogate pipeline:
     ``re100_128_nebb_tangential``), each with its route and wall time, its
     launches counted (one per step on the routed kernel) and its own
     bounds, beside the
-    JAX package's record; a failed gate fails the script.
+    JAX package's record; a failed gate fails the script;
+(r) the surrogate pipeline's scripts in process
+    (``scripts/torch_datagen_full.py``, ``torch_datagen_topup.py``,
+    ``torch_check_dataset.py``, ``torch_predict_extrapolate.py``): the
+    310..370 chunk of JAX's dataset record at 96^2 (7 cavities, checks every
+    500 steps), a 1 000-step sweep and a 1 000-step top-up, each against the
+    same pass through the plain stacked step on the card (chunk files equal,
+    max |d| = 0); the same chunk at 384^2 with the scripts' defaults, a
+    20 000-step sweep and a 20 000-step top-up through the kernel, its
+    launches counted, the chunk's keys, shapes and cumulative steps, a
+    re-run that skips the done Re values and launches nothing, and the
+    dataset check's fixed fields against JAX's record; ``cnn_eight``,
+    ``cnn_nine`` and ``cnn_ten`` at Re = 7500 from the tracked weights on
+    that dataset's template, served at the TPU's precision (bfloat16
+    operands) within 1e-3 of JAX's ``cnn_vs_lbm_l2`` against its tracked
+    truth, their float32 numbers printed beside JAX's record, and their
+    float32 serving on the card held to the CPU forward (rtol 1e-4, atol
+    1e-5, TF32 off).
 
 The last three lines are ``nvidia-smi``'s line, one JSON object describing
 each kernel, and ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -250,6 +267,7 @@ import importlib.util
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1721,6 +1739,210 @@ def run_slow_gates(device, tmp: str) -> dict:
     return total
 
 
+PIPE_RE = ("--re-start", "310", "--re-stop", "380")   # one chunk of JAX's record
+PIPE_SMALL = ("--grid", "96", "--report-interval", "500")
+PIPE_SMALL_STEPS = 1_000               # the plain stacked step: ~13 ms a step at 7 x 96^2
+PIPE_FULL_STEPS = 20_000
+PIPE_RE_SERVE = 7500.0
+PIPE_MODELS = ("cnn_eight", "cnn_nine", "cnn_ten")
+PIPE_CNN_TOL = 1e-3
+
+
+def plain_sweep_runner(cfg: SimConfig, n_cav: int, n_steps: int, device="cuda"):
+    """``pull.make_sweep_runner``'s contract through the plain stacked step
+    (``engine.make_stacked_step_omega``) on ``device``: the omegas rounded
+    as the kernel's cavity table rounds them."""
+    step = engine.make_stacked_step_omega(cfg, n_cav)
+
+    def run(state: engine.State, omegas) -> engine.State:
+        om = torch.from_numpy(
+            pull.cavity_table(cfg, pull._host_omegas(omegas, n_cav))[:, 0].copy()).to(device)
+        for _ in range(n_steps):
+            state = step(state, om)
+        return state
+
+    return run
+
+
+def read_chunks(out_dir: str) -> dict:
+    chunk_dir = os.path.join(out_dir, "chunks")
+    return {fn: dict(np.load(os.path.join(chunk_dir, fn)))
+            for fn in sorted(os.listdir(chunk_dir))}
+
+
+def same_chunks(name: str, got: dict, want: dict) -> None:
+    """Two runs' chunk files equal: the same files, keys, counters, flags
+    and fields bit for bit (max |d| 0)."""
+    if list(got) != list(want):
+        raise AssertionError(f"{name}: chunk files {list(got)} against {list(want)}")
+    for fn in want:
+        if sorted(got[fn]) != sorted(want[fn]):
+            raise AssertionError(f"{name} {fn}: keys {sorted(got[fn])} against "
+                                 f"{sorted(want[fn])}")
+        for key, a in want[fn].items():
+            b = got[fn][key]
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"{name} {fn} {key}: {b.dtype}{b.shape} against "
+                                     f"{a.dtype}{a.shape}")
+            d = float(np.abs(b.astype(np.float64) - a.astype(np.float64)).max()) if a.size else 0.0
+            if d != 0.0:
+                raise AssertionError(f"{name} {fn} {key}: max |d| {d:.3e}, not 0")
+        print(f"  {name} {fn}: steps {int(want[fn]['steps'])}, converged "
+              f"{int(want[fn]['converged'].sum())}/{len(want[fn]['re'])}, f_final "
+              f"{want[fn]['f_final'].shape}: max |df| = 0, every key equal", flush=True)
+
+
+def run_pipeline_scripts(device, tmp: str) -> dict:
+    """(r): the surrogate pipeline's scripts in process.  (a) the 310..370
+    chunk of JAX's record at 96^2 (7 cavities, checks every 500 steps) cut
+    to a 1 000-step sweep (``scripts/torch_datagen_full.py``) and a
+    1 000-step top-up (``scripts/torch_datagen_topup.py``), each pass
+    against the same pass with the sweep runner swapped for the plain
+    stacked step on the card: chunk files equal bit for bit; (a') the
+    chunk at full width (384^2, the scripts' defaults) cut to a 20 000-step
+    sweep and a 20 000-step top-up through the kernel: the chunk's keys,
+    shapes, finiteness and cumulative steps, the re-run that skips the done
+    Re values and launches nothing, the assembly, and
+    ``scripts/torch_check_dataset.py``'s fixed fields against JAX's record;
+    (b) ``cnn_eight``, ``cnn_nine`` and ``cnn_ten`` at Re = 7500 from the
+    tracked weights through ``scripts/torch_predict_extrapolate.py`` on
+    (a')'s template, the tracked JAX truth as its cached truth: served at
+    the TPU's precision (``tpu_conv_precision``: bfloat16 operands),
+    ``cnn_vs_lbm_l2`` against that truth within 1e-3 of JAX's record; the
+    float32 numbers beside JAX's; and each surrogate's float32 serving on
+    the card against its CPU forward (rtol 1e-4, atol 1e-5, TF32 off).
+    Returns the kernel passes' launch counts."""
+    full, topup = load_script("torch_datagen_full"), load_script("torch_datagen_topup")
+    check = load_script("torch_check_dataset")
+    total = {name: 0 for name in COUNTERS}
+
+    def passes(out: str, plain: bool, small: bool) -> list:
+        """The sweep and then the top-up into ``out``; each pass's chunks
+        and launch counts."""
+        size = (*PIPE_SMALL, "--max-steps", str(PIPE_SMALL_STEPS)) if small else (
+            "--max-steps", str(PIPE_FULL_STEPS))
+        extra = str(PIPE_SMALL_STEPS if small else PIPE_FULL_STEPS)
+        grid_args = PIPE_SMALL if small else ()
+        kernel_runner = pull.make_sweep_runner
+        results = []
+        try:
+            if plain:
+                pull.make_sweep_runner = plain_sweep_runner
+            for name, mod, args in (
+                    ("sweep", full, [*size, *PIPE_RE, "--out", out]),
+                    ("topup", topup, [*grid_args, "--extra-steps", extra, "--data", out])):
+                reset_counters()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if mod.main(args) != 0:
+                    raise AssertionError(f"{name} {args}: exit code not 0")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = read_counters()
+                results.append((read_chunks(out), counts))
+                print(f"  {'plain' if plain else 'kernel'} {name} "
+                      f"{'96^2' if small else '384^2'}: {wall:.2f} s, launches "
+                      f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        finally:
+            pull.make_sweep_runner = kernel_runner
+        return results
+
+    # (a) 96^2: the kernel's two passes against the plain stacked step's
+    kern = passes(os.path.join(tmp, "small_kernel"), plain=False, small=True)
+    plain = passes(os.path.join(tmp, "small_plain"), plain=True, small=True)
+    for (name, want_steps), (k_chunks, k_counts), (p_chunks, p_counts) in zip(
+            (("sweep", PIPE_SMALL_STEPS), ("topup", 2 * PIPE_SMALL_STEPS)), kern, plain):
+        if any(p_counts.values()):
+            raise AssertionError(f"plain {name}: launched a kernel {p_counts}")
+        if k_counts != {**{n: 0 for n in COUNTERS}, "pull_sweep_step": PIPE_SMALL_STEPS}:
+            raise AssertionError(f"kernel {name}: launches {k_counts}, expected "
+                                 f"{PIPE_SMALL_STEPS} of pull_sweep_step")
+        same_chunks(f"96^2 {name}: kernel against plain", k_chunks, p_chunks)
+        if [int(c["steps"]) for c in k_chunks.values()] != [want_steps]:
+            raise AssertionError(f"{name}: steps {[int(c['steps']) for c in k_chunks.values()]}")
+        add_counts(total, k_counts)
+
+    # (a') 384^2, the scripts' defaults, through the kernel alone
+    out = os.path.join(tmp, "full")
+    (s_chunks, s_counts), (t_chunks, t_counts) = passes(out, plain=False, small=False)
+    for name, chunks, counts, want_steps in (
+            ("sweep", s_chunks, s_counts, PIPE_FULL_STEPS),
+            ("topup", t_chunks, t_counts, 2 * PIPE_FULL_STEPS)):
+        (fn, c), = chunks.items()
+        keys = {"re", "f_final", "u_final", "steps", "converged"} | (
+            {"failed"} if name == "sweep" else set())
+        if fn != "re000310.0.npz" or set(c) != keys:
+            raise AssertionError(f"{name}: chunk {fn} with keys {sorted(c)}")
+        if c["re"].tolist() != [310.0 + 10 * i for i in range(7)] or int(c["steps"]) != want_steps:
+            raise AssertionError(f"{name}: Re {c['re'].tolist()}, steps {int(c['steps'])}")
+        if c["f_final"].shape != (7, 9, SWEEP_N, SWEEP_N) or c["u_final"].shape != (
+                7, 2, SWEEP_N, SWEEP_N) or not all(np.isfinite(c[k]).all()
+                                                    for k in ("f_final", "u_final")):
+            raise AssertionError(f"{name}: fields {c['f_final'].shape} {c['u_final'].shape}")
+        if counts["pull_sweep_step"] != PIPE_FULL_STEPS:
+            raise AssertionError(f"{name} 384^2: launches {counts}")
+        add_counts(total, counts)
+    reset_counters()
+    if full.main(["--max-steps", str(PIPE_FULL_STEPS), *PIPE_RE, "--out", out]) != 0:
+        raise AssertionError("the re-run of the sweep failed")
+    if any(read_counters().values()):
+        raise AssertionError(f"the re-run launched {read_counters()}: the done Re values "
+                             "were not skipped")
+    meta_path = os.path.join(out, "metadata.json")
+    with open(meta_path) as fh:
+        meta = json.load(fh)
+    with open(check.JAX_RECORD) as fh:
+        result = check.compare(meta, json.load(fh))
+    fields = {k: v for k, v in result["fields"].items()
+              if k not in ("sweep_max_steps", "max_steps")}
+    print(f"  384^2 re-run: nothing launched, dataset assembled ({meta['shapes']}); "
+          f"torch_check_dataset fields: {fields}; the chunk: {result['chunks']}", flush=True)
+    if not all(f["ok"] for f in fields.values()) or len(fields) != 6:
+        raise AssertionError(f"torch_check_dataset's fixed fields: {fields}")
+
+    # (b) the three surrogates at Re = 7500 from the tracked weights
+    extrapolate = load_script("torch_predict_extrapolate")
+    serve_out = os.path.join(tmp, "extrapolation")
+    os.makedirs(serve_out)
+    truth = extrapolate.jax_truth_path(REPO, PIPE_RE_SERVE)
+    shutil.copy(truth, os.path.join(serve_out, os.path.basename(truth)))
+    reset_counters()
+    t0 = time.perf_counter()
+    rc = extrapolate.main(["--re", f"{PIPE_RE_SERVE:g}", "--models", ",".join(PIPE_MODELS),
+                           "--data", out, "--out", serve_out])
+    wall = time.perf_counter() - t0
+    if rc != 0 or any(read_counters().values()):
+        raise AssertionError(f"torch_predict_extrapolate: exit code {rc}, launches "
+                             f"{read_counters()}")
+    with open(os.path.join(serve_out, "summary.json")) as fh:
+        summary = json.load(fh)
+    for name in PIPE_MODELS:
+        rec = summary[name][f"re{PIPE_RE_SERVE:g}"]
+        print(f"  {name} Re={PIPE_RE_SERVE:g} on the card: bfloat16 operands: CNN-vs-LBM "
+              f"relL2 {rec['bf16_cnn_vs_lbm_l2_jax_truth']} (JAX's record "
+              f"{rec['jax_cnn_vs_lbm_l2']}); float32: {rec['cnn_vs_lbm_l2']}, R2(Ux) "
+              f"{rec['r2_cnn_ux']} (record {rec['jax_r2_cnn_ux']}), L2 {rec['l2_cnn']} "
+              f"(record {rec['jax_l2_cnn']})", flush=True)
+        if abs(rec["d_bf16_cnn_vs_lbm_l2_jax_truth"]) > PIPE_CNN_TOL:
+            raise AssertionError(f"{name}: {rec}")
+    # the float32 serving users get: each surrogate on the card against its
+    # CPU forward on the same template and weights, as (i') holds cnn_nine
+    feq = datagen.load_dataset(out).feq_initial
+    for name in PIPE_MODELS:
+        wdir = os.path.join(REPO, extrapolate.WEIGHT_DIRS[name])
+        (px, meta), (py, _) = (train.load_weights(name, c, wdir) for c in "xy")
+        fnet, aux = predict.build_input(name, PIPE_RE_SERVE, feq, meta["scalers"])
+        u_card, u_cpu = (predict.predict_velocity(name, px, py, fnet, aux, meta["scalers"],
+                                                  device=d) for d in (device, "cpu"))
+        print(f"  {name} Re={PIPE_RE_SERVE:g} float32 serving: card vs CPU max|du|="
+              f"{np.abs(u_card - u_cpu).max():.3e} (max|u| {np.abs(u_cpu).max():.3e}; "
+              f"rtol 1e-4, atol 1e-5, TF32 off)", flush=True)
+        np.testing.assert_allclose(u_card, u_cpu, rtol=1e-4, atol=1e-5)
+    print(f"  three surrogates served in {wall:.2f} s; pipeline launches "
+          f"{ {k: v for k, v in total.items() if v} }", flush=True)
+    return total
+
+
 def run_bench_command(pull_mlups: float) -> None:
     """(p): ``python -m latticeboltzmannsimulations_torch bench`` as a
     subprocess: exactly one stdout line, ``bench.py``'s four keys, the
@@ -2574,6 +2796,10 @@ def main() -> None:
 
     with phase("main path: generate_dataset on a mesh"):
         add_counts(main_launches, run_datagen_mesh(device))
+
+    with phase("main path: the surrogate pipeline's scripts"), \
+            tempfile.TemporaryDirectory() as tmp:
+        add_counts(main_launches, run_pipeline_scripts(device, tmp))
 
     with phase("main path: checkpoint and resume"), tempfile.TemporaryDirectory() as tmp:
         add_counts(main_launches, run_checkpoint_resume(device, tmp))

@@ -10,7 +10,7 @@ tables (``comparison_figure``, matplotlib).
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -107,14 +107,15 @@ def predict_velocity(
     return u.astype(np.float32)
 
 
-def lbm_reference(cfg: SimConfig, device="cuda") -> np.ndarray:
+def lbm_reference(cfg: SimConfig, device="cuda",
+                  on_interval: Optional[Callable[[int, np.ndarray], None]] = None) -> np.ndarray:
     """Fresh LBM solution for comparison; returns ``u (2, nx, ny)``.
 
     Routed through the simulation's backend router (``sim._select_backend``)
     so the comparison runs on the CUDA kernel on the card for float32 NEBB;
     the kernels are held to the fused step, so the trajectory is the same.
     Convergence semantics match ``engine.run_to_convergence`` (no mass
-    correction).
+    correction).  ``on_interval(steps, u)`` sees each interval's host field.
     """
     from ..sim import _first_device, _placement, _select_backend
 
@@ -130,7 +131,10 @@ def lbm_reference(cfg: SimConfig, device="cuda") -> np.ndarray:
         state = runner(state)
         steps += chunk
         _, u = routed.observe(cfg, state)
-        mean_u = float(np.mean(u.cpu().numpy(), dtype=np.float64))
+        u_host = u.cpu().numpy()
+        if on_interval is not None:
+            on_interval(steps, u_host)
+        mean_u = float(np.mean(u_host, dtype=np.float64))
         if not np.isfinite(mean_u):
             raise FloatingPointError(
                 f"LBM reference diverged at step {steps}")
@@ -141,7 +145,24 @@ def lbm_reference(cfg: SimConfig, device="cuda") -> np.ndarray:
         else:
             hits = 0
         mean_past = mean_u
-    return u.cpu().numpy()
+    return u_host
+
+
+def comparison_metrics(cfg: SimConfig, u_lbm: np.ndarray, u_cnn: np.ndarray) -> dict:
+    """``comparison_figure``'s metrics without the figure: R2(Ux) and the
+    combined L2 of both fields against the Ghia tables (where they hold
+    ``cfg.reynolds``), and the relative L2 of the CNN field against the
+    LBM one (``cnn_vs_lbm_l2``)."""
+    metrics = {}
+    if has_reynolds(cfg.reynolds):
+        gl = compare_to_ghia(u_lbm, cfg.u_lid, cfg.reynolds)
+        gc = compare_to_ghia(u_cnn, cfg.u_lid, cfg.reynolds)
+        metrics = {"r2_lbm_ux": gl.r2_ux, "r2_cnn_ux": gc.r2_ux,
+                   "l2_lbm": gl.l2_combined, "l2_cnn": gc.l2_combined}
+    metrics["cnn_vs_lbm_l2"] = float(
+        np.linalg.norm(u_cnn - u_lbm) / (np.linalg.norm(u_lbm) + 1e-12)
+    )
+    return metrics
 
 
 def comparison_figure(
@@ -151,7 +172,8 @@ def comparison_figure(
     out_path: str,
 ) -> dict:
     """Side-by-side streamlines + vortices, and centerline overlays vs Ghia
-    (reference: ``CNN_predict.py:163-265``).  Returns the metric dict."""
+    (reference: ``CNN_predict.py:163-265``).  Returns the metric dict
+    (``comparison_metrics``) with the figure's path."""
     import matplotlib
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
@@ -174,16 +196,13 @@ def comparison_figure(
     axes[1, 1].plot(x_l, uy_l, label="LBM")
     axes[1, 1].plot(x_c, uy_c, "--", label="CNN")
 
-    metrics = {}
+    metrics = comparison_metrics(cfg, u_lbm, u_cnn)
     if has_reynolds(cfg.reynolds):
         gl = compare_to_ghia(u_lbm, cfg.u_lid, cfg.reynolds)
-        gc = compare_to_ghia(u_cnn, cfg.u_lid, cfg.reynolds)
         axes[1, 0].plot(gl.ux_ghia, gl.y_stations, "ko", ms=4, label="Ghia")
-        axes[1, 1].plot(gc.x_stations, gc.uy_ghia, "ko", ms=4, label="Ghia")
-        metrics = {"r2_lbm_ux": gl.r2_ux, "r2_cnn_ux": gc.r2_ux,
-                   "l2_lbm": gl.l2_combined, "l2_cnn": gc.l2_combined}
-        axes[1, 0].set_title(
-            f"Ux mid-column  R2 LBM={gl.r2_ux:.3f} CNN={gc.r2_ux:.3f}")
+        axes[1, 1].plot(gl.x_stations, gl.uy_ghia, "ko", ms=4, label="Ghia")
+        axes[1, 0].set_title(f"Ux mid-column  R2 LBM={metrics['r2_lbm_ux']:.3f} "
+                             f"CNN={metrics['r2_cnn_ux']:.3f}")
         axes[1, 1].set_title("Uy mid-row")
     for ax in axes[1]:
         ax.legend()
@@ -193,8 +212,7 @@ def comparison_figure(
     fig.tight_layout()
     fig.savefig(out_path, dpi=110)
     plt.close(fig)
+    cnn_vs_lbm = metrics.pop("cnn_vs_lbm_l2")   # the JAX package's key order
     metrics["figure"] = out_path
-    metrics["cnn_vs_lbm_l2"] = float(
-        np.linalg.norm(u_cnn - u_lbm) / (np.linalg.norm(u_lbm) + 1e-12)
-    )
+    metrics["cnn_vs_lbm_l2"] = cnn_vs_lbm
     return metrics

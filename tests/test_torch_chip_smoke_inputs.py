@@ -1,7 +1,10 @@
 """``.chiprunignore`` leaves ``docs/artifacts`` out of the copy of the repo
 that a run on the card gets, entry by entry, all but the files
-``chip_smoke.py`` and the port's slow gates and validation runs
-(``scripts/torch_slow_gates.py``, ``scripts/torch_validate.py``) read there:
+``chip_smoke.py``, the port's slow gates and validation runs
+(``scripts/torch_slow_gates.py``, ``scripts/torch_validate.py``) and the
+surrogate pipeline's scripts (``scripts/torch_check_dataset.py``,
+``torch_predict_extrapolate.py``, ``torch_ml_demo.py``,
+``torch_demo_plateau.py``, ``torch_datagen_precision.py``) read there:
 a file added to ``docs/artifacts`` that the list does not name would reach
 that copy unseen."""
 
@@ -37,6 +40,14 @@ def _needed() -> set[str]:
     validate = _script("torch_validate")
     paths += [_script("torch_slow_gates").JAX_RECORD, *validate.JAX_RECORDS,
               *validate.JAX_HISTORY.values()]
+    extrapolate = _script("torch_predict_extrapolate")
+    paths += [os.path.join(REPO, d, f"{name}_{c}{ext}")
+              for name, d in extrapolate.WEIGHT_DIRS.items() for c in "xy"
+              for ext in (".msgpack", ".json")]
+    paths += [os.path.join(REPO, extrapolate.JAX_DIR, "summary.json"),
+              *(extrapolate.jax_truth_path(str(REPO), re) for re in (7500.0, 10000.0)),
+              _script("torch_check_dataset").JAX_RECORD, _script("torch_ml_demo").JAX_METRICS,
+              _script("torch_demo_plateau").JAX_HISTORY, _script("torch_datagen_precision").JAX_RECORD]
     return {Path(p).resolve().relative_to(REPO).as_posix() for p in paths}
 
 
