@@ -249,7 +249,23 @@ along x, each with its own omega) and the surrogate pipeline:
     operands) within 1e-3 of JAX's ``cnn_vs_lbm_l2`` against its tracked
     truth, their float32 numbers printed beside JAX's record, and their
     float32 serving on the card held to the CPU forward (rtol 1e-4, atol
-    1e-5, TF32 off).
+    1e-5, TF32 off);
+(s) ``scripts/torch_train_full.py`` and ``scripts/torch_pipeline_cards.py``
+    (``run_train_scripts``): the pipeline runner as a subprocess over two
+    ranges of the one card (four chunks of JAX's record at 96^2, 1 000-step
+    sweep and top-up), merged and assembled, against the same passes in one
+    directory in process, bit for bit; while it runs, on a dataset made in
+    the call (ten cavities at 96^2 through the sweep kernel, train_full's
+    held-out Re 500 among them), ``cnn_one``'s first minibatch gradients
+    card against CPU, then ``torch_train_full.main`` in process on the card
+    (``cnn_one`` at 96^2, x and y, and the early preset at 48^2, two epochs
+    each) and on the CPU from the same weights (``cnn_one`` alone), its
+    numbers within 1e-3;
+(t) the pipeline runner's epoch estimates (``time_training_epochs``): a
+    training step and a validation forward of each of its jobs' models at
+    the job's grid and batch, timed, and the epoch they make on 493
+    cavities printed beside ``torch_pipeline_cards.EPOCH_S``, which must lie
+    within a factor of 2.
 
 The last three lines are ``nvidia-smi``'s line, one JSON object describing
 each kernel, and ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -267,6 +283,7 @@ import importlib.util
 import json
 import math
 import os
+import shlex
 import shutil
 import subprocess
 import sys
@@ -1943,6 +1960,222 @@ def run_pipeline_scripts(device, tmp: str) -> dict:
     return total
 
 
+# (s): train_full's reduced run and the pipeline runner's split-and-merge
+TRAIN_N = 96                            # cnn_one's stride pyramid divides 96 and 48
+TRAIN_RE = np.arange(100.0, 1100.0, 100.0)   # Re 500 is one of train_full's HELD_OUT
+TRAIN_STEPS = 2_000
+TRAIN_ARGS = ("--models", "cnn_one", "--epochs-scale", "0.004", "--early-epochs", "2",
+              "--fine-tune-epochs", "0")     # cnn_one at 96^2 and 48^2, two epochs each
+# the CPU's run, held to the card's cnn_one (its numbers come before the
+# early preset's and do not depend on it)
+TRAIN_CPU_ARGS = (*TRAIN_ARGS, "--early-preset", "")
+TRAIN_TOL = 1e-3      # rel and abs, card against CPU after two Adam updates
+TRAIN_GRAD_RTOL = 1e-4
+SPLIT_RE = ("--re-start", "100", "--re-stop", "380")   # four chunks of JAX's record
+SPLIT_SWEEP = ("--grid", "96", "--max-steps", "1000", "--report-interval", "500")
+SPLIT_TOPUP = ("--grid", "96", "--extra-steps", "1000", "--report-interval", "500")
+
+
+def train_full_card_vs_cpu(train_full, device, tmp: str) -> dict:
+    """(s), in process: a dataset made in the call (ten cavities at 96^2, Re
+    100..1000 with train_full's held-out Re 500, 2 000 steps through the
+    sweep kernel); on it, ``cnn_one``'s first minibatch gradients on the card
+    against the CPU's from the same weights (every tensor to
+    ``TRAIN_GRAD_RTOL`` of its norm, TF32 off), and ``torch_train_full.main``
+    on the card (``TRAIN_ARGS``) and on the CPU (``TRAIN_CPU_ARGS``, from the
+    same initial weights): ``cnn_one``'s epochs, validation MSEs and
+    held-out numbers within ``TRAIN_TOL``.  Returns the kernel launches."""
+    cfg = SimConfig(nx=TRAIN_N, ny=TRAIN_N, reynolds=1000.0, collision="srt",
+                    turbulence="smagorinsky", precision="float32", max_steps=TRAIN_STEPS,
+                    report_interval=TRAIN_STEPS // 2, convergence_tol=1e-7).validate()
+    reset_counters()
+    ds = ml.generate_dataset(cfg, TRAIN_RE, batch_size=len(TRAIN_RE), device=device)
+    counts = read_counters()
+    if counts != {**{n: 0 for n in COUNTERS}, "pull_sweep_step": TRAIN_STEPS}:
+        raise AssertionError(f"the training dataset: launches {counts}")
+    data_dir = os.path.join(tmp, "data")
+    ml.save_dataset(ds, data_dir)
+
+    train_ds, held = train_full.split_dataset(ds, train_full.HELD_OUT)
+    data = train.prepare_inputs(train_ds, models.PRESETS["cnn_one"], u_lid=cfg.u_lid)
+    tr_idx, _ = train.train_val_split(len(data.fnet))
+    bi = np.random.default_rng(0).permutation(tr_idx)[:models.PRESETS["cnn_one"].batch_size]
+    batch = [None if a is None else torch.from_numpy(np.ascontiguousarray(a[bi]))
+             for a in (data.fnet, data.aux, data.targets["x"])]    # cnn_one has no aux
+    grads = {}
+    for dev in ("cpu", device):
+        model = models.make_model("cnn_one", seed=0).to(dev)
+        loss = float(train.loss_and_grads([model], *(None if t is None else t.to(dev)
+                                                     for t in batch)))
+        grads[str(dev)] = (loss, {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+    (loss_cpu, g_cpu), (loss_card, g_card) = grads["cpu"], grads[str(device)]
+    errs = rel_errors(g_card, g_cpu)
+    print(f"  cnn_one {TRAIN_N}^2, held out {sorted(held)}: first minibatch loss card "
+          f"{loss_card:.9e} CPU {loss_cpu:.9e}; gradients per tensor ||dg|| / ||g|| at most "
+          f"{max(errs.values()):.3e} (tolerance {TRAIN_GRAD_RTOL:g}, TF32 off)", flush=True)
+    if not abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu) or max(errs.values()) > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"cnn_one gradients card against CPU: {errs}")
+
+    summaries = {}
+    for dev, args in (("cuda", TRAIN_ARGS), ("cpu", TRAIN_CPU_ARGS)):
+        out = os.path.join(tmp, f"train_{dev}")
+        reset_counters()
+        t0 = time.perf_counter()
+        if train_full.main([*args, "--data", data_dir, "--out", out, "--device", dev]):
+            raise AssertionError(f"torch_train_full on {dev}: exit code not 0")
+        if any(read_counters().values()):
+            raise AssertionError(f"training launched a kernel of the port: {read_counters()}")
+        with open(os.path.join(out, "summary.json")) as fh:
+            summaries[dev] = json.load(fh)["models"]
+        print(f"  torch_train_full {shlex.join(args)} --device {dev}: "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    card, cpu = summaries["cuda"], summaries["cpu"]
+    if sorted(card) != ["cnn_one", "cnn_one_192"] or sorted(cpu) != ["cnn_one"]:
+        raise AssertionError(f"the summaries' models: card {sorted(card)}, CPU {sorted(cpu)}")
+    keep = ("epochs", "final_val_mse", "held_out_eval")
+    worst = train_full.hold_close({k: card["cnn_one"][k] for k in keep},
+                                  {k: cpu["cnn_one"][k] for k in keep},
+                                  TRAIN_TOL, TRAIN_TOL, "cnn_one")
+    print(f"  cnn_one: card against CPU from the same weights, largest difference "
+          f"{worst:.3e} (rel and abs {TRAIN_TOL:g}); held out "
+          f"{[(r['re'], r['r2_ux'], r['rel_l2']) for r in card['cnn_one']['held_out_eval']]}"
+          f"; final val MSE {card['cnn_one']['final_val_mse']}; the card's cnn_one_192: loss "
+          f"{card['cnn_one_192']['first_loss']:.4e} -> {card['cnn_one_192']['final_loss']:.4e}",
+          flush=True)
+    if [r["re"] for r in card["cnn_one"]["held_out_eval"]] != [500.0]:
+        raise AssertionError(f"held out: {card['cnn_one']['held_out_eval']}")
+    if not np.isfinite([card["cnn_one_192"]["first_loss"], card["cnn_one_192"]["final_loss"]]).all():
+        raise AssertionError(f"cnn_one_192: {card['cnn_one_192']}")
+    return counts
+
+
+def run_train_scripts(device, tmp: str) -> dict:
+    """(s): ``scripts/torch_train_full.py`` and ``scripts/torch_pipeline_cards.py``.
+    Four chunks of JAX's record at 96^2 (a 1 000-step sweep and a 1 000-step
+    top-up) in process in one directory; then the pipeline runner as a
+    subprocess on two ranges of this one card (``--cards 0,0``) on the same
+    chunks, while ``train_full_card_vs_cpu`` runs in this process; then the
+    runner's chunk files and assembled arrays against the one directory's,
+    bit for bit, and its dataset check of its merge against that
+    directory's record within bounds.  Returns the in-process kernel
+    launches."""
+    train_full = load_script("torch_train_full")
+    full, topup = load_script("torch_datagen_full"), load_script("torch_datagen_topup")
+    total = {name: 0 for name in COUNTERS}
+
+    one = os.path.join(tmp, "one")
+    reset_counters()
+    for mod, args in ((full, [*SPLIT_SWEEP, *SPLIT_RE, "--out", one]),
+                      (topup, [*SPLIT_TOPUP, "--data", one]),
+                      (full, [*SPLIT_SWEEP, *SPLIT_RE, "--out", one])):
+        if mod.main(args) != 0:
+            raise AssertionError(f"{args}: exit code not 0")
+    counts = read_counters()
+    if counts != {**{n: 0 for n in COUNTERS}, "pull_sweep_step": 4 * 2 * 1000}:
+        raise AssertionError(f"the one directory's sweep and top-up: launches {counts}")
+    add_counts(total, counts)
+
+    cards, records = os.path.join(tmp, "cards"), os.path.join(tmp, "records")
+    log_path = os.path.join(tmp, "pipeline_cards.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "scripts", "torch_pipeline_cards.py"),
+             "--out", cards, "--records", records, "--cards", "0,0", *SPLIT_RE[2:],
+             "--record", os.path.join(one, "metadata.json"),
+             "--sweep-args", " ".join(SPLIT_SWEEP), "--topup-args", " ".join(SPLIT_TOPUP),
+             "--jobs", ""], cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        add_counts(total, train_full_card_vs_cpu(train_full, device, tmp))
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        with open(log_path) as fh:
+            raise AssertionError(f"torch_pipeline_cards: exit code {rc}\n{fh.read()[-6000:]}")
+    with open(os.path.join(records, "driver.json")) as fh:
+        driver = json.load(fh)
+    same_chunks("two ranges of the card, merged, against one directory", read_chunks(cards),
+                read_chunks(one))
+    for name in ("Re_range.npy", "feq_initial.npy", "f_final.npy", "u_final.npy"):
+        a, b = (np.load(os.path.join(d, name)) for d in (one, cards))
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"the merged {name} differs from one directory's")
+    print(f"  torch_pipeline_cards --cards 0,0: ranges "
+          f"{[(r['re_start'], r['re_stop']) for r in driver['ranges']]}, processes "
+          f"{[(p['name'], p['rc'], p['seconds']) for p in driver['processes']]}, {wall:.2f} s "
+          f"(the training above ran meanwhile); the one directory's passes launched "
+          f"{counts['pull_sweep_step']} pull_sweep_step; merged and assembled arrays equal "
+          f"bit for bit", flush=True)
+    return total
+
+
+# (t): the pipeline runner's epoch estimates (torch_pipeline_cards.EPOCH_S):
+# each job's model at its grid and batch on the 500-cavity dataset less
+# train_full's seven held-out Re, Adam (train_full's --optimizer), TF32 off
+EPOCH_CAVITIES = 500 - 7
+EPOCH_JOBS = {"cnn_nine": ("cnn_nine", 384), "cnn_ten": ("cnn_ten", 384),
+              "cnn_eight": ("cnn_eight", 384), "cnn_one_192": ("cnn_one", 192)}
+EPOCH_REPS = 10
+EPOCH_FACTOR = 2.0    # an EPOCH_S more than this far from the reading fails
+
+
+def time_training_epochs(device) -> None:
+    """(t): one epoch of each of the pipeline runner's training jobs, as
+    ``ml.train.train`` runs it on ``EPOCH_CAVITIES``: its training steps
+    (forward, backward, Adam update, ``EPOCH_REPS`` timed by CUDA events
+    after one untimed) and one forward over the validation cavities, on a
+    random dataset of one batch made in the call (the validation set its
+    cavities repeated).  Printed beside the runner's ``EPOCH_S``; fails if
+    that is more than ``EPOCH_FACTOR`` from the reading (its values for
+    ``cnn_eight`` and ``cnn_one_192`` are whole training runs' times, start-up
+    included)."""
+    drv = load_script("torch_pipeline_cards")
+    tr_idx, va_idx = train.train_val_split(EPOCH_CAVITIES)
+    rng = np.random.default_rng(0)
+    for job, (name, n) in EPOCH_JOBS.items():
+        preset = dataclasses.replace(models.PRESETS[name], optimizer="adam")
+        b = preset.batch_size
+        ds = datagen.DatasetArrays(
+            re_range=np.linspace(100.0, 5090.0, b),
+            feq_initial=rng.random((9, n, n), dtype=np.float32),
+            f_final=rng.random((b, 9, n, n), dtype=np.float32),
+            u_final=(0.1 * rng.standard_normal((b, 2, n, n))).astype(np.float32))
+        data = train.prepare_inputs(ds, preset)
+        x, aux, y = (None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for a in (data.fnet, data.aux, data.targets["x"]))
+        va = torch.arange(len(va_idx), device=device) % b
+        xv, auxv, yv = x[va], None if aux is None else aux[va], y[va]
+        model = models.make_model(name, seed=0).to(device)
+        opt = train.Optimizer(preset, model.parameters(), 1e-3)
+
+        def one_step():
+            train.loss_and_grads([model], x, aux, y)
+            opt.step()
+
+        def validate():
+            with torch.no_grad():
+                return train._mse(model, xv, auxv, yv)
+
+        one_step()
+        validate()
+        step_ms = cuda_time_ms(one_step, EPOCH_REPS)
+        val_ms = cuda_time_ms(validate, 3)
+        steps = len(tr_idx) // b
+        epoch_s = (steps * step_ms + val_ms) / 1e3
+        est = drv.EPOCH_S[job]
+        print(f"  {job}: {name} at {n}^2, batch {b}: step {step_ms:.3f} ms x {steps} + "
+              f"validation forward over {len(va_idx)} {val_ms:.3f} ms = {epoch_s:.4f} s an "
+              f"epoch; the pipeline runner's EPOCH_S {est} ({est / epoch_s:.3f}x)", flush=True)
+        if not epoch_s / EPOCH_FACTOR <= est <= epoch_s * EPOCH_FACTOR:
+            raise AssertionError(f"torch_pipeline_cards.EPOCH_S[{job!r}] = {est} s against a "
+                                 f"reading of {epoch_s:.4f} s an epoch")
+        del model, opt, x, aux, y, xv, auxv, yv, data, ds
+
+
 def run_bench_command(pull_mlups: float) -> None:
     """(p): ``python -m latticeboltzmannsimulations_torch bench`` as a
     subprocess: exactly one stdout line, ``bench.py``'s four keys, the
@@ -2800,6 +3033,13 @@ def main() -> None:
     with phase("main path: the surrogate pipeline's scripts"), \
             tempfile.TemporaryDirectory() as tmp:
         add_counts(main_launches, run_pipeline_scripts(device, tmp))
+
+    with phase("main path: train_full and the pipeline runner over the cards"), \
+            tempfile.TemporaryDirectory() as tmp:
+        add_counts(main_launches, run_train_scripts(device, tmp))
+
+    with phase("the pipeline runner's epoch estimates"):
+        time_training_epochs(device)
 
     with phase("main path: checkpoint and resume"), tempfile.TemporaryDirectory() as tmp:
         add_counts(main_launches, run_checkpoint_resume(device, tmp))

@@ -149,6 +149,19 @@ def mrt_collide(
     return mrt_from_moments(m_post)
 
 
+def correctly_rounded_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """``sqrt(x)`` rounded once to ``x``'s dtype on every device.  torch's
+    float32 sqrt on the CPU is not always correctly rounded (its vectorised
+    path misses the nearest float for about one input in seven), where the
+    card's and the kernels' ``sqrtf`` and XLA's are; so on the CPU the
+    float32 root is taken as the float64 root rounded to float32, which is
+    the correctly rounded float32 root (53 bits >= 2 * 24 + 2).  On the card
+    the native root is kept."""
+    if x.dtype == torch.float32 and x.device.type == "cpu":
+        return torch.sqrt(x.double()).to(torch.float32)
+    return torch.sqrt(x)
+
+
 def smagorinsky_tau(
     f: torch.Tensor,
     feq: torch.Tensor,
@@ -166,7 +179,7 @@ def smagorinsky_tau(
     fneq = f - feq
     q_xy = fneq[5] - fneq[6] + fneq[7] - fneq[8]
     disc = tau0 * tau0 + (18.0 * (2.0 ** 0.5) * cs2 * torch.abs(q_xy)) / rho
-    return 0.5 * (tau0 + torch.sqrt(disc))
+    return 0.5 * (tau0 + correctly_rounded_sqrt(disc))
 
 
 def van_driest_cs2(

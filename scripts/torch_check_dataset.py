@@ -20,6 +20,13 @@ sweep_max_steps``) must be equal, ``n`` and ``re`` and ``max_steps``
 against JAX's chunks that the dataset holds: a partial dataset is compared
 on its own chunks.  A chunk JAX's record does not have is a breach.
 
+Beside the bounds, and bounding nothing, the check reads (``readings``):
+the converged cavities of both; over the chunks that every cavity of
+converged in both runs, how many stop earlier in the port, how many later
+and how many at JAX's step, with the two-sided sign test's p-value of the
+earlier against the later (``sign_test_p``); and the median ratio of the
+port's steps to JAX's over those chunks and over every shared chunk.
+
 Usage (from the repository root):
 
     python scripts/torch_check_dataset.py [data/ml_full/metadata.json | data/ml_full]
@@ -38,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import sys
 
@@ -105,6 +113,29 @@ def steps_bound(jax_steps: int) -> int:
     return max(STEPS_INTERVALS * REPORT_INTERVAL, int(STEPS_FRAC * jax_steps))
 
 
+def sign_test_p(earlier: int, later: int) -> float:
+    """The exact two-sided sign test of ``earlier`` against ``later`` (ties
+    left out): twice the binomial tail at one half, at most 1."""
+    n, k = earlier + later, min(earlier, later)
+    return min(1.0, 2.0 * sum(math.comb(n, i) for i in range(k + 1)) / 2.0 ** n)
+
+
+def readings(rows: list) -> dict:
+    """How the port's stops lie against JAX's over the shared chunks that
+    converged everywhere in both, and the steps' median ratio."""
+    both = [r for r in rows if "jax_steps" in r and r["converged"] == r["of"]
+            and r["jax_converged"] == r["of"]]
+    earlier = sum(r["steps"] < r["jax_steps"] for r in both)
+    later = sum(r["steps"] > r["jax_steps"] for r in both)
+    shared = [r for r in rows if "jax_steps" in r]
+    return {"converged_in_both": len(both), "earlier": earlier, "later": later,
+            "same": len(both) - earlier - later, "sign_test_p": sign_test_p(earlier, later),
+            "median_steps_ratio": float(np.median([r["steps"] / r["jax_steps"] for r in both]))
+            if both else None,
+            "median_steps_ratio_all": float(np.median([r["steps"] / r["jax_steps"]
+                                                       for r in shared])) if shared else None}
+
+
 def compare(new: dict, old: dict) -> dict:
     """The comparison: per chunk the port's numbers beside JAX's with the
     bound that applies and ``ok``, the fixed fields, and the breaches."""
@@ -155,7 +186,7 @@ def compare(new: dict, old: dict) -> dict:
             "agree": sum(r["ok"] for r in rows), "of": len(rows),
             "converged_cavities": {"port": sum(c["converged"] for c in new["chunks"]),
                                    "jax": sum(c["converged"] for c in shared)},
-            "ok": not breaches}
+            "readings": readings(rows), "ok": not breaches}
 
 
 def main(argv=None) -> int:
@@ -184,6 +215,11 @@ def main(argv=None) -> int:
     cc = result["converged_cavities"]
     print(f"chunks within bounds: {result['agree']}/{result['of']}; converged cavities: "
           f"port {cc['port']}, JAX {cc['jax']}")
+    rd = result["readings"]
+    print(f"readings: of {rd['converged_in_both']} chunks converged everywhere in both, "
+          f"{rd['earlier']} stop earlier in the port, {rd['later']} later, {rd['same']} at "
+          f"JAX's step (sign test p = {rd['sign_test_p']:.4g}); median port/JAX steps "
+          f"{rd['median_steps_ratio']} there, {rd['median_steps_ratio_all']} over every chunk")
     for b in result["breaches"]:
         print("BREACH:", b)
     print("WITHIN BOUNDS" if result["ok"] else f"{len(result['breaches'])} breaches")

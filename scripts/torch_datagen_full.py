@@ -143,8 +143,11 @@ def main(argv=None) -> int:
             b = len(z["re"])
             conv = z["converged"] if "converged" in z else np.zeros(b, dtype=bool)
             fail = z["failed"] if "failed" in z else np.zeros(b, dtype=bool)
+            # each member read once: an npz member is decompressed anew at
+            # every access
+            f_c, u_c = z["f_final"], z["u_final"]
             for i, r in enumerate(z["re"]):
-                chunks[float(r)] = (z["f_final"][i], z["u_final"][i], bool(fail[i]))
+                chunks[float(r)] = (f_c[i], u_c[i], bool(fail[i]))
             chunk_stats.append({
                 "re_lo": float(z["re"][0]), "re_hi": float(z["re"][-1]),
                 "steps": int(z["steps"]), "converged": int(np.sum(conv)),

@@ -1,0 +1,487 @@
+#!/usr/bin/env python
+"""The surrogate pipeline at its own scale over the cards of one machine:
+the whole 500-cavity sweep and its top-up, one process per card, then the
+assembly, the dataset check on every chunk and ``scripts/train_full.py``'s
+runs, each through the port's own scripts' command lines.
+
+1. The chunks of JAX's record (``docs/artifacts/ml_full/dataset_metadata.json``:
+   consecutive groups of ``--n-cav`` = 7 Re values from Re 100) are cut into
+   one contiguous range of whole chunks per card, balanced on the record's
+   steps per chunk (the largest range as small as a contiguous cut makes
+   it: ``balanced_ranges``).  Card k runs, in its own directory
+   ``<out>/card<k>`` (``progress.jsonl``, ``topup.jsonl`` and the resume by
+   Re are per directory), ``scripts/torch_datagen_full.py --re-start A
+   --re-stop B --out <out>/card<k>`` and then ``scripts/torch_datagen_topup.py
+   --data <out>/card<k>``, with ``CUDA_VISIBLE_DEVICES=k``.
+2. The chunk files are merged into ``<out>/chunks`` (and the logs into
+   ``<out>``), and ``torch_datagen_full.py --assemble-partial --out <out>``
+   writes the four-array layout and ``metadata.json``.
+3. ``scripts/torch_check_dataset.py <out>/metadata.json <record>`` holds
+   every chunk to JAX's record with its bounds unchanged; a miss is
+   recorded and the run goes on.
+4. The training runs of JAX's records (``JOBS``: the invocations of
+   ``scripts/chain_r3_b.sh``), each ``scripts/torch_train_full.py`` in a
+   process of its own on a free card, the gated jobs (``BOUNDS`` and
+   ``cnn_one_192``) first and longest first among them, ``cnn_eight``'s
+   reading last; a job is started only if its estimate (``EPOCH_S``) ends
+   before ``--deadline``.  Each job's
+   held-out numbers are held to ``BOUNDS`` (``cnn_eight``'s plateau is a
+   reading, not a bound).
+
+Every record is copied into ``--records`` as it is written: each card's
+logs while it runs, then ``ml_full/metadata.json``, ``ml_dataset.json``,
+each job's summary and weight sidecars (not the weights), the summaries
+merged as the JAX records lay them out (``ml_full/summary.json``,
+``ml_full_b/summary.json``) and ``driver.json`` (the plan, each process's
+exit code and seconds, the bounds).  A failed process, a dataset check
+that misses or a missed bound makes the exit code 1, at the end.
+
+Usage (from the repository root, on a machine with four cards):
+
+    python scripts/torch_pipeline_cards.py [--out data/ml_full] [--deadline 1950]
+
+``--cards 0,0`` runs two ranges on the one card 0; ``--device cpu`` runs
+every process on the CPU; ``--re-stop``, ``--sweep-args`` and
+``--topup-args`` cut the sweep down (the CPU tests do).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shlex
+import shutil
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_RECORD = os.path.join(ROOT, "docs", "artifacts", "ml_full", "dataset_metadata.json")
+RECORDS = os.path.join(ROOT, "chiprun_out", "pipeline_cards")
+RE_STEP = 10.0
+
+# JAX's training runs (scripts/chain_r3_b.sh:37-45, :67-68; cnn_eight's y
+# half came from scripts/resume_eight_y.py with the same recipe), the
+# summary each one's record is in, and the epochs each trains.
+JOBS = {
+    "cnn_eight": (["--models", "cnn_eight", "--early-preset", "", "--fine-tune-epochs", "0"],
+                  "ml_full", {"cnn_eight": 2 * 600}),
+    "cnn_nine": (["--models", "cnn_nine", "--early-preset", "", "--fine-tune-epochs", "0"],
+                 "ml_full", {"cnn_nine": 2 * 350}),
+    "cnn_ten": (["--models", "cnn_ten", "--early-preset", "", "--fine-tune-epochs", "0",
+                 "--epochs-scale", "0.5"], "ml_full_b", {"cnn_ten": 2 * 200}),
+    "cnn_one_192": (["--models", "", "--early-epochs", "80"], "ml_full_b",
+                    {"cnn_one_192": 80}),
+}
+# Seconds an epoch (training and validation) on 493 cavities: cnn_nine,
+# cnn_ten and cnn_eight at 384^2, batch 20, and cnn_one at 192^2, batch 5,
+# Adam, TF32 off, on one NVIDIA H100 80GB HBM3 at 700 W.  cnn_eight and
+# cnn_one_192: torch_train_full.py's train_s over the epochs of this
+# script's four-card run (600 epochs of x, 80; their first epoch's start-up
+# included).  cnn_nine and cnn_ten, never run in full: chip_smoke.py's
+# phase (t), 19 steps and one validation forward over 99 cavities timed by
+# CUDA events (1.5618 and 1.4209 s; it reads cnn_eight at 0.3790, 0.91 of
+# the whole run's, and cnn_one_192 at 0.4909), rounded up.  JOB_SETUP_S: a
+# job's start, the dataset's read and the evaluation beside train_s
+# (15.6-21.2 s).
+EPOCH_S = {"cnn_nine": 1.57, "cnn_ten": 1.43, "cnn_eight": 0.415, "cnn_one_192": 0.735}
+JOB_SETUP_S = 40.0
+POLL_S = 0.5               # seconds between looks at the running processes
+
+# The held-out bounds at every one of the seven Re (the port trains in
+# float32, TF32 off, from its own initial weights): (R^2(ux) at least,
+# relative L2 at most); cnn_one at 192^2: its final validation MSE at most
+# ONE_192_VAL_MSE and its loss falling ONE_192_FALL-fold.  cnn_eight's
+# record sits on the mean-predictor plateau: relL2 above PLATEAU_REL_L2 is
+# read, not bounded.
+BOUNDS = {"cnn_nine": (0.999, 0.05), "cnn_ten": (0.995, 0.08)}
+ONE_192_VAL_MSE = 10 * 2.412e-5
+ONE_192_FALL = 100.0
+PLATEAU_REL_L2 = 0.3
+
+
+def record_chunks(record: dict, re_start: float = 100.0, re_stop: float = 5100.0) -> list:
+    """``(re_lo, re_hi, steps)`` of the record's chunks within
+    ``[re_start, re_stop)``, in Re order."""
+    chunks = sorted((c["re_lo"], c["re_hi"], c["steps"]) for c in record["chunks"])
+    return [c for c in chunks if re_start <= c[0] and c[1] < re_stop]
+
+
+def balanced_ranges(steps: list, n: int) -> list:
+    """Cut ``steps`` (per chunk, in order) into ``n`` contiguous non-empty
+    runs whose largest sum is as small as any such cut makes it; returns
+    each run's ``(first, last + 1)`` indices.  Among the cuts that reach
+    that largest sum, each run ends as late as it can (the cards' loads
+    rise towards the last)."""
+    if not 1 <= n <= len(steps):
+        raise ValueError(f"{len(steps)} chunks cannot make {n} non-empty ranges")
+    lo, hi = max(steps), sum(steps)
+    while lo < hi:                       # the least feasible largest sum
+        mid = (lo + hi) // 2
+        runs, acc = 1, 0
+        for s in steps:
+            if acc + s > mid:
+                runs, acc = runs + 1, 0
+            acc += s
+        lo, hi = (mid + 1, hi) if runs > n else (lo, mid)
+    cuts, end = [], len(steps)
+    for k in range(n - 1, 0, -1):        # from the end, each run as long as it may be
+        start, acc = end, 0
+        while start - 1 >= k and acc + steps[start - 1] <= lo:
+            start -= 1
+            acc += steps[start]
+        cuts.append(start)
+        end = start
+    bounds = [0, *reversed(cuts), len(steps)]
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def card_ranges(record: dict, n: int, re_start: float = 100.0,
+                re_stop: float = 5100.0) -> list:
+    """One contiguous range of whole chunks per card: its ``--re-start``
+    and ``--re-stop``, chunk count and the record's steps."""
+    chunks = record_chunks(record, re_start, re_stop)
+    out = []
+    for a, b in balanced_ranges([c[2] for c in chunks], n):
+        part = chunks[a:b]
+        out.append({"re_start": part[0][0], "re_stop": part[-1][1] + RE_STEP,
+                    "chunks": len(part), "steps": int(sum(c[2] for c in part))})
+    return out
+
+
+class Records:
+    """The run's records under ``root``, written as they come."""
+
+    def __init__(self, root: str):
+        self.root = root
+        os.makedirs(root, exist_ok=True)
+        self.driver = {"started": time.strftime("%Y-%m-%dT%H:%M:%S"), "processes": []}
+
+    def copy(self, src: str, rel: str) -> None:
+        if os.path.exists(src):
+            dst = os.path.join(self.root, rel)
+            os.makedirs(os.path.dirname(dst), exist_ok=True)
+            shutil.copyfile(src, dst)
+
+    def write(self, rel: str, obj) -> None:
+        path = os.path.join(self.root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path + ".tmp", "w") as fh:
+            json.dump(obj, fh, indent=1)
+        os.replace(path + ".tmp", path)
+
+    def save(self) -> None:
+        self.write("driver.json", self.driver)
+
+
+class Proc:
+    """One script run in a process of its own, its output in a log."""
+
+    def __init__(self, name: str, argv: list, card, device: str, log_path: str):
+        self.name, self.argv, self.card = name, argv, card
+        env = dict(os.environ)
+        if device == "cuda":       # the card-th of the cards this process sees
+            visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+            env["CUDA_VISIBLE_DEVICES"] = visible.split(",")[card] if visible else str(card)
+        self.log_path = log_path
+        os.makedirs(os.path.dirname(log_path), exist_ok=True)
+        self.log = open(log_path, "w")
+        self.t0 = time.time()
+        self.p = subprocess.Popen([sys.executable, *argv], cwd=ROOT, env=env,
+                                  stdout=self.log, stderr=subprocess.STDOUT)
+        print(f"[{name}] card {card}: {shlex.join(argv)}", flush=True)
+
+    def poll(self):
+        rc = self.p.poll()
+        if rc is not None and not self.log.closed:
+            self.log.close()
+            self.seconds = round(time.time() - self.t0, 2)
+            print(f"[{self.name}] exit {rc} after {self.seconds} s", flush=True)
+        return rc
+
+    def kill(self) -> None:
+        if self.p.poll() is None:
+            self.p.kill()
+            self.p.wait()
+        self.poll()
+
+    def row(self) -> dict:
+        return {"name": self.name, "card": self.card, "argv": self.argv,
+                "rc": self.p.poll(), "seconds": getattr(self, "seconds", None)}
+
+
+def script(name: str) -> str:
+    return os.path.join("scripts", f"{name}.py")
+
+
+def run(procs: list, records: Records, on_poll=None) -> None:
+    """Wait for ``procs`` (to which ``on_poll``, called first every
+    ``POLL_S`` seconds, may add), then record their exit codes and seconds;
+    a process still running when this is left is killed."""
+    try:
+        while True:
+            if on_poll is not None:
+                on_poll()
+            if all(p.poll() is not None for p in procs):
+                break
+            time.sleep(POLL_S)
+    finally:
+        for p in procs:
+            p.kill()
+        records.driver["processes"] += [p.row() for p in procs]
+        records.save()
+
+
+def sweep_cards(args, ranges, cards, records: Records) -> bool:
+    """Each card's sweep and then its top-up, all cards at once; their logs
+    copied into the records as they grow.  True if every process ended
+    with 0."""
+    dirs = [os.path.join(args.out, f"card{k}") for k in range(len(ranges))]
+    sweep_args, topup_args = shlex.split(args.sweep_args), shlex.split(args.topup_args)
+    stages = [[script("torch_datagen_full"), *sweep_args,
+               "--re-start", f"{r['re_start']:g}", "--re-stop", f"{r['re_stop']:g}",
+               "--out", d, "--device", args.device] for r, d in zip(ranges, dirs)]
+    topups = [[script("torch_datagen_topup"), *topup_args, "--data", d,
+               "--device", args.device] for d in dirs]
+    procs = [Proc(f"card{k}: sweep", argv, cards[k], args.device,
+                  os.path.join(records.root, f"card{k}", "sweep.log"))
+             for k, argv in enumerate(stages)]
+    started = {k: False for k in range(len(ranges))}
+    ok = [True]
+
+    def follow():
+        for k, d in enumerate(dirs):
+            for log in ("progress.jsonl", "topup.jsonl"):
+                records.copy(os.path.join(d, log), os.path.join(f"card{k}", log))
+            if not started[k] and procs[k].poll() is not None:
+                started[k] = True
+                if procs[k].poll() != 0:
+                    ok[0] = False
+                    continue
+                procs.append(Proc(f"card{k}: top-up", topups[k], cards[k], args.device,
+                                  os.path.join(records.root, f"card{k}", "topup.log")))
+
+    run(procs, records, follow)
+    return ok[0] and all(p.poll() == 0 for p in procs)
+
+
+def merge(args, n_cards: int) -> None:
+    """Every card's chunk files into ``<out>/chunks`` (linked where the file
+    system allows), its logs appended to ``<out>``'s, in card order."""
+    chunk_dir = os.path.join(args.out, "chunks")
+    os.makedirs(chunk_dir, exist_ok=True)
+    for log in ("progress.jsonl", "topup.jsonl"):
+        with open(os.path.join(args.out, log), "w") as out:
+            for k in range(n_cards):
+                path = os.path.join(args.out, f"card{k}", log)
+                if os.path.exists(path):
+                    with open(path) as fh:
+                        out.write(fh.read())
+    for k in range(n_cards):
+        src_dir = os.path.join(args.out, f"card{k}", "chunks")
+        for fn in sorted(os.listdir(src_dir)) if os.path.isdir(src_dir) else ():
+            src, dst = os.path.join(src_dir, fn), os.path.join(chunk_dir, fn)
+            if os.path.exists(dst):
+                raise FileExistsError(f"{fn} in two cards' directories")
+            try:
+                os.link(src, dst)
+            except OSError:
+                shutil.copyfile(src, dst)
+
+
+def job_estimate(name: str) -> float:
+    return JOB_SETUP_S + sum(n * EPOCH_S[m] for m, n in JOBS[name][2].items())
+
+
+def held_to_bounds(name: str, summary: dict) -> dict:
+    """The job's numbers against its bound (or, for cnn_eight, the plateau
+    reading)."""
+    models = summary.get("models", {})
+    if name == "cnn_one_192":
+        m = models.get(name)
+        if m is None:
+            return {"ok": False, "why": "no record"}
+        val, fall = m["final_val_mse"]["x"], m["first_loss"] / m["final_loss"]
+        return {"final_val_mse": val, "bound_val_mse": ONE_192_VAL_MSE, "loss_fall": fall,
+                "bound_fall": ONE_192_FALL,
+                "ok": val <= ONE_192_VAL_MSE and fall >= ONE_192_FALL}
+    m = models.get(name)
+    if m is None:
+        return {"ok": False, "why": "no record"}
+    rows = [{"re": r["re"], "r2_ux": r["r2_ux"], "rel_l2": r["rel_l2"]}
+            for r in m["held_out_eval"]]
+    if name in BOUNDS:
+        r2_min, l2_max = BOUNDS[name]
+        for r in rows:
+            r["ok"] = r["r2_ux"] >= r2_min and r["rel_l2"] <= l2_max
+        return {"bound": {"r2_ux_min": r2_min, "rel_l2_max": l2_max}, "rows": rows,
+                "ok": len(rows) == 7 and all(r["ok"] for r in rows)}
+    return {"reading": f"on the plateau where relL2 > {PLATEAU_REL_L2}", "rows": rows,
+            "on_plateau": all(r["rel_l2"] > PLATEAU_REL_L2 for r in rows),
+            "seed": m.get("seed"), "ok": True}
+
+
+def merge_summary(records: Records, layout: str, job_summary: dict) -> None:
+    """The job's summary merged into the records' ``<layout>/summary.json``
+    as the JAX script merges consecutive runs into one."""
+    path = os.path.join(records.root, layout, "summary.json")
+    summary = {"models": {}}
+    if os.path.exists(path):
+        with open(path) as fh:
+            summary = json.load(fh)
+    models = summary.pop("models")
+    summary.update({k: v for k, v in job_summary.items() if k != "models"})
+    models.update(job_summary["models"])
+    summary["models"] = models
+    records.write(os.path.join(layout, "summary.json"), summary)
+
+
+def gated(name: str) -> bool:
+    """Whether the job's numbers are held to a bound (not a reading)."""
+    return name in BOUNDS or name == "cnn_one_192"
+
+
+def job_queue(jobs: str) -> list:
+    """The jobs of ``--jobs`` in the order they are started: the gated
+    ones first, longest first among them, then the readings."""
+    return sorted(filter(None, jobs.split(",")), key=lambda j: (not gated(j), -job_estimate(j)))
+
+
+def train_jobs(args, cards, records: Records, t_start: float) -> bool:
+    """The jobs on free cards, the gated ones first and longest first
+    among them, each started only if its estimate ends before the deadline;
+    their summaries and sidecars into the records.  True if every job ran,
+    ended with 0 and met its bound."""
+    queue = job_queue(args.jobs)
+    free, running, ok = list(dict.fromkeys(cards)), {}, True
+    bounds = records.driver.setdefault("bounds", {})
+    records.driver["jobs"] = {j: {"estimate_s": round(job_estimate(j), 1)}
+                              for j in queue}
+    while queue or running:
+        for proc, (job, card) in list(running.items()):
+            rc = proc.poll()
+            if rc is None:
+                continue
+            del running[proc]
+            free.append(card)
+            records.driver["processes"].append(proc.row())
+            out = os.path.join(args.out, "train", job)
+            summary_path = os.path.join(out, "summary.json")
+            if rc != 0 or not os.path.exists(summary_path):
+                ok = False
+                bounds[job] = {"ok": False, "why": f"exit code {rc}"}
+                continue
+            with open(summary_path) as fh:
+                summary = json.load(fh)
+            records.write(os.path.join("train", job, "summary.json"), summary)
+            for dirpath, _, files in os.walk(out):
+                for fn in files:
+                    if fn.endswith(".json") and fn != "summary.json":
+                        rel = os.path.relpath(os.path.join(dirpath, fn), args.out)
+                        records.copy(os.path.join(dirpath, fn), rel)
+            merge_summary(records, JOBS[job][1], summary)
+            bounds[job] = held_to_bounds(job, summary)
+            ok = ok and bounds[job]["ok"]
+            print(f"[{job}] {json.dumps(bounds[job])}", flush=True)
+            records.save()
+        while queue and free:
+            job = queue.pop(0)
+            estimate = job_estimate(job)
+            if args.deadline and time.time() - t_start + estimate > args.deadline:
+                records.driver["jobs"][job]["started"] = False
+                bounds[job] = {"ok": False, "why": f"not started: its estimate "
+                                                   f"{estimate:.0f} s ends past the deadline"}
+                ok = False
+                print(f"[{job}] not started: {bounds[job]['why']}", flush=True)
+                continue
+            card = free.pop(0)
+            argv = [script("torch_train_full"), *JOBS[job][0],
+                    "--data", args.out, "--out", os.path.join(args.out, "train", job),
+                    "--device", args.device]
+            records.driver["jobs"][job].update(started=round(time.time() - t_start, 1),
+                                               card=card)
+            running[Proc(job, argv, card, args.device,
+                         os.path.join(records.root, "train", job, "train.log"))] = (job, card)
+            records.save()
+        time.sleep(POLL_S if running else 0)
+    records.save()
+    return ok
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=os.path.join(ROOT, "data", "ml_full"))
+    ap.add_argument("--records", default=RECORDS)
+    ap.add_argument("--record", default=JAX_RECORD,
+                    help="the record that balances the ranges and that the check holds "
+                         "the dataset to")
+    ap.add_argument("--cards", default=None,
+                    help="the card of each range, e.g. 0,1,2,3 (default: every visible "
+                         "card once); a card may repeat")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--re-stop", type=float, default=5100.0)
+    ap.add_argument("--sweep-args", default="",
+                    help="more arguments of torch_datagen_full.py (and its assembly)")
+    ap.add_argument("--topup-args", default="", help="more arguments of torch_datagen_topup.py")
+    ap.add_argument("--jobs", default=",".join(JOBS), help="training runs ('' for none)")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="seconds from the start by which every training job must end")
+    args = ap.parse_args(argv)
+    t_start = time.time()
+    args.out = os.path.abspath(args.out)
+
+    if args.cards is None:
+        import torch
+
+        if args.device == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available (pass --device cpu for the CPU)")
+        n = torch.cuda.device_count() if args.device == "cuda" else 1
+        cards = list(range(n))
+    else:
+        cards = [int(c) for c in args.cards.split(",")]
+    with open(args.record) as fh:
+        record = json.load(fh)
+    ranges = card_ranges(record, len(cards), re_stop=args.re_stop)
+    records = Records(os.path.abspath(args.records))
+    records.driver.update(cards=cards, ranges=ranges, out=args.out, device=args.device,
+                          deadline=args.deadline)
+    records.save()
+    for k, r in enumerate(ranges):
+        print(f"card {cards[k]}: Re {r['re_start']:g}..{r['re_stop'] - RE_STEP:g}, "
+              f"{r['chunks']} chunks, {r['steps']} steps in JAX's record", flush=True)
+
+    ok = sweep_cards(args, ranges, cards, records)
+    records.driver["sweep_s"] = round(time.time() - t_start, 1)
+    merge(args, len(ranges))
+    assemble = Proc("assemble", [script("torch_datagen_full"), *shlex.split(args.sweep_args),
+                                 "--re-stop", f"{args.re_stop:g}", "--assemble-partial",
+                                 "--out", args.out, "--device", args.device],
+                    cards[0], args.device, os.path.join(records.root, "assemble.log"))
+    run([assemble], records)
+    ok = ok and assemble.poll() == 0
+    meta = os.path.join(args.out, "metadata.json")
+    records.copy(meta, os.path.join("ml_full", "metadata.json"))
+    check = Proc("check", [script("torch_check_dataset"), meta, args.record, "--out",
+                           os.path.join(records.root, "ml_dataset.json")],
+                 cards[0], args.device, os.path.join(records.root, "check.log"))
+    run([check], records)
+    records.driver["dataset_check_rc"] = check.poll()
+    records.driver["dataset_s"] = round(time.time() - t_start, 1)
+    records.save()
+    missed = check.poll() != 0
+    if ok:
+        ok = train_jobs(args, cards, records, t_start)
+    else:
+        print("a sweep process failed: no training", flush=True)
+    records.driver["total_s"] = round(time.time() - t_start, 1)
+    records.driver["ok"] = ok and not missed
+    records.save()
+    print(f"pipeline_cards: {'ok' if ok else 'a process failed or a bound missed'}; dataset check "
+          f"{'missed' if missed else 'within bounds'}; {records.driver['total_s']} s",
+          flush=True)
+    return 0 if ok and not missed else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,7 +4,8 @@ that a run on the card gets, entry by entry, all but the files
 (``scripts/torch_slow_gates.py``, ``scripts/torch_validate.py``) and the
 surrogate pipeline's scripts (``scripts/torch_check_dataset.py``,
 ``torch_predict_extrapolate.py``, ``torch_ml_demo.py``,
-``torch_demo_plateau.py``, ``torch_datagen_precision.py``) read there:
+``torch_demo_plateau.py``, ``torch_datagen_precision.py``,
+``torch_train_full.py``) read there:
 a file added to ``docs/artifacts`` that the list does not name would reach
 that copy unseen."""
 
@@ -47,7 +48,8 @@ def _needed() -> set[str]:
     paths += [os.path.join(REPO, extrapolate.JAX_DIR, "summary.json"),
               *(extrapolate.jax_truth_path(str(REPO), re) for re in (7500.0, 10000.0)),
               _script("torch_check_dataset").JAX_RECORD, _script("torch_ml_demo").JAX_METRICS,
-              _script("torch_demo_plateau").JAX_HISTORY, _script("torch_datagen_precision").JAX_RECORD]
+              _script("torch_demo_plateau").JAX_HISTORY, _script("torch_datagen_precision").JAX_RECORD,
+              *_script("torch_train_full").JAX_RECORDS]
     return {Path(p).resolve().relative_to(REPO).as_posix() for p in paths}
 
 

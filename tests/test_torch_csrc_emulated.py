@@ -31,10 +31,10 @@ definition (``halo.refresh_phases`` copied in order) on meshes (1, 1) to
 (4, 1), ragged shards, K of 1, 4 and 5, tight carries with lid panels and
 aligned ones without, its x-only table against the x-phase copies, and
 rectangles of rows of every 16-byte phase and of both kinds of slot (one
-float; a 16-byte line) with the grid sized for one SM and for 132.  Without
-LES the kernels equal their plain versions bit for bit (the one-step
-kernel with either lid, the push kernel, the sweep and the sharded one-step
-kernel).  A serial run cannot show a race; the card tests
+float; a 16-byte line) with the grid sized for one SM and for 132.  The
+kernels equal their plain versions bit for bit (the one-step kernel with
+either lid, the push kernel, the sweep and the sharded one-step kernel;
+the one-step kernel and the sweep under LES too).  A serial run cannot show a race; the card tests
 (``test_torch_cuda.py``) and ``chip_smoke.py`` stay for that.  Skips without
 ``g++``.
 """
@@ -361,9 +361,12 @@ def test_pull_step_matches_plain(lib, case):
 # same order, none contracted into an FMA (the build's -fmad=false, here
 # -ffp-contract=off): the two give the same bits over BIT_STEPS steps.  A
 # density moment summed in another order rounded differently and moved the
-# mass a long run carries.  Under LES torch's float32 sqrt on the CPU is not
-# always correctly rounded (the card's is), so those cases keep ATOL.
+# mass a long run carries.  Under LES too (LES_CASES), since the plain
+# engine roots correctly rounded on the CPU as the kernels' sqrtf does
+# (``ops.collision.correctly_rounded_sqrt``; torch's own float32 sqrt on the
+# CPU is not always correctly rounded).
 BIT_CASES = ("srt", "trt", "mrt")
+LES_CASES = ("mrt_smagorinsky", "srt_van_driest")
 BIT_STEPS = 50
 
 
@@ -414,6 +417,27 @@ def test_push_step_equals_oracle_bit_for_bit(lib, case, wall):
 @pytest.mark.parametrize("case", ["trt", "mrt"])
 def test_sweep_step_equals_plain_bit_for_bit(lib, case):
     cfg = _sweep_cfg(case)
+    s0 = _stacked_start(cfg, 3)
+    om = _omegas(cfg, 3)
+    plain = engine.make_stacked_step_omega(cfg, 3)
+    s_plain = s0
+    for _ in range(BIT_STEPS):
+        s_plain = plain(s_plain, torch.from_numpy(om))
+    _equal(_sweep_steps(lib, cfg, s0, om, BIT_STEPS), s_plain)
+
+
+@pytest.mark.parametrize("case", LES_CASES)
+def test_pull_step_under_les_equals_plain_bit_for_bit(lib, case):
+    cfg = _cfg(70, 46, case)
+    s0 = _start(cfg)
+    want = _plain(cfg, s0, BIT_STEPS)
+    assert torch.isfinite(want.f).all()
+    _equal(_pull_steps(lib, cfg, s0, BIT_STEPS), want)
+
+
+def test_sweep_step_under_les_equals_plain_bit_for_bit(lib):
+    """The sweep's own case, SRT + Smagorinsky, three cavities."""
+    cfg = _sweep_cfg("srt_smagorinsky")
     s0 = _stacked_start(cfg, 3)
     om = _omegas(cfg, 3)
     plain = engine.make_stacked_step_omega(cfg, 3)

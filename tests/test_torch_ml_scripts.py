@@ -36,7 +36,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 2e-5
 # the scripts whose command line is the JAX script's (plus --device)
 SAME_CLI = [("datagen_full", "torch_datagen_full"), ("datagen_topup", "torch_datagen_topup"),
-            ("predict_extrapolate", "torch_predict_extrapolate")]
+            ("predict_extrapolate", "torch_predict_extrapolate"),
+            ("train_full", "torch_train_full")]
 
 
 def _script(name: str):
@@ -523,3 +524,185 @@ def test_gate_at_the_default_tolerance_reads_the_last_bits():
     mp.undo()
     got = np.array(ttrace)[:, 0]
     np.testing.assert_allclose(got, jtrace[:len(got), 0], rtol=0, atol=2e-8)
+
+
+# --- the float32 arithmetics against float64 -----------------------------------
+
+GATE_ARITH_COPIES, GATE_ARITH_STEPS = 32, 2_400
+
+
+def _sweep_trace(run, cfg, res) -> np.ndarray:
+    """Each copy's mean u at every check of ``run(cfg, res)``, a sweep of
+    every copy in one batch with a tolerance nothing meets (so every check
+    is read), through the hook ``run`` installs: (checks, copies)."""
+    trace = []
+    run(dataclasses.replace(cfg, convergence_tol=1e-30), res, trace.append)
+    return np.array(trace[:cfg.max_steps // cfg.report_interval])
+
+
+def _jax_sweep(cfg, res, read):
+    from latticeboltzmannsimulations_tpu.ml import datagen as jdatagen
+
+    observe = jdatagen._batched_observables
+
+    def spy(c):
+        obs = observe(c)
+
+        def each(state):
+            rho, u = obs(state)
+            read(np.asarray(u).mean(axis=(1, 2, 3), dtype=np.float64))
+            return rho, u
+        return each
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jdatagen, "_batched_observables", spy)
+    try:
+        jdatagen.generate_dataset(cfg, res, batch_size=len(res))
+    finally:
+        mp.undo()
+
+
+def _port_sweep(cfg, res, read):
+    from latticeboltzmannsimulations_torch.ml import datagen
+
+    mean_u = datagen._mean_u
+    mp = pytest.MonkeyPatch()
+    mp.setattr(datagen, "_mean_u", lambda u: read(mean_u(u)) or mean_u(u))
+    try:
+        datagen.generate_dataset(cfg, res, batch_size=len(res), device="cpu")
+    finally:
+        mp.undo()
+
+
+def test_float32_sweeps_against_float64_xla_reads_the_gate_noisier():
+    """32 copies of the gate's cavity (16^2, Re 6, omega k units in the
+    last place apart), 2 400 steps, each copy's mean u at every check of
+    JAX's float32 sweep (jitted: XLA on the CPU) and of the port's (the
+    plain batched engine on the CPU, the card's arithmetic) against JAX's
+    float64 sweep of the same copies.  Measured: both deviate from float64
+    alike, RMS 6.66e-9 (JAX) and 6.09e-9 (the port), mean -4.55e-9 and
+    -4.49e-9; but XLA's arithmetic moves mean u more from check to check
+    (the deviation of the change per check, RMS 7.01e-9 against 5.28e-9),
+    so JAX's copies stop later (median 2 200 steps against 1 500; Mann-
+    Whitney two-sided p 3.2e-4, a copy unstopped by 2 400 ranked last).
+    The port is not quieter than float64 allows: XLA's contracted
+    equilibrium is noisier (``test_first_stage_that_differs_is_xlas_fma``)."""
+    from scipy.stats import mannwhitneyu
+
+    probe = _script("torch_datagen_precision")
+    jcfg = JConfig(**GATE, max_steps=GATE_ARITH_STEPS).validate()
+    res = np.array([probe.shifted_re(jcfg, GATE_RE, k) for k in range(GATE_ARITH_COPIES)])
+    j64 = _sweep_trace(_jax_sweep, dataclasses.replace(
+        JConfig(**{**GATE, "precision": "float64"}, max_steps=GATE_ARITH_STEPS).validate()), res)
+    j32 = _sweep_trace(_jax_sweep, jcfg, res)
+    t32 = _sweep_trace(_port_sweep, SimConfig(**GATE, max_steps=GATE_ARITH_STEPS).validate(),
+                       res)
+    assert j32.shape == t32.shape == j64.shape == (24, GATE_ARITH_COPIES)
+
+    def deviation(trace):
+        d = trace - j64
+        change = np.diff(trace, axis=0) - np.diff(j64, axis=0)
+        return (float(np.sqrt((d ** 2).mean())), float(d.mean()),
+                float(np.sqrt((change ** 2).mean())))
+
+    def stops(trace):
+        return [probe.gate(trace[:, [k]], jcfg, GATE_ARITH_STEPS)["stop"]
+                or GATE_ARITH_STEPS + jcfg.report_interval for k in range(GATE_ARITH_COPIES)]
+
+    (j_rms, j_mean, j_change), (t_rms, t_mean, t_change) = deviation(j32), deviation(t32)
+    j_stops, t_stops = stops(j32), stops(t32)
+    p = mannwhitneyu(j_stops, t_stops, alternative="two-sided").pvalue
+    print(f"against float64: JAX RMS {j_rms:.3e} mean {j_mean:.3e} change {j_change:.3e}; "
+          f"port RMS {t_rms:.3e} mean {t_mean:.3e} change {t_change:.3e}; stops JAX "
+          f"{sorted(j_stops)} port {sorted(t_stops)}; Mann-Whitney p {p:.3g}")
+    assert 3e-9 < t_rms < 1e-8 and 3e-9 < j_rms < 1e-8
+    assert 0.8 < t_rms / j_rms <= 1.0
+    assert j_mean < 0 and t_mean < 0 and abs(t_mean / j_mean - 1) < 0.1
+    assert t_change < 0.85 * j_change
+    assert np.median(j_stops) >= np.median(t_stops) + 3 * jcfg.report_interval
+    assert p < 1e-2
+
+
+def test_first_stage_that_differs_is_xlas_fma():
+    """One step of the gate's cavity from the same float32 state, stage by
+    stage: the gather with the NEBB walls, the moments and ``u = m / rho``
+    of the port equal JAX's jitted ones bit for bit; the equilibrium is the
+    first stage that differs, where XLA on the CPU contracts
+    ``1 + 3 cu`` and ``+ 4.5 cu * cu`` into fused multiply-adds (JAX's
+    values are that form's bit for bit, the port's the form rounded op by
+    op, as the kernels' ``-fmad=false`` build); of the values that differ,
+    neither package's is always the float64 value rounded (at this state
+    after 300 steps, 33 of 2 304 values differ: JAX's is it for 14, the
+    port's for 16).
+    Op by op (``jax.disable_jit``) JAX's step equals the port's bit for bit
+    over five steps."""
+    import importlib
+
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from latticeboltzmannsimulations_torch import engine, lattice
+    from latticeboltzmannsimulations_tpu import engine as jengine
+
+    teq = importlib.import_module("latticeboltzmannsimulations_torch.ops.equilibrium")
+    jeq = importlib.import_module("latticeboltzmannsimulations_tpu.ops.equilibrium")
+    gate = {**GATE, "reynolds": GATE_RE}
+    cfg, jcfg = SimConfig(**gate).validate(), JConfig(**gate).validate()
+    om = np.float32(cfg.omega)
+    step = engine.make_fused_step_omega(cfg)
+    state = engine.init_state(cfg, "cpu")
+    for _ in range(300):
+        state = step(state, torch.tensor(om))
+    f0, lid0 = state.f.numpy(), state.rho_lid.numpy()
+
+    g = engine._fused_gather_bc(cfg, state.f, state.rho_lid)
+    jg = jax.jit(lambda f, lid: jengine._fused_gather_bc(jcfg, f, lid))(f0, lid0)
+    np.testing.assert_array_equal(g.numpy(), np.asarray(jg))
+    rho, u = engine._fused_macros(cfg, g)
+    jrho, ju = jax.jit(lambda g: jengine._fused_macros(jcfg, g))(g.numpy())
+    np.testing.assert_array_equal(rho.numpy(), np.asarray(jrho))
+    np.testing.assert_array_equal(u.numpy(), np.asarray(ju))
+
+    feq = teq.equilibrium(rho, u).numpy()
+    jfeq = np.asarray(jax.jit(jeq.equilibrium)(rho.numpy(), u.numpy()))
+    differ = feq != jfeq
+    assert differ.any()
+
+    def fma(a, b, c):
+        return (a.astype(np.float64) * b + c).astype(np.float32)
+
+    f32 = np.float32
+    ux, uy = u.numpy()
+    usqr15 = f32(1.5) * (ux * ux + uy * uy)
+    rho_n = rho.numpy()
+    forms = {"fma": [], "op by op": []}
+    for k in range(lattice.Q):
+        cx, cy, w = float(lattice.CX[k]), float(lattice.CY[k]), f32(lattice.W[k])
+        cu = (f32(cx) * ux + f32(cy) * uy if cx and cy else f32(cx) * ux if cx
+              else f32(cy) * uy if cy else None)
+        for form, out in forms.items():
+            if cu is None:
+                out.append(rho_n * w * (f32(1.0) - usqr15))
+            elif form == "fma":
+                out.append(rho_n * w * (fma(f32(4.5) * cu, cu, fma(np.full_like(cu, 3.0), cu,
+                                                                   np.ones_like(cu)))
+                                        - usqr15))
+            else:
+                out.append(rho_n * w * (f32(1.0) + f32(3.0) * cu + f32(4.5) * cu * cu - usqr15))
+    np.testing.assert_array_equal(jfeq, np.stack(forms["fma"]))
+    np.testing.assert_array_equal(feq, np.stack(forms["op by op"]))
+    r64 = teq.equilibrium(rho.double(), u.double()).numpy().astype(np.float32)
+    n, n_jax, n_port = (int(differ.sum()), int((jfeq[differ] == r64[differ]).sum()),
+                        int((feq[differ] == r64[differ]).sum()))
+    print(f"feq: {n} of {feq.size} values differ; the float64 value rounded: JAX's "
+          f"{n_jax}, the port's {n_port}")
+    assert 0 < n_jax < n and 0 < n_port < n and n_jax + n_port <= n
+
+    js, ts = jengine.State(jnp.asarray(f0), jnp.asarray(lid0)), state
+    jstep = jengine.make_fused_step_omega(jcfg)
+    with jax.disable_jit():
+        for _ in range(5):
+            js, ts = jstep(js, jnp.float32(om)), step(ts, torch.tensor(om))
+            np.testing.assert_array_equal(np.asarray(js.f), ts.f.numpy())
+            np.testing.assert_array_equal(np.asarray(js.rho_lid), ts.rho_lid.numpy())
