@@ -2056,9 +2056,9 @@ def run_train_scripts(device, tmp: str) -> dict:
     subprocess on two ranges of this one card (``--cards 0,0``) on the same
     chunks, while ``train_full_card_vs_cpu`` runs in this process; then the
     runner's chunk files and assembled arrays against the one directory's,
-    bit for bit, and its dataset check of its merge against that
-    directory's record within bounds.  Returns the in-process kernel
-    launches."""
+    bit for bit, and its dataset check and its determinism check of its
+    merge against that directory's record passed.  Returns the in-process
+    kernel launches."""
     train_full = load_script("torch_train_full")
     full, topup = load_script("torch_datagen_full"), load_script("torch_datagen_topup")
     total = {name: 0 for name in COUNTERS}
@@ -2083,6 +2083,7 @@ def run_train_scripts(device, tmp: str) -> dict:
             [sys.executable, os.path.join(REPO, "scripts", "torch_pipeline_cards.py"),
              "--out", cards, "--records", records, "--cards", "0,0", *SPLIT_RE[2:],
              "--record", os.path.join(one, "metadata.json"),
+             "--determinism-record", os.path.join(one, "metadata.json"),
              "--sweep-args", " ".join(SPLIT_SWEEP), "--topup-args", " ".join(SPLIT_TOPUP),
              "--jobs", ""], cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
     try:
@@ -2114,66 +2115,166 @@ def run_train_scripts(device, tmp: str) -> dict:
 
 
 # (t): the pipeline runner's epoch estimates (torch_pipeline_cards.EPOCH_S):
-# each job's model at its grid and batch on the 500-cavity dataset less
-# train_full's seven held-out Re, Adam (train_full's --optimizer), TF32 off
-EPOCH_CAVITIES = 500 - 7
-EPOCH_JOBS = {"cnn_nine": ("cnn_nine", 384), "cnn_ten": ("cnn_ten", 384),
-              "cnn_eight": ("cnn_eight", 384), "cnn_one_192": ("cnn_one", 192)}
-EPOCH_REPS = 10
+# each key's model at its grid and batch on the 500-cavity dataset less
+# train_full's seven held-out Re, Adam (train_full's --optimizer), TF32 off,
+# timed by scripts/torch_train_epochs.py on this one card
 EPOCH_FACTOR = 2.0    # an EPOCH_S more than this far from the reading fails
 
 
 def time_training_epochs(device) -> None:
-    """(t): one epoch of each of the pipeline runner's training jobs, as
-    ``ml.train.train`` runs it on ``EPOCH_CAVITIES``: its training steps
-    (forward, backward, Adam update, ``EPOCH_REPS`` timed by CUDA events
-    after one untimed) and one forward over the validation cavities, on a
-    random dataset of one batch made in the call (the validation set its
-    cavities repeated).  Printed beside the runner's ``EPOCH_S``; fails if
+    """(t): one epoch of each of the pipeline runner's training jobs'
+    models (every key of its ``EPOCH_S`` but the ones over several cards,
+    which this one card cannot read) as ``ml.train.train`` runs it:
+    ``torch_train_epochs.epoch_seconds``, its training steps and one
+    forward over the validation cavities on a random dataset of one batch
+    made in the call.  Printed beside the runner's ``EPOCH_S``; fails if
     that is more than ``EPOCH_FACTOR`` from the reading (its values for
-    ``cnn_eight`` and ``cnn_one_192`` are whole training runs' times, start-up
-    included)."""
+    ``cnn_eight`` and ``cnn_one_192`` are whole training runs' times,
+    start-up included)."""
     drv = load_script("torch_pipeline_cards")
-    tr_idx, va_idx = train.train_val_split(EPOCH_CAVITIES)
-    rng = np.random.default_rng(0)
-    for job, (name, n) in EPOCH_JOBS.items():
-        preset = dataclasses.replace(models.PRESETS[name], optimizer="adam")
-        b = preset.batch_size
-        ds = datagen.DatasetArrays(
-            re_range=np.linspace(100.0, 5090.0, b),
-            feq_initial=rng.random((9, n, n), dtype=np.float32),
-            f_final=rng.random((b, 9, n, n), dtype=np.float32),
-            u_final=(0.1 * rng.standard_normal((b, 2, n, n))).astype(np.float32))
-        data = train.prepare_inputs(ds, preset)
-        x, aux, y = (None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                     for a in (data.fnet, data.aux, data.targets["x"]))
-        va = torch.arange(len(va_idx), device=device) % b
-        xv, auxv, yv = x[va], None if aux is None else aux[va], y[va]
-        model = models.make_model(name, seed=0).to(device)
-        opt = train.Optimizer(preset, model.parameters(), 1e-3)
+    epochs = load_script("torch_train_epochs")
+    for key, est in drv.EPOCH_S.items():
+        if "@" in key:
+            print(f"  {key}: {est} s an epoch over several cards, not read on one card",
+                  flush=True)
+            continue
+        r = epochs.epoch_seconds(key, [device])
+        print(f"  {key}: {r['preset']} at {r['grid']}^2, batch {r['batch']}: step "
+              f"{r['step_ms']:.3f} ms x {r['steps']} + validation forward {r['val_ms']:.3f} ms "
+              f"= {r['epoch_s']:.4f} s an epoch; the pipeline runner's EPOCH_S {est} "
+              f"({est / r['epoch_s']:.3f}x)", flush=True)
+        if not r["epoch_s"] / EPOCH_FACTOR <= est <= r["epoch_s"] * EPOCH_FACTOR:
+            raise AssertionError(f"torch_pipeline_cards.EPOCH_S[{key!r}] = {est} s against a "
+                                 f"reading of {r['epoch_s']:.4f} s an epoch")
 
-        def one_step():
-            train.loss_and_grads([model], x, aux, y)
-            opt.step()
 
-        def validate():
-            with torch.no_grad():
-                return train._mse(model, xv, auxv, yv)
+# (u): the scripts of the other runs that read the whole dataset
+# (resume_eight_y, train_eight_faithful, train_early_presets,
+# diagnose_cnn_eight) on a dataset made in the call, card against CPU; and
+# the determinism of the port's sweep: chunk Re 520-580 of its whole-sweep
+# record rebuilt at 384^2 (290 000 steps there, all seven cavities
+# converged), which must equal that record exactly.
+DET_RE = ("--re-start", "520", "--re-stop", "590")
+WHOLE_N = 192                       # cnn_eight's stride pyramid divides 192
+# train_full holds out Re 500, 1500, 2500 and 5000 of these; the early
+# presets and the diagnosis evaluate at Re 5000
+WHOLE_RE = np.array([100.0, 300.0, 500.0, 700.0, 900.0, 1100.0, 1300.0, 1500.0, 2500.0, 5000.0])
+WHOLE_STEPS = 2_000
+WHOLE_EPOCHS = 2
+# each script, its arguments and the summary it writes under its --out
+WHOLE_RUNS = (
+    ("torch_resume_eight_y", (), "summary.json"),
+    ("torch_train_eight_faithful", (), os.path.join("cnn_eight_faithful", "summary.json")),
+    ("torch_train_early_presets", ("--models", "cnn_two,cnn_four", "--epochs",
+                                   str(WHOLE_EPOCHS), "--seven-384-epochs", "0"), "summary.json"),
+    ("torch_diagnose_cnn_eight", ("--epochs", str(WHOLE_EPOCHS), "--only", "base150,msfront"),
+     "summary.json"),
+)
 
-        one_step()
-        validate()
-        step_ms = cuda_time_ms(one_step, EPOCH_REPS)
-        val_ms = cuda_time_ms(validate, 3)
-        steps = len(tr_idx) // b
-        epoch_s = (steps * step_ms + val_ms) / 1e3
-        est = drv.EPOCH_S[job]
-        print(f"  {job}: {name} at {n}^2, batch {b}: step {step_ms:.3f} ms x {steps} + "
-              f"validation forward over {len(va_idx)} {val_ms:.3f} ms = {epoch_s:.4f} s an "
-              f"epoch; the pipeline runner's EPOCH_S {est} ({est / epoch_s:.3f}x)", flush=True)
-        if not epoch_s / EPOCH_FACTOR <= est <= epoch_s * EPOCH_FACTOR:
-            raise AssertionError(f"torch_pipeline_cards.EPOCH_S[{job!r}] = {est} s against a "
-                                 f"reading of {epoch_s:.4f} s an epoch")
-        del model, opt, x, aux, y, xv, auxv, yv, data, ds
+
+def check_sweep_determinism(tmp: str) -> dict:
+    """(u): ``scripts/torch_datagen_full.py`` on chunk Re 520-580 in process
+    (the sweep kernel, its launches counted), assembled partially, and
+    ``scripts/torch_check_dataset_determinism.py --assemble-partial`` of it
+    against the port's whole-sweep record: the chunk's steps, converged and
+    failed counts must equal the record's.  Returns the launches."""
+    full = load_script("torch_datagen_full")
+    check = load_script("torch_check_dataset_determinism")
+    out = os.path.join(tmp, "det520")
+    reset_counters()
+    t0 = time.perf_counter()
+    if full.main([*DET_RE, "--out", out]) != 0:
+        raise AssertionError("torch_datagen_full on chunk Re 520-580: exit code not 0")
+    counts = read_counters()
+    wall = time.perf_counter() - t0
+    if full.main([*DET_RE, "--out", out, "--assemble-partial"]) != 0:
+        raise AssertionError("the partial assembly of chunk Re 520-580: exit code not 0")
+    result = os.path.join(tmp, "det520.json")
+    rc = check.main([os.path.join(out, "metadata.json"), check.RECORD, "--assemble-partial",
+                     "--out", result])
+    with open(result) as fh:
+        res = json.load(fh)
+    with open(os.path.join(out, "metadata.json")) as fh:
+        (chunk,) = json.load(fh)["chunks"]
+    print(f"  chunk Re 520-580 rebuilt at 384^2 in {wall:.2f} s: {chunk['steps']} steps, "
+          f"{chunk['converged']} of {chunk['of']} converged, {chunk['failed']} failed; launches "
+          f"{ {k: v for k, v in counts.items() if v} }; against the port's whole-sweep record "
+          f"({res['compared']} of its {res['of']} chunks compared): "
+          f"{'DETERMINISTIC' if res['deterministic'] else res['mismatches']}", flush=True)
+    if counts != {**{n: 0 for n in COUNTERS}, "pull_sweep_step": chunk["steps"]}:
+        raise AssertionError(f"the rebuild's launches {counts}, {chunk['steps']} steps")
+    if rc != 0 or not res["deterministic"] or (res["compared"], res["agree"]) != (1, 1):
+        raise AssertionError(f"chunk Re 520-580 differs from the port's record: {res}")
+    return counts
+
+
+def run_whole_dataset_scripts(device, tmp: str) -> dict:
+    """(u): ten cavities at 192^2 made in the call through the sweep kernel
+    (``WHOLE_STEPS``), and on them each of ``WHOLE_RUNS`` in process on the
+    card and on the CPU, from the same initial weights (the preset's seed;
+    ``resume_eight_y`` from the same x weights, trained on the card by
+    ``torch_train_full.py``), cut to ``WHOLE_EPOCHS`` epochs a run: the
+    summaries within ``TRAIN_TOL`` but their seconds, no kernel of the port
+    launched by the training.  Returns the dataset's launches."""
+    cfg = SimConfig(nx=WHOLE_N, ny=WHOLE_N, reynolds=1000.0, collision="srt",
+                    turbulence="smagorinsky", precision="float32", max_steps=WHOLE_STEPS,
+                    report_interval=WHOLE_STEPS // 2, convergence_tol=1e-7).validate()
+    reset_counters()
+    ds = ml.generate_dataset(cfg, WHOLE_RE, batch_size=len(WHOLE_RE), device=device)
+    counts = read_counters()
+    if counts != {**{n: 0 for n in COUNTERS}, "pull_sweep_step": WHOLE_STEPS}:
+        raise AssertionError(f"the whole-dataset scripts' dataset: launches {counts}")
+    data_dir = os.path.join(tmp, "data")
+    ml.save_dataset(ds, data_dir)
+    with open(os.path.join(data_dir, "metadata.json"), "w") as fh:
+        json.dump({"u_lid": cfg.u_lid}, fh)
+
+    # cnn_eight's x half, which resume_eight_y evaluates beside its y half
+    train_full = load_script("torch_train_full")
+    x_out = os.path.join(tmp, "x")
+    if train_full.main(["--models", "cnn_eight", "--components", "x", "--epochs-scale",
+                        str(WHOLE_EPOCHS / models.PRESETS["cnn_eight"].epochs),
+                        "--early-preset", "", "--fine-tune-epochs", "0", "--data", data_dir,
+                        "--out", x_out]):
+        raise AssertionError("torch_train_full of cnn_eight's x half: exit code not 0")
+    train_fn = train.train
+    for name, args, summary in WHOLE_RUNS:
+        mod = load_script(name)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(tmp, name, dev)
+            if name == "torch_resume_eight_y":
+                shutil.copytree(os.path.join(x_out, "cnn_eight"), os.path.join(out, "cnn_eight"))
+                train.train = functools.partial(train_fn, epochs=WHOLE_EPOCHS)
+            if name == "torch_train_eight_faithful":
+                mod.EPOCHS = WHOLE_EPOCHS
+            reset_counters()
+            t0 = time.perf_counter()
+            try:
+                rc = mod.main([*args, "--data", data_dir, "--out", out, "--device", dev])
+            finally:
+                train.train = train_fn
+            if rc:
+                raise AssertionError(f"{name} --device {dev}: exit code {rc}")
+            if any(read_counters().values()):
+                raise AssertionError(f"{name} launched a kernel of the port: {read_counters()}")
+            with open(os.path.join(out, summary)) as fh:
+                got[dev] = drop_keys(json.load(fh), ("train_s", "d_train_s", "device"))
+            print(f"  {name} {shlex.join(args)} --device {dev}: "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+        worst = train_full.hold_close(got["cuda"], got["cpu"], TRAIN_TOL, TRAIN_TOL, name)
+        print(f"  {name}: card against CPU from the same weights, largest difference "
+              f"{worst:.3e} (rel and abs {TRAIN_TOL:g})", flush=True)
+    return counts
+
+
+def drop_keys(obj, keys):
+    """``obj`` without ``keys`` at any depth."""
+    if isinstance(obj, dict):
+        return {k: drop_keys(v, keys) for k, v in obj.items() if k not in keys}
+    if isinstance(obj, list):
+        return [drop_keys(v, keys) for v in obj]
+    return obj
 
 
 def run_bench_command(pull_mlups: float) -> None:
@@ -3040,6 +3141,11 @@ def main() -> None:
 
     with phase("the pipeline runner's epoch estimates"):
         time_training_epochs(device)
+
+    with phase("main path: the whole-dataset scripts and the sweep's determinism"), \
+            tempfile.TemporaryDirectory() as tmp:
+        add_counts(main_launches, check_sweep_determinism(tmp))
+        add_counts(main_launches, run_whole_dataset_scripts(device, tmp))
 
     with phase("main path: checkpoint and resume"), tempfile.TemporaryDirectory() as tmp:
         add_counts(main_launches, run_checkpoint_resume(device, tmp))

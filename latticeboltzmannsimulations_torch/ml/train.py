@@ -280,14 +280,21 @@ def loss_and_grads(replicas: Sequence[CavityCNN], xb, auxb, yb) -> torch.Tensor:
             loss = _mse(main, xb, auxb, yb)
             loss.backward()
             return loss.detach()
+        # Every replica's slice is copied out before any replica computes: a
+        # copy between cards runs on the first card's stream behind a barrier
+        # on both, so a slice copied after the first replica's backward would
+        # hold the other cards until that backward had run.
         m = len(xb) // len(replicas)
-        losses = []
+        parts = []
         for r, model in enumerate(replicas):
             d = next(model.parameters()).device
             part = slice(r * m, (r + 1) * m)
+            parts.append((xb[part].to(d), None if auxb is None else auxb[part].to(d),
+                          yb[part].to(d)))
+        losses = []
+        for model, part in zip(replicas, parts):
             model.zero_grad(set_to_none=True)
-            loss = _mse(model, xb[part].to(d), None if auxb is None else auxb[part].to(d),
-                        yb[part].to(d))
+            loss = _mse(model, *part)
             loss.backward()
             losses.append(loss.detach())
     first = next(main.parameters()).device

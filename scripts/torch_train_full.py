@@ -29,7 +29,16 @@ Usage (from the repository root, one card visible):
         [--components x,y] [--epochs-scale 1.0] [--data data/ml_full]
         [--early-preset cnn_one] [--out docs/artifacts/torch/ml_full]
 
-``--device cpu`` trains on the CPU in its place.
+``--device cpu`` trains on the CPU in its place.  Two flags are the
+port's own: ``--data-parallel K`` trains each component of ``--models``
+data-parallel over the first K visible cards (``ml.train(mesh=)``: the
+single-device minibatch schedule, the gradients averaged onto the first
+card; over K CPU entries with ``--device cpu``), and ``--evaluate-only``
+trains nothing and evaluates each model's weights that earlier runs saved
+in ``<out>/<model>`` (one run per component, as ``--components x`` and
+``--components y`` on two groups of cards, then this).  Both the trained
+and the evaluated weights are read back from disk for the evaluation
+(``evaluate_saved``), so it is the same either way.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import json
 import os
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -49,6 +59,7 @@ sys.path.insert(0, ROOT)
 from latticeboltzmannsimulations_torch.config import SimConfig  # noqa: E402
 from latticeboltzmannsimulations_torch.ml import datagen, predict, train as tr  # noqa: E402
 from latticeboltzmannsimulations_torch.ml.models import PRESETS  # noqa: E402
+from latticeboltzmannsimulations_torch.parallel.mesh import make_mesh  # noqa: E402
 from latticeboltzmannsimulations_torch.validate.ghia_data import has_reynolds  # noqa: E402
 
 HELD_OUT = [500.0, 1500.0, 2500.0, 3200.0, 4500.0, 5000.0, 5050.0]
@@ -96,15 +107,16 @@ def figures() -> bool:
 
 
 def train_model(name, data, components, epochs_scale, out_dir, log,
-                optimizer=None, lr=1e-3, schedule=None, device="cuda"):
+                optimizer=None, lr=1e-3, schedule=None, device="cuda", mesh=None):
+    """Train and save each component; returns the seconds each trained."""
     preset = PRESETS[name]
-    results, seconds = {}, {}
+    seconds = {}
     for comp in components:
         epochs = max(1, int(round(preset.epochs * epochs_scale)))
         t0 = time.time()
         res = tr.train(name, data, component=comp, epochs=epochs,
                        verbose=False, optimizer=optimizer,
-                       learning_rate=lr, schedule=schedule, device=device)
+                       learning_rate=lr, schedule=schedule, device=device, mesh=mesh)
         dt = time.time() - t0
         tr.save_weights(res, out_dir, scalers=data.scalers)
         if figures():
@@ -112,8 +124,57 @@ def train_model(name, data, components, epochs_scale, out_dir, log,
                             os.path.join(out_dir, f"{name}_{comp}_loss.png"))
         log(f"{name}/{comp}: {epochs} epochs in {dt:.0f}s, "
             f"final val MSE {res.history['val_loss'][-1]:.3e}")
-        results[comp], seconds[comp] = res, round(dt, 2)
-    return results, seconds
+        seconds[comp] = round(dt, 2)
+    return seconds
+
+
+class Saved(NamedTuple):
+    """A component as ``save_weights`` wrote it: what ``evaluate`` reads of
+    ``train``'s result."""
+    params: dict
+    history: dict
+
+
+def evaluate_saved(name, components, data, ds, held, u_lid, out_dir, log, lr=1e-3,
+                   schedule=None, device="cuda"):
+    """The held-out evaluation of ``name``'s components saved in ``out_dir``
+    (each ``<name>_<c>.pt`` or ``.msgpack`` and its sidecar's history) and
+    the model's summary entry as ``train_full`` writes it; returns
+    ``(results, entry)``.  A y half alone is not evaluated: the evaluation
+    predicts with x (and with x in y's place where y is missing)."""
+    results = {}
+    for comp in components:
+        params, meta = tr.load_weights(name, comp, out_dir)
+        results[comp] = Saved(params, meta["history"])
+    recs = (evaluate(name, results, data, ds, held, u_lid, out_dir, log, device)
+            if "x" in results else [])
+    entry = {
+        "epochs": {c: len(results[c].history["loss"]) for c in results},
+        "lr": lr, "schedule": schedule or "constant",
+        "final_val_mse": {c: results[c].history["val_loss"][-1] for c in results},
+        "held_out_eval": recs,
+    }
+    return results, entry
+
+
+def model_record(name, entry, **extra) -> dict:
+    """``entry`` with JAX's record of ``name`` beside each number, then
+    ``extra`` (the seconds trained, the seed, the device, ...)."""
+    return dict(beside(entry, jax_record(name)), **extra)
+
+
+def merge_summary(out_root, name=None, record=None, **top) -> None:
+    """``record`` merged into ``<out_root>/summary.json`` as model ``name``
+    (none without a name) and ``top``'s keys at its top level, as
+    consecutive runs of the JAX script accumulate there."""
+    path = os.path.join(out_root, "summary.json")
+    summary = json.load(open(path)) if os.path.exists(path) else {"models": {}}
+    summary.update(top)
+    models = summary.setdefault("models", {})
+    if name is not None:
+        models[name] = record
+    with open(path, "w") as fh:
+        json.dump(summary, fh, indent=1)
 
 
 def evaluate(name, results, data, ds, held, u_lid, out_dir, log, device="cuda"):
@@ -236,8 +297,16 @@ def main(argv=None) -> int:
                     help="optional LR schedule: cosine | plateau")
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--data-parallel", type=int, default=1,
+                    help="train each component of --models over the first K visible "
+                         "cards (K CPU entries with --device cpu)")
+    ap.add_argument("--evaluate-only", action="store_true",
+                    help="train nothing: evaluate each model's --components saved in "
+                         "<out>/<model> by earlier runs")
     args = ap.parse_args(argv)
     device = args.device
+    k = args.data_parallel
+    mesh = None if k == 1 else make_mesh((k, 1), None if device == "cuda" else [device] * k)
 
     data_dir = args.data or os.path.join(ROOT, "data", "ml_full")
     out_root = args.out or os.path.join(ROOT, "docs", "artifacts", "torch", "ml_full")
@@ -259,30 +328,19 @@ def main(argv=None) -> int:
     components = [c for c in args.components.split(",") if c]
     # Merge into an existing summary so per-model invocations (e.g. with
     # different --lr/--schedule) accumulate instead of clobbering.
-    summary_file = os.path.join(out_root, "summary.json")
-    summary = (json.load(open(summary_file))
-               if os.path.exists(summary_file) else {"models": {}})
-    summary.update({"held_out": sorted(held), "dataset": meta,
-                    "epochs_scale": args.epochs_scale})
-    summary.setdefault("models", {})
+    top = {"held_out": sorted(held), "dataset": meta, "epochs_scale": args.epochs_scale}
 
     for name in [m for m in args.models.split(",") if m]:
         out_dir = os.path.join(out_root, name)
         os.makedirs(out_dir, exist_ok=True)
         data = tr.prepare_inputs(train_ds, PRESETS[name], u_lid=u_lid)
-        results, seconds = train_model(
+        seconds = {} if args.evaluate_only else train_model(
             name, data, components, args.epochs_scale, out_dir, log,
             optimizer=args.optimizer or None, lr=args.lr,
-            schedule=args.schedule or None, device=device)
-        recs = evaluate(name, results, data, ds, held, u_lid, out_dir, log, device)
-        summary["models"][name] = {
-            "epochs": {c: len(results[c].history["loss"]) for c in results},
-            "lr": args.lr, "schedule": args.schedule or "constant",
-            "final_val_mse": {c: results[c].history["val_loss"][-1]
-                              for c in results},
-            "held_out_eval": recs,
-        }
-        if args.fine_tune_epochs and name == "cnn_eight":
+            schedule=args.schedule or None, device=device, mesh=mesh)
+        results, entry = evaluate_saved(name, components, data, ds, held, u_lid, out_dir,
+                                        log, args.lr, args.schedule or None, device)
+        if args.fine_tune_epochs and name == "cnn_eight" and not args.evaluate_only:
             # CNN_test parity at native scale: reload the saved weights and
             # refit at RMSprop lr=1e-4 (reference: CNN_test.py:100-106).
             ft = {}
@@ -300,19 +358,16 @@ def main(argv=None) -> int:
                                 scalers=data.scalers)
             ft_recs = evaluate(name, ft, data, ds, held, u_lid,
                                os.path.join(out_dir, "fine_tuned"), log, device)
-            summary["models"][name]["fine_tuned"] = {
+            entry["fine_tuned"] = {
                 "epochs": args.fine_tune_epochs,
                 "final_val_mse": {c: ft[c].history["val_loss"][-1]
                                   for c in ft},
                 "held_out_eval": ft_recs,
             }
-        summary["models"][name] = dict(
-            beside(summary["models"][name], jax_record(name)),
-            train_s=seconds, seed=SEED, device=device)
-        with open(os.path.join(out_root, "summary.json"), "w") as fh:
-            json.dump(summary, fh, indent=1)
+        merge_summary(out_root, name, model_record(name, entry, train_s=seconds, seed=SEED,
+                                                   device=device, data_parallel=k), **top)
 
-    if args.early_preset:
+    if args.early_preset and not args.evaluate_only:
         # One early-generation 192² preset, sanity-trained on the
         # downsampled dataset: shows the M1-M7 family trains, not just
         # forward-shapes (VERDICT r1 missing #3).
@@ -335,16 +390,14 @@ def main(argv=None) -> int:
             "first_loss": h["loss"][0], "final_loss": h["loss"][-1],
             "final_val_mse": {"x": h["val_loss"][-1]},
         }
-        summary["models"][name + "_192"] = dict(
-            beside(entry, jax_record(name + "_192")),
-            train_s={"x": train_s}, seed=SEED, device=device)
+        merge_summary(out_root, name + "_192",
+                      model_record(name + "_192", entry, train_s={"x": train_s}, seed=SEED,
+                                   device=device), **top)
         log(f"{name}@192: loss {h['loss'][0]:.3e} -> {h['loss'][-1]:.3e}")
 
-    with open(os.path.join(out_root, "summary.json"), "w") as fh:
-        json.dump(summary, fh, indent=1)
+    merge_summary(out_root, **top)
     log(f"done -> {out_root}/summary.json")
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -5,7 +5,10 @@ that a run on the card gets, entry by entry, all but the files
 surrogate pipeline's scripts (``scripts/torch_check_dataset.py``,
 ``torch_predict_extrapolate.py``, ``torch_ml_demo.py``,
 ``torch_demo_plateau.py``, ``torch_datagen_precision.py``,
-``torch_train_full.py``) read there:
+``torch_train_full.py``, and since the scripts of the other training runs,
+``torch_train_eight_faithful.py``, ``torch_train_early_presets.py``,
+``torch_diagnose_cnn_eight.py``, and the determinism check's record of the
+port's own sweep) read there:
 a file added to ``docs/artifacts`` that the list does not name would reach
 that copy unseen."""
 
@@ -49,7 +52,14 @@ def _needed() -> set[str]:
               *(extrapolate.jax_truth_path(str(REPO), re) for re in (7500.0, 10000.0)),
               _script("torch_check_dataset").JAX_RECORD, _script("torch_ml_demo").JAX_METRICS,
               _script("torch_demo_plateau").JAX_HISTORY, _script("torch_datagen_precision").JAX_RECORD,
-              *_script("torch_train_full").JAX_RECORDS]
+              *_script("torch_train_full").JAX_RECORDS,
+              _script("torch_check_dataset_determinism").RECORD,
+              _script("torch_diagnose_cnn_eight").JAX_RECORD]
+    faithful = _script("torch_train_eight_faithful")
+    paths += [os.path.join(faithful.JAX_DIR, d, "summary.json")
+              for d in ("cnn_eight_faithful", "cnn_eight_glorot")]
+    paths += [os.path.join(_script("torch_train_early_presets").JAX_ARTIFACTS, d, "summary.json")
+              for d in ("ml_early", "ml_early_ref_budget", "ml_early_glorot")]
     return {Path(p).resolve().relative_to(REPO).as_posix() for p in paths}
 
 

@@ -21,7 +21,12 @@ for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
 import latticeboltzmannsimulations_torch.bench
 import chip_smoke
 sys.path.insert(0, "scripts")
-for name in ("torch_bench_backends", "torch_slow_gates", "torch_validate"):
+for name in ("torch_bench_backends", "torch_slow_gates", "torch_validate",
+             "torch_train_full", "torch_pipeline_cards", "torch_train_epochs",
+             "torch_check_dataset_determinism", "torch_resume_eight_y",
+             "torch_train_eight_faithful", "torch_train_early_presets",
+             "torch_diagnose_cnn_eight", "torch_loss_floor_report",
+             "torch_render_early_compare"):
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules
              if k in ("jax", "flax", "optax", "msgpack")
@@ -54,7 +59,11 @@ def test_sources_never_name_jax_or_the_jax_package():
             "scaling.py", "train.py", "checkpoint.py", "cli.py", "__main__.py",
             "vtk.py", "viz.py", "vortex.py", "engine.py", "lbm_kernel.cpp",
             "flax_msgpack.py", "bench.py", "torch_bench_backends.py",
-            "torch_slow_gates.py", "torch_validate.py"} <= names
+            "torch_slow_gates.py", "torch_validate.py", "torch_train_epochs.py",
+            "torch_check_dataset_determinism.py", "torch_resume_eight_y.py",
+            "torch_train_eight_faithful.py", "torch_train_early_presets.py",
+            "torch_diagnose_cnn_eight.py", "torch_loss_floor_report.py",
+            "torch_render_early_compare.py"} <= names
     jax_import = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|msgpack)\b", re.M)
     for path in files:
         text = path.read_text()

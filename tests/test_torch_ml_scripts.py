@@ -53,9 +53,14 @@ class _Parsed(Exception):
     pass
 
 
+# the port's own flags: the device, and torch_train_full.py's training over
+# several cards and its evaluation of halves trained apart
+PORT_FLAGS = ("device", "data_parallel", "evaluate_only")
+
+
 def _options(mod, monkeypatch) -> dict:
     """``--flag -> (default, type, help, action)`` of the parser that
-    ``mod.main`` builds, caught as it parses; ``--device`` is the port's
+    ``mod.main`` builds, caught as it parses; ``PORT_FLAGS`` are the port's
     own."""
     seen = {}
 
@@ -69,7 +74,7 @@ def _options(mod, monkeypatch) -> dict:
     monkeypatch.undo()
     return {a.option_strings[0] if a.option_strings else a.dest:
             (a.default, a.type, a.help, type(a).__name__)
-            for a in seen["parser"]._actions if a.dest not in ("help", "device")}
+            for a in seen["parser"]._actions if a.dest not in ("help", *PORT_FLAGS)}
 
 
 @pytest.mark.parametrize("jax_name, port_name", SAME_CLI)

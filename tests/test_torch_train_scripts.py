@@ -278,7 +278,7 @@ def test_split_and_merge_equals_one_directory(tmp_path):
     in one directory (the sweep, the top-up, the assembly): the chunk files,
     the four arrays and ``metadata.json`` (but its wall time) equal, bit for
     bit; and the pipeline runner's check of its dataset against that directory's
-    record passes every chunk."""
+    record passes every chunk, as does its determinism check against it."""
     full, topup = _script("torch_datagen_full"), _script("torch_datagen_topup")
     one = tmp_path / "one"
     base = ["--re-start", "100", "--re-stop", "380", "--out", str(one), "--device", "cpu"]
@@ -289,12 +289,14 @@ def test_split_and_merge_equals_one_directory(tmp_path):
     out, records = tmp_path / "cards", tmp_path / "records"
     assert drv.main(["--out", str(out), "--records", str(records), "--cards", "0,0",
                      "--device", "cpu", "--re-stop", "380", "--record",
+                     str(one / "metadata.json"), "--determinism-record",
                      str(one / "metadata.json"), "--sweep-args", " ".join(SMALL_SWEEP),
                      "--topup-args", " ".join(SMALL_TOPUP), "--jobs", ""]) == 0
     driver = json.loads((records / "driver.json").read_text())
     assert [(r["re_start"], r["re_stop"]) for r in driver["ranges"]] == [(100.0, 240.0),
                                                                          (240.0, 380.0)]
-    assert [p["rc"] for p in driver["processes"]] == [0] * 6
+    assert [p["rc"] for p in driver["processes"]] == [0] * 7
+    assert driver["determinism_rc"] == 0
     assert sorted(os.listdir(out / "card0" / "chunks")) == ["re000100.0.npz", "re000170.0.npz"]
     names = sorted(os.listdir(one / "chunks"))
     assert sorted(os.listdir(out / "chunks")) == names and len(names) == 4
@@ -311,6 +313,8 @@ def test_split_and_merge_equals_one_directory(tmp_path):
     assert all(int(c["steps"]) == 300 for c in got["chunks"])     # every chunk topped up
     check = json.loads((records / "ml_dataset.json").read_text())
     assert check["ok"] and check["agree"] == 4
+    same = json.loads((records / "determinism.json").read_text())
+    assert same["deterministic"] and (same["agree"], same["compared"]) == (4, 4)
     assert (records / "card1" / "topup.jsonl").exists()
     assert (records / "ml_full" / "metadata.json").exists()
 
@@ -343,6 +347,6 @@ def test_gated_jobs_start_before_the_readings():
     drv = _script("torch_pipeline_cards")
     assert drv.job_queue("cnn_eight,cnn_one_192,cnn_ten,cnn_nine") == [
         "cnn_nine", "cnn_ten", "cnn_one_192", "cnn_eight"]
-    assert drv.job_queue(",".join(drv.JOBS)) == drv.job_queue("cnn_ten,cnn_nine,cnn_eight,"
-                                                             "cnn_one_192")
+    assert drv.job_queue(",".join(drv.TRAIN_FULL_JOBS)) == drv.job_queue(
+        "cnn_ten,cnn_nine,cnn_eight,cnn_one_192")
     assert drv.job_queue("") == []
