@@ -263,9 +263,22 @@ along x, each with its own omega) and the surrogate pipeline:
     numbers within 1e-3;
 (t) the pipeline runner's epoch estimates (``time_training_epochs``): a
     training step and a validation forward of each of its jobs' models at
-    the job's grid and batch, timed, and the epoch they make on 493
+    the job's grid and batch, timed (the fastest of seven blocks), and the epoch they make on 493
     cavities printed beside ``torch_pipeline_cards.EPOCH_S``, which must lie
-    within a factor of 2.
+    within a factor of 2;
+(u) the whole-dataset scripts and the sweep's determinism
+    (``check_sweep_determinism``, ``run_whole_dataset_scripts``);
+(v) the last three scripts at a cut scale (``run_last_scripts``):
+    ``scripts/torch_probe_fidelity.py``'s run ``re400_192_srt`` cut to 96^2
+    and two 2 000-step intervals through ``auto`` (``cuda-pull``, launches
+    counted), equal bit for bit to ``simulate(backend="cuda-pull")`` of the
+    same configuration (steps, R2(Ux), L2 and every interval's log row);
+    ``scripts/torch_rollup_validation.py`` over that run's log (its row the
+    probe's, rounded as JAX rounds, with route and card); and
+    ``scripts/torch_weak_scaling_cpu.py``'s measurement on 1x1 and 2x2 meshes
+    of 64^2 shards on the card, routed to ``cuda-sharded`` against
+    ``cuda-pull``, over 3 000 timed steps, launches counted (one exchange a
+    step on 1x1 too), each mesh's final state equal to ``cuda-pull``'s.
 
 The last three lines are ``nvidia-smi``'s line, one JSON object describing
 each kernel, and ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -2126,8 +2139,8 @@ def time_training_epochs(device) -> None:
     models (every key of its ``EPOCH_S`` but the ones over several cards,
     which this one card cannot read) as ``ml.train.train`` runs it:
     ``torch_train_epochs.epoch_seconds``, its training steps and one
-    forward over the validation cavities on a random dataset of one batch
-    made in the call.  Printed beside the runner's ``EPOCH_S``; fails if
+    forward over the validation cavities (the fastest of its timed blocks)
+    on a random dataset of one batch made in the call.  Printed beside the runner's ``EPOCH_S``; fails if
     that is more than ``EPOCH_FACTOR`` from the reading (its values for
     ``cnn_eight`` and ``cnn_one_192`` are whole training runs' times,
     start-up included)."""
@@ -2275,6 +2288,111 @@ def drop_keys(obj, keys):
     if isinstance(obj, list):
         return [drop_keys(v, keys) for v in obj]
     return obj
+
+
+# (v): the last three scripts at a cut scale: one probe run at 96^2 in two
+# intervals, the rollup over its log, and weak scaling on 64^2 shards.
+PROBE_CUT = ("re400_192_srt", 96, 400.0, "srt", "none", 0.08, 4_000)
+PROBE_CUT_INTERVAL = 2_000
+WEAK_BLOCK = 64
+WEAK_MESHES = ((1, 1), (2, 2))
+WEAK_STEPS = 1_000                  # steps per runner call
+WEAK_MIN_TIMED = 3_000              # steps per timing
+WEAK_REPS = 1
+
+
+def _interval_rows(path: str) -> list:
+    """A metrics log's interval rows without their wall-clock stamp."""
+    with open(path) as fh:
+        return [drop_keys(json.loads(line), ("t",)) for line in fh
+                if line.strip() and not json.loads(line).get("final")]
+
+
+def run_last_scripts(device, tmp: str) -> dict:
+    """(v): ``scripts/torch_probe_fidelity.py``'s run cut to ``PROBE_CUT``
+    through ``auto``, its launches counted, held bit for bit to the same run
+    through ``simulate(backend="cuda-pull")`` (steps, R2(Ux), L2 and every
+    interval's row of the log); ``scripts/torch_rollup_validation.py`` over
+    that run's log (its row the probe's, rounded as JAX rounds, with the
+    route and the card; JAX's six unscripted rows without a port row); and
+    ``scripts/torch_weak_scaling_cpu.py``'s measurement on ``WEAK_MESHES`` of
+    ``WEAK_BLOCK``^2 shards, each routed to ``cuda-sharded`` against
+    ``cuda-pull`` with its launches counted and its final state equal to
+    ``cuda-pull``'s after the same steps (``measure`` raises where it is
+    not; the 1x1 mesh's halo wraps onto its one shard).  Returns the
+    launches of the probe run and the weak-scaling runs."""
+    probe = load_script("torch_probe_fidelity")
+    rollup = load_script("torch_rollup_validation")
+    weak = load_script("torch_weak_scaling_cpu")
+    total = {name: 0 for name in COUNTERS}
+    runs = os.path.join(tmp, "runs", "validation")
+    name, nx, reynolds, collision, turbulence, u_lid, max_steps = PROBE_CUT
+
+    reset_counters()
+    t0 = time.perf_counter()
+    row = probe.run(*PROBE_CUT, interval=PROBE_CUT_INTERVAL, out_root=runs, device=device)
+    counts = read_counters()
+    wall = time.perf_counter() - t0
+    if row["backend"] != "cuda-pull" or counts != {**{n: 0 for n in COUNTERS},
+                                                   "pull_step": row["steps"]}:
+        raise AssertionError(f"the probe run: route {row['backend']}, launches {counts}")
+    add_counts(total, counts)
+    cfg = SimConfig(nx=nx, ny=nx, reynolds=reynolds, collision=collision, turbulence=turbulence,
+                    u_lid=u_lid, precision="float32", max_steps=max_steps,
+                    report_interval=PROBE_CUT_INTERVAL).validate()
+    direct_dir = os.path.join(tmp, "direct")
+    direct = simulate(cfg, SimOptions(out_dir=direct_dir, project=name, save_plots=False,
+                                      backend="cuda-pull", verbose=False), device=device)
+    got = (row["steps"], row["converged"], row["r2_ux"], row["l2_pct"])
+    want = (direct.steps, direct.converged, direct.r2_ux, 100 * direct.l2_combined)
+    log = os.path.join(runs, name, f"{name}_metrics.jsonl")
+    same_log = _interval_rows(log) == _interval_rows(
+        os.path.join(direct_dir, f"{name}_metrics.jsonl"))
+    print(f"  probe {name} cut to {nx}^2, {max_steps} steps in {PROBE_CUT_INTERVAL}-step "
+          f"intervals: routed to {row['backend']} in {wall:.2f} s, launches "
+          f"{ {k: v for k, v in counts.items() if v} }; steps, converged, R2(Ux), L2 % {got}; "
+          f"simulate on cuda-pull {want}; interval rows equal: {same_log}", flush=True)
+    if got != want or not same_log or row["steps"] != max_steps:
+        raise AssertionError(f"the probe run {got} is not simulate's on cuda-pull {want}")
+
+    with open(os.path.join(tmp, "probes.json"), "w") as fh:   # as the probe's main writes it
+        json.dump([row], fh)
+    if rollup.main(art=tmp) != 0:
+        raise AssertionError("torch_rollup_validation: exit code not 0")
+    with open(os.path.join(tmp, "validation_rollup.json")) as fh:
+        rows = json.load(fh)
+    ours = [r for r in rows if r["port"] is not None]
+    mine = {"run": name, "steps": row["steps"], "r2_ux": round(row["r2_ux"], 5),
+            "l2_pct": round(row["l2_pct"], 3), "mlups": round(row["mlups"], 1),
+            "backend": "cuda-pull", "card": row["card"]}
+    print(f"  rollup: {json.dumps(ours)}; {len(rows) - len(ours)} JAX rows with no script",
+          flush=True)
+    if (len(ours) != 1 or {k: ours[0][k] for k in mine} != mine
+            or sorted(r["run"] for r in rows if r["port"] is None) != sorted(rollup.NO_SCRIPT)):
+        raise AssertionError(f"the rollup's rows {rows}, expected the probe's {mine}")
+
+    for mx, my in WEAK_MESHES:
+        reset_counters()
+        rec = weak.measure(mx, my, device, steps=WEAK_STEPS, block=WEAK_BLOCK, reps=WEAK_REPS,
+                           min_timed_steps=WEAK_MIN_TIMED)
+        counts = read_counters()
+        steps = (1 + WEAK_REPS * rec["calls"]) * WEAK_STEPS     # the warm call and the timings
+        # one exchange a step on every mesh, the 1x1 mesh's self-wrap too
+        want = {**{n: 0 for n in COUNTERS}, "pull_sharded_step": steps * mx * my,
+                "halo_exchange": steps, "pull_step": steps}
+        print(f"  weak scaling {rec['mesh']} of {WEAK_BLOCK}^2 shards: {rec['route']} "
+              f"{rec['ns_per_site_step']:.5f} ns/site/step against {rec['control_route']} "
+              f"{rec['unsharded_ns_per_site_step']:.5f} (sharding overhead "
+              f"{rec['sharding_overhead_pct']} %) over {rec['timed_steps']} steps, final state "
+              f"equal to the control's: {rec['equal_to_control']}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        if (rec["route"], rec["control_route"]) != ("cuda-sharded", "cuda-pull") or counts != want:
+            raise AssertionError(f"weak scaling {rec['mesh']}: routes {rec['route']}, "
+                                 f"{rec['control_route']}, launches {counts}, expected {want}")
+        if not (rec["ns_per_site_step"] > 0 and rec["unsharded_ns_per_site_step"] > 0):
+            raise AssertionError(f"weak scaling {rec['mesh']}: {rec}")
+        add_counts(total, counts)
+    return total
 
 
 def run_bench_command(pull_mlups: float) -> None:
@@ -3146,6 +3264,10 @@ def main() -> None:
             tempfile.TemporaryDirectory() as tmp:
         add_counts(main_launches, check_sweep_determinism(tmp))
         add_counts(main_launches, run_whole_dataset_scripts(device, tmp))
+
+    with phase("main path: the fidelity probe, the rollup and weak scaling"), \
+            tempfile.TemporaryDirectory() as tmp:
+        add_counts(main_launches, run_last_scripts(device, tmp))
 
     with phase("main path: checkpoint and resume"), tempfile.TemporaryDirectory() as tmp:
         add_counts(main_launches, run_checkpoint_resume(device, tmp))

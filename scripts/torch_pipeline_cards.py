@@ -138,17 +138,21 @@ NEEDS = {"resume_eight_y": ("cnn_eight", "x")}
 # 1.5551 and 1.4147, cnn_eight at 0.3801, 0.92 of the whole run's,
 # cnn_one_192 at 0.5007; over two cards cnn_nine 0.9618, cnn_ten 0.9286,
 # cnn_eight 0.2856, 1.63x, 1.53x and 1.34x one card's); chip_smoke.py's
-# phase (t) reads each one-card key again.  JOB_SETUP_S: a job's start, the dataset's read
+# phase (t) reads each one-card key again.  cnn_two_192's and
+# cnn_eight_192's steps (about 5 ms) are bound by the host's launches: six
+# readings each on NVIDIA H100 80GB HBM3 cards spread with the host's load,
+# 0.4356-0.9680 and 0.1056-0.2246 s an epoch, and each estimate is the
+# geometric middle of its spread.  JOB_SETUP_S: a job's start, the dataset's read
 # and the evaluation beside train_s (15.6-21.2 s).
 EPOCHS = {
     "cnn_nine": ("cnn_nine", 384, 1.57), "cnn_ten": ("cnn_ten", 384, 1.43),
     "cnn_eight": ("cnn_eight", 384, 0.415), "cnn_one_192": ("cnn_one", 192, 0.735),
     "cnn_nine@2": ("cnn_nine", 384, 0.97), "cnn_ten@2": ("cnn_ten", 384, 0.93),
     "cnn_eight@2": ("cnn_eight", 384, 0.29),
-    "cnn_two_192": ("cnn_two", 192, 0.44), "cnn_three_192": ("cnn_three", 192, 0.57),
+    "cnn_two_192": ("cnn_two", 192, 0.65), "cnn_three_192": ("cnn_three", 192, 0.57),
     "cnn_four_192": ("cnn_four", 192, 0.18), "cnn_five_192": ("cnn_five", 192, 0.16),
     "cnn_six_192": ("cnn_six", 192, 0.16), "cnn_seven_192": ("cnn_seven", 192, 0.14),
-    "cnn_seven_384": ("cnn_seven", 384, 0.38), "cnn_eight_192": ("cnn_eight", 192, 0.11),
+    "cnn_seven_384": ("cnn_seven", 384, 0.38), "cnn_eight_192": ("cnn_eight", 192, 0.15),
     "cnn_eight_auxin": ("cnn_eight_auxin", 384, 0.40),
     "cnn_eight_ms": ("cnn_eight_ms", 384, 1.37),
 }

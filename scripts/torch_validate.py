@@ -33,6 +33,8 @@ import os
 import sys
 import time
 
+import torch
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
@@ -124,6 +126,7 @@ def run(name, nx, re, collision, turbulence, boundary, max_steps, interval,
         "r2_ux": s.r2_ux, "l2_pct": 100 * s.l2_combined,
         "mlups": s.mlups, "wall_s": round(wall_s, 1),
         "backend": s.backend, "device": device_name(device),
+        "card": card_line() if torch.device(device).type == "cuda" else None,
         "jax_steps": jax["steps"], "jax_r2_ux": jax["r2_ux"], "jax_l2_pct": jax["l2_pct"],
         "d_r2_ux": s.r2_ux - jax["r2_ux"], "d_l2_pct": 100 * s.l2_combined - jax["l2_pct"],
     }

@@ -8,7 +8,10 @@ surrogate pipeline's scripts (``scripts/torch_check_dataset.py``,
 ``torch_train_full.py``, and since the scripts of the other training runs,
 ``torch_train_eight_faithful.py``, ``torch_train_early_presets.py``,
 ``torch_diagnose_cnn_eight.py``, and the determinism check's record of the
-port's own sweep) read there:
+port's own sweep, and since the last three scripts, ``torch_probe_fidelity.py``,
+``torch_rollup_validation.py`` and ``torch_weak_scaling_cpu.py``, JAX's
+``probes.json``, ``validation_rollup.json`` and ``weak_scaling_cpu.json``)
+read there:
 a file added to ``docs/artifacts`` that the list does not name would reach
 that copy unseen."""
 
@@ -60,6 +63,9 @@ def _needed() -> set[str]:
               for d in ("cnn_eight_faithful", "cnn_eight_glorot")]
     paths += [os.path.join(_script("torch_train_early_presets").JAX_ARTIFACTS, d, "summary.json")
               for d in ("ml_early", "ml_early_ref_budget", "ml_early_glorot")]
+    probes = _script("torch_probe_fidelity")
+    paths += [probes.JAX_PROBES, probes.JAX_RECORD, _script("torch_rollup_validation").JAX_ROLLUP,
+              _script("torch_weak_scaling_cpu").JAX_RECORD]
     return {Path(p).resolve().relative_to(REPO).as_posix() for p in paths}
 
 
