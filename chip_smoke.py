@@ -260,7 +260,11 @@ along x, each with its own omega) and the surrogate pipeline:
     card against CPU, then ``torch_train_full.main`` in process on the card
     (``cnn_one`` at 96^2, x and y, and the early preset at 48^2, two epochs
     each) and on the CPU from the same weights (``cnn_one`` alone), its
-    numbers within 1e-3;
+    numbers within 1e-3; the card run's kept held-out truth
+    (``held_out_truth.npz``, whose ``feq_initial`` the configuration
+    rebuilds, so it is not stored) re-read and the saved halves scored on
+    it on the card (``torch_train_full.score_saved``), equal to the in-run
+    evaluation within 1e-5 (the records' fifth decimal);
 (t) the pipeline runner's epoch estimates (``time_training_epochs``): a
     training step and a validation forward of each of its jobs' models at
     the job's grid and batch, timed (the fastest of seven blocks), and the epoch they make on 493
@@ -2057,6 +2061,18 @@ def train_full_card_vs_cpu(train_full, device, tmp: str) -> dict:
           flush=True)
     if [r["re"] for r in card["cnn_one"]["held_out_eval"]] != [500.0]:
         raise AssertionError(f"held out: {card['cnn_one']['held_out_eval']}")
+    truth_path = os.path.join(tmp, "train_cuda", train_full.TRUTH)
+    with np.load(truth_path) as z:
+        if "feq_initial" in z.files:
+            raise AssertionError("the kept truth stored feq_initial: the card's dataset's "
+                                 "differs from the configuration's")
+    rescored = train_full.score_saved("cnn_one", os.path.join(tmp, "train_cuda", "cnn_one"),
+                                      train_full.load_truth(truth_path), lambda msg: None, device)
+    worst = train_full.hold_close(rescored["held_out_eval"], card["cnn_one"]["held_out_eval"],
+                                  0.0, 1e-5, "rescored")
+    print(f"  the kept truth ({os.path.getsize(truth_path)} bytes) re-read and the saved halves "
+          f"scored on the card: largest difference to the in-run evaluation {worst:.1e}",
+          flush=True)
     if not np.isfinite([card["cnn_one_192"]["first_loss"], card["cnn_one_192"]["final_loss"]]).all():
         raise AssertionError(f"cnn_one_192: {card['cnn_one_192']}")
     return counts

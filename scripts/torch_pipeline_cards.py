@@ -39,9 +39,12 @@ logs while it runs, then ``ml_full/metadata.json``, ``ml_dataset.json``,
 ``determinism.json``,
 each job's summary and weight sidecars (not the weights), the summaries
 merged as the JAX records lay them out (``ml_full/summary.json``,
-``ml_full_b/summary.json``) and ``driver.json`` (the plan, each process's
-exit code and seconds, the bounds).  A failed process, a dataset check
-that misses or a missed bound makes the exit code 1, at the end.
+``ml_full_b/summary.json``), beside each the held-out truth that a model's
+evaluation kept (``held_out_truth.npz``, the last evaluated model's in its
+layout), and ``driver.json`` (the plan, the cards' ``nvidia-smi`` name and
+power limit, each process's exit code and seconds, the assembly's seconds,
+the bounds).  A failed process, a dataset check that misses or a missed
+bound makes the exit code 1, at the end.
 
 Usage (from the repository root, on a machine with four cards):
 
@@ -73,6 +76,8 @@ RECORDS = os.path.join(ROOT, "chiprun_out", "pipeline_cards")
 # the port's own whole sweep (four cards, one NVIDIA H100 80GB HBM3 each)
 DETERMINISM_RECORD = os.path.join(ROOT, "docs", "artifacts", "torch", "ml_full", "metadata.json")
 RE_STEP = 10.0
+# the held-out record a model's evaluation keeps (torch_train_full.TRUTH)
+TRUTH = "held_out_truth.npz"
 
 # JAX's training runs (scripts/chain_r3_b.sh:37-45, :67-68; cnn_eight's y
 # half came from scripts/resume_eight_y.py with the same recipe): the script
@@ -608,6 +613,7 @@ def train_jobs(args, cards, records: Records, t_start: float) -> bool:
                 bounds[job] = {"ok": True, "reading": f"the {part} half of {base}"}
             else:
                 merge_summary(records, spec.layout, summary)
+                records.copy(os.path.join(out, TRUTH), os.path.join(spec.layout, TRUTH))
                 bounds[job] = held_to_bounds(base, summary)
             ok = ok and bounds[job]["ok"]
             print(f"[{job}] {json.dumps(bounds[job])}", flush=True)
@@ -698,6 +704,10 @@ def main(argv=None) -> int:
     records = Records(os.path.abspath(args.records))
     records.driver.update(cards=cards, ranges=ranges, out=args.out, device=args.device,
                           deadline=args.deadline, group=args.group)
+    if args.device == "cuda":
+        records.driver["nvidia_smi"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     records.save()
     for k, r in enumerate(ranges):
         print(f"card {cards[k]}: Re {r['re_start']:g}..{r['re_stop'] - RE_STEP:g}, "
@@ -711,6 +721,7 @@ def main(argv=None) -> int:
                                  "--out", args.out, "--device", args.device],
                     cards[0], args.device, os.path.join(records.root, "assemble.log"))
     run([assemble], records)
+    records.driver["assemble_s"] = assemble.seconds
     ok = ok and assemble.poll() == 0
     meta = os.path.join(args.out, "metadata.json")
     records.copy(meta, os.path.join("ml_full", "metadata.json"))

@@ -39,6 +39,12 @@ in ``<out>/<model>`` (one run per component, as ``--components x`` and
 ``--components y`` on two groups of cards, then this).  Both the trained
 and the evaluated weights are read back from disk for the evaluation
 (``evaluate_saved``), so it is the same either way.
+
+A run that evaluates a model also keeps what it scored against,
+``<out>/held_out_truth.npz`` (``save_truth``: the held-out LBM fields, the
+lid speed, each evaluated model's scalers, and ``feq_initial`` only where
+the configuration does not rebuild it exactly), so that saved weights can
+be scored later without the dataset (``scripts/torch_score_weights.py``).
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ import json
 import os
 import sys
 import time
+import types
 from typing import NamedTuple
 
 import numpy as np
@@ -56,6 +63,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+from latticeboltzmannsimulations_torch import engine  # noqa: E402
 from latticeboltzmannsimulations_torch.config import SimConfig  # noqa: E402
 from latticeboltzmannsimulations_torch.ml import datagen, predict, train as tr  # noqa: E402
 from latticeboltzmannsimulations_torch.ml.models import PRESETS  # noqa: E402
@@ -67,6 +75,9 @@ HELD_OUT = [500.0, 1500.0, 2500.0, 3200.0, 4500.0, 5000.0, 5050.0]
 JAX_RECORDS = [os.path.join(ROOT, "docs", "artifacts", d, "summary.json")
                for d in ("ml_full", "ml_full_b")]
 SEED = 0                   # train's default: every model's initial weights
+# The kept record of what the evaluation scores against, written beside the
+# summary (``save_truth``)
+TRUTH = "held_out_truth.npz"
 
 
 def full_field_r2(u_true: np.ndarray, u_pred: np.ndarray) -> float:
@@ -91,6 +102,44 @@ def split_dataset(ds, held_out):
             if float(r) in held_out
             and (ds.failed is None or not ds.failed[i])}
     return train_ds, held
+
+
+class Truth(NamedTuple):
+    """A kept held-out record (``load_truth``): what ``evaluate`` reads of the
+    dataset, and the scalers of each model the run evaluated."""
+    held: dict                 # Re -> LBM u (2, X, Y)
+    feq_initial: np.ndarray    # (9, X, Y)
+    u_lid: float
+    scalers: dict              # model -> its scalers, as its sidecar holds them
+
+
+def initial_feq(grid: int, u_lid: float) -> np.ndarray:
+    """The sweep's ``feq_initial`` at ``grid``^2: the initial equilibrium of
+    its float32 cavity (``engine.init_state``), built on the CPU."""
+    cfg = SimConfig(nx=grid, ny=grid, u_lid=u_lid, precision="float32")
+    return engine.init_state(cfg, "cpu").f.numpy()
+
+
+def save_truth(path, held, feq_initial, u_lid, scalers) -> None:
+    """One compressed record of the held-out LBM fields (float32, by Re),
+    ``u_lid`` and ``scalers`` (model -> scalers); ``feq_initial`` is stored
+    only where ``initial_feq`` does not rebuild it bit for bit."""
+    res = sorted(held)
+    arrays = {"re": np.asarray(res, np.float64),
+              "u_final": np.stack([held[r] for r in res]).astype(np.float32),
+              "u_lid": np.float64(u_lid), "scalers": np.array(json.dumps(scalers))}
+    if not np.array_equal(feq_initial, initial_feq(feq_initial.shape[-1], u_lid)):
+        arrays["feq_initial"] = feq_initial
+    np.savez_compressed(path, **arrays)
+
+
+def load_truth(path) -> Truth:
+    """``save_truth``'s record, ``feq_initial`` rebuilt where it was not stored."""
+    with np.load(path) as z:
+        u, u_lid = z["u_final"], float(z["u_lid"])
+        feq = z["feq_initial"] if "feq_initial" in z.files else initial_feq(u.shape[-1], u_lid)
+        return Truth({float(r): u[i] for i, r in enumerate(z["re"])}, feq, u_lid,
+                     json.loads(str(z["scalers"])))
 
 
 def downsample(ds, k=2):
@@ -157,6 +206,24 @@ def evaluate_saved(name, components, data, ds, held, u_lid, out_dir, log, lr=1e-
     return results, entry
 
 
+def score_saved(name, weights_dir, truth: Truth, log, device="cuda") -> dict:
+    """``name``'s two halves saved in ``weights_dir`` (the port's ``.pt`` or
+    the JAX package's ``.msgpack``) evaluated against a kept ``truth``
+    with the scalers of their own x sidecar, which their training fitted;
+    returns the entry: those scalers, the ones the truth's dataset gives
+    the model (where the record holds them) and the held-out rows.  No
+    figures are drawn."""
+    results, scalers = {}, None
+    for comp in ("x", "y"):
+        params, meta = tr.load_weights(name, comp, weights_dir)
+        results[comp] = Saved(params, meta.get("history"))
+        scalers = scalers or meta["scalers"]
+    recs = evaluate(name, results, types.SimpleNamespace(scalers=scalers), truth, truth.held,
+                    truth.u_lid, None, log, device)
+    return {"scalers": scalers, "dataset_scalers": truth.scalers.get(name),
+            "held_out_eval": recs}
+
+
 def model_record(name, entry, **extra) -> dict:
     """``entry`` with JAX's record of ``name`` beside each number, then
     ``extra`` (the seconds trained, the seed, the device, ...)."""
@@ -178,12 +245,14 @@ def merge_summary(out_root, name=None, record=None, **top) -> None:
 
 
 def evaluate(name, results, data, ds, held, u_lid, out_dir, log, device="cuda"):
-    """Held-out-Re evaluation vs stored LBM truth (+ Ghia dashboards where
-    matplotlib is, the Ghia numbers everywhere)."""
+    """Held-out-Re evaluation vs stored LBM truth (+ Ghia dashboards in
+    ``out_dir`` where matplotlib is and ``out_dir`` is not None, the Ghia
+    numbers everywhere).  Of ``ds`` (the dataset, or a kept ``Truth``) only
+    ``feq_initial`` is read, of ``data`` only ``scalers``."""
     recs = []
     px = results["x"].params
     py = results["y"].params if "y" in results else results["x"].params
-    g = ds.f_final.shape[-1]
+    g = ds.feq_initial.shape[-1]
     for re in sorted(held):
         fnet, aux = predict.build_input(name, re, ds.feq_initial,
                                         data.scalers, u_lid=u_lid)
@@ -202,7 +271,7 @@ def evaluate(name, results, data, ds, held, u_lid, out_dir, log, device="cuda"):
                 cfg = SimConfig(nx=g, ny=g, reynolds=re, collision="srt",
                                 turbulence="smagorinsky",
                                 precision="float32")
-                if figures():
+                if out_dir is not None and figures():
                     fig = predict.comparison_figure(
                         cfg, u_lbm, u_cnn,
                         os.path.join(out_dir, f"{name}_re{re:g}_compare.png"))
@@ -329,6 +398,7 @@ def main(argv=None) -> int:
     # Merge into an existing summary so per-model invocations (e.g. with
     # different --lr/--schedule) accumulate instead of clobbering.
     top = {"held_out": sorted(held), "dataset": meta, "epochs_scale": args.epochs_scale}
+    evaluated = {}                  # model -> the scalers its evaluation used
 
     for name in [m for m in args.models.split(",") if m]:
         out_dir = os.path.join(out_root, name)
@@ -340,6 +410,8 @@ def main(argv=None) -> int:
             schedule=args.schedule or None, device=device, mesh=mesh)
         results, entry = evaluate_saved(name, components, data, ds, held, u_lid, out_dir,
                                         log, args.lr, args.schedule or None, device)
+        if entry["held_out_eval"]:
+            evaluated[name] = data.scalers
         if args.fine_tune_epochs and name == "cnn_eight" and not args.evaluate_only:
             # CNN_test parity at native scale: reload the saved weights and
             # refit at RMSprop lr=1e-4 (reference: CNN_test.py:100-106).
@@ -395,6 +467,9 @@ def main(argv=None) -> int:
                                    device=device), **top)
         log(f"{name}@192: loss {h['loss'][0]:.3e} -> {h['loss'][-1]:.3e}")
 
+    if evaluated:
+        save_truth(os.path.join(out_root, TRUTH), held, ds.feq_initial, u_lid, evaluated)
+        log(f"held-out truth -> {out_root}/{TRUTH}")
     merge_summary(out_root, **top)
     log(f"done -> {out_root}/summary.json")
     return 0

@@ -136,8 +136,9 @@ def reduced_runs(tmp_path_factory):
     assert tmod.main([*REDUCED, "--data", str(data), "--out", str(root / "torch"),
                       "--device", "cpu"]) == 0
     mp.undo()
-    return {kind: json.loads((root / kind / "summary.json").read_text())
+    runs = {kind: json.loads((root / kind / "summary.json").read_text())
             for kind in ("jax", "torch")}
+    return dict(runs, root=root)
 
 
 def test_reduced_train_full_gives_jax_summary(reduced_runs):
@@ -198,6 +199,89 @@ def test_evaluate_without_matplotlib_gives_the_ghia_numbers(monkeypatch, tmp_pat
                                  aux, data.scalers, device="cpu")
     want = predict.comparison_metrics(SimConfig(nx=48, ny=48, reynolds=3200.0), held[3200.0], u)
     assert {k: rec[k] for k in want} == {k: round(v, 5) for k, v in want.items()}
+
+
+# --- the kept held-out truth --------------------------------------------------
+
+def test_kept_truth_rereads_to_the_in_run_evaluation(reduced_runs):
+    """The record the reduced run kept (``held_out_truth.npz``), re-read
+    without the dataset, gives the saved halves the in-run evaluation
+    exactly; the seeded dataset's ``feq_initial`` is no sweep's, so the
+    record stores it."""
+    tf = _script("torch_train_full")
+    out = reduced_runs["root"] / "torch"
+    with np.load(out / tf.TRUTH) as z:
+        assert sorted(z.files) == ["feq_initial", "re", "scalers", "u_final", "u_lid"]
+    truth = tf.load_truth(str(out / tf.TRUTH))
+    ds = datagen.load_dataset(str(reduced_runs["root"] / "data"))
+    np.testing.assert_array_equal(truth.feq_initial, ds.feq_initial)
+    for re, u in truth.held.items():
+        np.testing.assert_array_equal(u, ds.u_final[list(ds.re_range).index(re)])
+    entry = tf.score_saved("cnn_one", str(out / "cnn_one"), truth, lambda msg: None, "cpu")
+    want = reduced_runs["torch"]["models"]["cnn_one"]["held_out_eval"]
+    assert entry["scalers"] == entry["dataset_scalers"] == truth.scalers["cnn_one"]
+    got = entry["held_out_eval"]
+    assert [r["re"] for r in got] == [500.0, 1500.0, 3200.0] and got[-1]["figure"] is None
+    for g, w in zip(got, want):
+        assert {k: v for k, v in g.items() if k != "figure"} == {
+            k: v for k, v in w.items() if k != "figure"}
+
+
+@pytest.mark.parametrize("sweep", [True, False])
+def test_kept_truth_rebuilds_the_sweeps_initial_equilibrium(sweep, tmp_path):
+    """A dataset whose ``feq_initial`` is the sweep's own (the configuration's
+    initial equilibrium, as ``torch_datagen_full.py`` assembles it) is not
+    stored but rebuilt bit for bit; any other is stored."""
+    from latticeboltzmannsimulations_torch import engine
+    from latticeboltzmannsimulations_torch.config import SimConfig
+
+    tf = _script("torch_train_full")
+    cfg = SimConfig(nx=48, ny=48, reynolds=1000.0, collision="srt", turbulence="smagorinsky",
+                    precision="float32").validate()
+    feq = engine.init_state(cfg, "cpu").f.numpy()
+    if not sweep:
+        feq = feq.copy()
+        feq[4, 7, 9] = np.nextafter(feq[4, 7, 9], np.float32(1))
+    held = {2500.0: np.full((2, 48, 48), 0.25, np.float32)}
+    tf.save_truth(str(tmp_path / "t.npz"), held, feq, 0.08, {"cnn_nine": {"re": None}})
+    with np.load(tmp_path / "t.npz") as z:
+        assert ("feq_initial" in z.files) == (not sweep)
+    truth = tf.load_truth(str(tmp_path / "t.npz"))
+    np.testing.assert_array_equal(truth.feq_initial, feq)
+    assert truth.feq_initial.dtype == np.float32 and truth.u_lid == 0.08
+    assert list(truth.held) == [2500.0] and truth.scalers == {"cnn_nine": {"re": None}}
+
+
+def test_jax_weights_on_a_kept_truth_score_as_the_jax_script(tmp_path):
+    """JAX's trained ``cnn_nine`` halves (the committed ``.msgpack`` files and
+    their sidecars' scalers) scored by ``scripts/torch_score_weights.py`` on
+    a kept record of a seeded 192^2 truth (Re 1500 and 2500) against JAX's
+    ``train_full.evaluate`` of the same weights on the same truth, within
+    rel 1e-3, abs 1e-3 (float32 convolutions in another order); each
+    number stands beside JAX's record."""
+    from flax import serialization
+
+    port, jax_ = _script("torch_train_full"), _script("train_full")
+    ds = _dataset(jdatagen, res=(1500.0, 2500.0), grid=192, seed=11)
+    held = {float(r): ds.u_final[i] for i, r in enumerate(ds.re_range)}
+    port.save_truth(str(tmp_path / "truth.npz"), held, ds.feq_initial, 0.08, {})
+    weights = os.path.join(ROOT, "docs", "artifacts", "ml_full", "cnn_nine")
+    out = tmp_path / "scores.json"
+    assert _script("torch_score_weights").main([
+        "--truth", str(tmp_path / "truth.npz"), "--weights", f"cnn_nine={weights}",
+        "--out", str(out), "--device", "cpu"]) == 0
+    got = json.loads(out.read_text())["models"]["cnn_nine"]["jax"]
+    side = json.load(open(os.path.join(weights, "cnn_nine_x.json")))["scalers"]
+    assert got["scalers"] == side and got["dataset_scalers"] is None
+    results = {c: types.SimpleNamespace(params=serialization.msgpack_restore(
+        open(os.path.join(weights, f"cnn_nine_{c}.msgpack"), "rb").read())) for c in "xy"}
+    want = jax_.evaluate("cnn_nine", results, types.SimpleNamespace(scalers=side), ds, held,
+                         0.08, str(tmp_path), lambda msg: None)
+    port.hold_close(got["held_out_eval"], want, rtol=1e-3, atol=1e-3)
+    record = {r["re"]: r for r in port.jax_record("cnn_nine")["held_out_eval"]}
+    for row in got["held_out_eval"]:
+        assert row["jax_r2_ux"] == record[row["re"]]["r2_ux"]
+        assert row["d_rel_l2"] == row["rel_l2"] - record[row["re"]]["rel_l2"]
 
 
 # --- the dataset check's readings ---------------------------------------------
@@ -317,6 +401,62 @@ def test_split_and_merge_equals_one_directory(tmp_path):
     assert same["deterministic"] and (same["agree"], same["compared"]) == (4, 4)
     assert (records / "card1" / "topup.jsonl").exists()
     assert (records / "ml_full" / "metadata.json").exists()
+
+
+def test_cut_pipeline_keeps_the_held_out_truth(monkeypatch, tmp_path):
+    """The cut pipeline on the CPU (the first six chunks, Re 100..510, at
+    48^2 with a 200-step cap and a 100-step top-up, on two slots) with
+    ``cnn_one``'s halves (one slot each: its batch of 5 does not split) and
+    its evaluation: the evaluation's kept record
+    (``held_out_truth.npz``, Re 500) reaches the runner's records beside the
+    merged summary, holds the assembled dataset's field of Re 500, and
+    rebuilds the sweep's ``feq_initial`` bit for bit without storing it.
+    The dataset check holds the 48^2 chunks to JAX's 384^2 record and
+    misses, as it should."""
+    drv, tf = _script("torch_pipeline_cards"), _script("torch_train_full")
+    assert drv.TRUTH == tf.TRUTH
+    monkeypatch.setitem(drv.JOBS, "cnn_one", drv.Job(
+        "torch_train_full", ["--models", "cnn_one", "--early-preset", "", "--fine-tune-epochs",
+                             "0", "--epochs-scale", "0.004"],
+        "ml_full", {"cnn_one": 4}, "cnn_one"))
+    monkeypatch.setitem(drv.EPOCH_S, "cnn_one", 1.0)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    out, records = tmp_path / "data", tmp_path / "records"
+    sweep = "--grid 48 --max-steps 200 --report-interval 50"
+    assert drv.main(["--out", str(out), "--records", str(records), "--cards", "0,0",
+                     "--device", "cpu", "--re-stop", "520", "--determinism-record", "",
+                     "--sweep-args", sweep, "--topup-args",
+                     "--grid 48 --extra-steps 100 --report-interval 50",
+                     "--jobs", "cnn_one.x,cnn_one.y"]) == 1
+    driver = json.loads((records / "driver.json").read_text())
+    assert [p["rc"] for p in driver["processes"]] == [0] * 5 + [1] + [0] * 3
+    assert driver["dataset_check_rc"] == 1 and driver["assemble_s"] > 0
+    assert all(b["ok"] for b in driver["bounds"].values())
+    summary = json.loads((records / "ml_full" / "summary.json").read_text())
+    assert [r["re"] for r in summary["models"]["cnn_one"]["held_out_eval"]] == [500.0]
+    with np.load(records / "ml_full" / tf.TRUTH) as z:
+        assert "feq_initial" not in z.files
+    truth = tf.load_truth(str(records / "ml_full" / tf.TRUTH))
+    ds = datagen.load_dataset(str(out))
+    np.testing.assert_array_equal(truth.feq_initial, ds.feq_initial)
+    np.testing.assert_array_equal(truth.held[500.0], ds.u_final[list(ds.re_range).index(500.0)])
+    assert truth.scalers["cnn_one"] == json.loads(
+        (out / "train" / "cnn_one.x" / "cnn_one" / "cnn_one_x.json").read_text())["scalers"]
+
+
+def test_assembly_timing_assembles_every_chunk_of_the_record(tmp_path):
+    """``scripts/torch_time_assembly.py`` at 48^2: one synthetic chunk file
+    per chunk of JAX's record (72, 500 Re values), assembled by
+    ``torch_datagen_full.py --assemble-partial`` in a process of its own
+    and timed; the files are removed after."""
+    mod = _script("torch_time_assembly")
+    out = tmp_path / "assembly.json"
+    assert mod.main(["--grid", "48", "--dir", str(tmp_path / "a"), "--out", str(out),
+                     "--workers", "1"]) == 0
+    got = json.loads(out.read_text())
+    assert (got["chunks"], got["cavities"], got["grid"]) == (72, 500, 48)
+    assert got["seconds"] > 0 and got["assembled_bytes"] > 500 * 11 * 48 * 48 * 4
+    assert not (tmp_path / "a").exists()
 
 
 def test_driver_raises_without_a_card_and_gates_the_jobs():
