@@ -264,7 +264,12 @@ along x, each with its own omega) and the surrogate pipeline:
     (``held_out_truth.npz``, whose ``feq_initial`` the configuration
     rebuilds, so it is not stored) re-read and the saved halves scored on
     it on the card (``torch_train_full.score_saved``), equal to the in-run
-    evaluation within 1e-5 (the records' fifth decimal);
+    evaluation within 1e-5 (the records' fifth decimal); then a seeded x
+    half with snapshots on the card (``seeded_x_half``: ``--seed 1
+    --components x --snapshots 10``, twelve epochs kept at 2 and 12 through
+    a checkpoint's resume), its last snapshot the run's weights bit for bit,
+    it and the seed-0 x half scored alone (R^2(ux) only) equal to their
+    in-run and two-half scores;
 (t) the pipeline runner's epoch estimates (``time_training_epochs``): a
     training step and a validation forward of each of its jobs' models at
     the job's grid and batch, timed (the fastest of seven blocks), and the epoch they make on 493
@@ -1986,6 +1991,11 @@ TRAIN_ARGS = ("--models", "cnn_one", "--epochs-scale", "0.004", "--early-epochs"
 # the CPU's run, held to the card's cnn_one (its numbers come before the
 # early preset's and do not depend on it)
 TRAIN_CPU_ARGS = (*TRAIN_ARGS, "--early-preset", "")
+# a seeded x half with snapshots (12 epochs; kept at epochs 2 and 12, the
+# second resumed from the first's checkpoint)
+SEEDED_ARGS = ("--models", "cnn_one", "--components", "x", "--epochs-scale", "0.024",
+               "--early-preset", "", "--fine-tune-epochs", "0", "--seed", "1",
+               "--snapshots", "10")
 TRAIN_TOL = 1e-3      # rel and abs, card against CPU after two Adam updates
 TRAIN_GRAD_RTOL = 1e-4
 SPLIT_RE = ("--re-start", "100", "--re-stop", "380")   # four chunks of JAX's record
@@ -2073,9 +2083,54 @@ def train_full_card_vs_cpu(train_full, device, tmp: str) -> dict:
     print(f"  the kept truth ({os.path.getsize(truth_path)} bytes) re-read and the saved halves "
           f"scored on the card: largest difference to the in-run evaluation {worst:.1e}",
           flush=True)
+    seeded_x_half(train_full, data_dir, tmp, device, train_full.load_truth(truth_path),
+                  rescored["held_out_eval"])
     if not np.isfinite([card["cnn_one_192"]["first_loss"], card["cnn_one_192"]["final_loss"]]).all():
         raise AssertionError(f"cnn_one_192: {card['cnn_one_192']}")
     return counts
+
+
+def seeded_x_half(train_full, data_dir: str, tmp: str, device, truth0, both_rows: list) -> None:
+    """(s), in process: ``torch_train_full.main`` on the card with
+    ``SEEDED_ARGS`` (seed 1, x alone, snapshots resumed through a
+    checkpoint): the seed recorded, the last snapshot's weights the run's
+    bit for bit and its scores the run's; the x half scored alone on the
+    kept truth equal to the in-run evaluation, and the seed-0 run's x half
+    scored alone on its kept truth ``truth0`` equal in R^2(ux) to its score
+    beside its y half there (``both_rows``), R^2(ux) only."""
+    out = os.path.join(tmp, "train_seeded")
+    reset_counters()
+    if train_full.main([*SEEDED_ARGS, "--data", data_dir, "--out", out, "--device", "cuda"]):
+        raise AssertionError("torch_train_full, seeded x half: exit code not 0")
+    if any(read_counters().values()):
+        raise AssertionError(f"training launched a kernel of the port: {read_counters()}")
+    with open(os.path.join(out, "summary.json")) as fh:
+        m = json.load(fh)["models"]["cnn_one"]
+    epochs = [snap["epoch"] for snap in m["snapshots"]]
+    model_dir = os.path.join(out, "cnn_one")
+    last, _ = train.load_weights("cnn_one", "x", train_full.snapshot_dir(model_dir, epochs[-1]))
+    result, _ = train.load_weights("cnn_one", "x", model_dir)
+    truth = train_full.load_truth(os.path.join(out, train_full.TRUTH))
+    alone = train_full.score_saved("cnn_one", model_dir, truth, lambda msg: None, device, ("x",))
+    seed0 = train_full.score_saved("cnn_one", os.path.join(tmp, "train_cuda", "cnn_one"),
+                                   truth0, lambda msg: None, device, ("x",))
+    print(f"  seeded x half ({shlex.join(SEEDED_ARGS)}): seed {m['seed']}, snapshots at epochs "
+          f"{epochs}, held out {m['held_out_eval']}; the x half scored alone on its kept "
+          f"truth {alone['held_out_eval']}; seed 0's x half alone {seed0['held_out_eval']} "
+          f"beside its two halves' R2(ux) {[(r['re'], r['r2_ux']) for r in both_rows]}",
+          flush=True)
+    if m["seed"] != 1 or epochs != [2, 12] or not os.path.exists(os.path.join(
+            train_full.snapshot_dir(model_dir, 2), "cnn_one_x.pt")):
+        raise AssertionError(f"seeded x half: seed {m['seed']}, snapshots {epochs}")
+    if any(not torch.equal(last[k], result[k]) for k in result):
+        raise AssertionError("the last snapshot's weights are not the run's result")
+    if m["snapshots"][-1]["held_out_eval"] != m["held_out_eval"]:
+        raise AssertionError(f"the last snapshot scored {m['snapshots'][-1]} against {m}")
+    if any(list(r) != ["re", "r2_ux"] for r in m["held_out_eval"] + seed0["held_out_eval"]):
+        raise AssertionError("an x half alone wrote more than R2(ux)")
+    train_full.hold_close(alone["held_out_eval"], m["held_out_eval"], 0.0, 1e-5, "x alone")
+    if seed0["held_out_eval"] != [{"re": r["re"], "r2_ux": r["r2_ux"]} for r in both_rows]:
+        raise AssertionError("seed 0's x half alone differs from its score beside y")
 
 
 def run_train_scripts(device, tmp: str) -> dict:

@@ -28,11 +28,13 @@ runs, each through the port's own scripts' command lines.
    longest first among them, ``cnn_eight``'s reading last; a job is
    started only if its estimate (``EPOCH_S``) ends before ``--deadline``.
    A model's training takes ``--group`` cards (``CUDA_VISIBLE_DEVICES``
-   and ``--data-parallel``); ``<job>.x`` and ``<job>.y`` train one
-   component each, and once both have ended ``<job>.eval`` evaluates the
-   two saved halves together on one card (``--evaluate-only``).  Each
-   model's held-out numbers are held to ``BOUNDS`` (``cnn_eight``'s plateau
-   and the other scripts' runs are readings, not bounds).
+   and ``--data-parallel``), or its own count where ``--jobs`` names it
+   ``<job>@<k>``; ``<job>.x`` and ``<job>.y`` train one component each,
+   and once both have ended ``<job>.eval`` evaluates the two saved halves
+   (and each pair of their snapshots) together on one card
+   (``--evaluate-only``).  Each model's held-out numbers are held to
+   ``BOUNDS`` (``cnn_eight``'s plateau and the other scripts' runs are
+   readings, not bounds).
 
 Every record is copied into ``--records`` as it is written: each card's
 logs while it runs, then ``ml_full/metadata.json``, ``ml_dataset.json``,
@@ -51,7 +53,9 @@ Usage (from the repository root, on a machine with four cards):
     python scripts/torch_pipeline_cards.py [--out data/ml_full] [--deadline 1950]
 
 ``cnn_nine``'s x half on cards 0-1 and its y half on cards 2-3:
-``--jobs cnn_nine.x,cnn_nine.y --group 2``.
+``--jobs cnn_nine.x,cnn_nine.y --group 2``.  ``cnn_ten``'s halves on one
+card each and the x half of ``cnn_nine`` from seed 1 over the other two:
+``--jobs cnn_ten.x,cnn_ten.y,cnn_nine_s1.x@2``.
 
 ``--cards 0,0`` runs two ranges on the one card 0; ``--device cpu`` runs
 every process on the CPU; ``--re-stop``, ``--sweep-args`` and
@@ -85,7 +89,10 @@ TRUTH = "held_out_truth.npz"
 # trains by EPOCH_S's keys.  The other runs that read the whole dataset
 # (scripts/train_eight_faithful.py, train_early_presets.py,
 # diagnose_cnn_eight.py, resume_eight_y.py) by their port's scripts: named
-# here so that a call can run them, each on one card.
+# here so that a call can run them, each on one card.  cnn_ten keeps the
+# weights of its last 40 epochs every tenth (--snapshots), and cnn_nine_s1
+# is cnn_nine's run from the initial weights and shuffle of seed 1 with
+# those of its last 50: whether a late epoch's score is a draw or a fault.
 class Job(NamedTuple):
     script: str
     argv: list
@@ -103,8 +110,13 @@ JOBS = {
                                          "--fine-tune-epochs", "0"], "ml_full",
                     {"cnn_nine": 2 * 350}, "cnn_nine"),
     "cnn_ten": Job("torch_train_full", ["--models", "cnn_ten", "--early-preset", "",
-                                        "--fine-tune-epochs", "0", "--epochs-scale", "0.5"],
+                                        "--fine-tune-epochs", "0", "--epochs-scale", "0.5",
+                                        "--snapshots", "40"],
                    "ml_full_b", {"cnn_ten": 2 * 200}, "cnn_ten"),
+    "cnn_nine_s1": Job("torch_train_full", ["--models", "cnn_nine", "--early-preset", "",
+                                            "--fine-tune-epochs", "0", "--seed", "1",
+                                            "--snapshots", "50"],
+                       "ml_full_s1", {"cnn_nine": 2 * 350}, "cnn_nine"),
     "cnn_one_192": Job("torch_train_full", ["--models", "", "--early-epochs", "80"],
                        "ml_full_b", {"cnn_one_192": 80}),
     "resume_eight_y": Job("torch_resume_eight_y", [], "ml_full", {"cnn_eight": 600}),
@@ -385,14 +397,40 @@ def epoch_s(key: str, k: int = 1) -> float:
     return EPOCH_S.get(f"{key}@{k}", EPOCH_S[key])
 
 
-def job_cards(job: str, group: int) -> int:
-    """The cards a job takes: ``group`` for training a model of
-    ``torch_train_full.py`` (whole or half), else one."""
+def job_cards(job: str, group) -> int:
+    """The cards a job takes: for training a model of ``torch_train_full.py``
+    (whole or half) ``group``, or the job's own count where ``group`` maps
+    jobs to counts (``parse_jobs``), else one."""
     _, part, spec = job_spec(job)
-    return group if spec.model and part != "eval" else 1
+    if not spec.model or part == "eval":
+        return 1
+    return group[job] if isinstance(group, dict) else group
 
 
-def job_estimate(job: str, group: int = 1) -> float:
+def parse_jobs(jobs: str, group: int) -> dict:
+    """``--jobs``' names in order, each with the cards it takes: ``<job>@<k>``
+    gives a model's training its own ``k``, any other ``group``
+    (``job_cards``); a model both of whose halves are listed gains its
+    ``.eval``."""
+    cards = {}
+    for item in filter(None, jobs.split(",")):
+        job, at, k = item.partition("@")
+        n = job_cards(job, group)
+        if at:
+            if job_cards(job, int(k)) != int(k) or int(k) < 1:
+                raise ValueError(f"{item!r}: only a model's training takes its own card count")
+            n = int(k)
+        if cards.get(job, n) != n:
+            raise ValueError(f"{job!r} named with {cards[job]} and {n} cards")
+        cards[job] = n
+    for job in list(cards):
+        base, part, _ = job_spec(job)
+        if part == HALVES[-1] and all(f"{base}.{c}" in cards for c in HALVES):
+            cards[f"{base}.eval"] = 1
+    return cards
+
+
+def job_estimate(job: str, group=1) -> float:
     _, part, spec = job_spec(job)
     if part == "eval":
         return JOB_SETUP_S
@@ -413,8 +451,9 @@ def job_after(job: str) -> tuple:
 
 
 def held_to_bounds(name: str, summary: dict) -> dict:
-    """The job's numbers against its bound (or, for cnn_eight, the plateau
-    reading; the other scripts' runs are readings)."""
+    """The numbers of model ``name`` (or of the job ``cnn_one_192``) against
+    its bound (or, for cnn_eight, the plateau reading; the other scripts'
+    runs are readings)."""
     models = summary.get("models", {})
     if name == "cnn_one_192":
         m = models.get(name)
@@ -464,28 +503,23 @@ def merge_summary(records: Records, layout: str, job_summary: dict) -> None:
 def gated(job: str) -> bool:
     """Whether the job's numbers (or, for a half, its model's) are held to a
     bound, not read."""
-    base = job_spec(job)[0]
-    return base in BOUNDS or base == "cnn_one_192"
+    base, _, spec = job_spec(job)
+    return (spec.model or base) in BOUNDS or base == "cnn_one_192"
 
 
 def job_queue(jobs: str, group: int = 1) -> list:
-    """The jobs of ``jobs`` in the order they are started: the gated ones
-    first, longest first among them, then the readings; a model both of
-    whose halves are listed gains its ``.eval``."""
-    names = list(dict.fromkeys(filter(None, jobs.split(","))))
-    for job in list(names):
-        base, part, _ = job_spec(job)
-        if part == HALVES[-1] and all(f"{base}.{c}" in names for c in HALVES):
-            names.append(f"{base}.eval")
-    return sorted(dict.fromkeys(names),
-                  key=lambda j: (not gated(j), -job_estimate(j, group)))
+    """The jobs of ``jobs`` (``parse_jobs``) in the order they are started:
+    the gated ones first, longest first among them, then the readings."""
+    cards = parse_jobs(jobs, group)
+    return sorted(cards, key=lambda j: (not gated(j), -job_estimate(j, cards)))
 
 
-def place(queue: list, free: list, pending: set, failed: set, group: int,
+def place(queue: list, free: list, pending: set, failed: set, group,
           fits=lambda job: True) -> tuple:
     """The jobs of ``queue`` that start now, in its order: each whose
     ``job_after`` jobs are neither pending nor failed, for which enough of
-    the ``free`` cards are left (the first of them) and which ``fits``.
+    the ``free`` cards are left (the first of them, ``job_cards``) and
+    which ``fits``.
     Returns ``([(job, cards)], [(job, why)])``, the jobs started and those
     dropped, and takes both out of ``queue`` and their cards out of
     ``free``."""
@@ -535,23 +569,25 @@ def job_argv(args, job: str, k: int) -> list:
 def link_inputs(args, job: str) -> None:
     """The weights and sidecars that ``job`` reads, of the jobs it runs
     after (a model's half, or the whole model for ``NEEDS``), into
-    ``job``'s output directory, where its script reads them."""
+    ``job``'s output directory, where its script reads them; a half's
+    snapshots (``snapshots/e<epoch>/``) to the same places."""
     for dep in job_after(job):
         _, part, spec = job_spec(dep)
         component = part if part in HALVES else NEEDS[job][1]
         src = os.path.join(job_out(args, dep), spec.model)
         dst = os.path.join(job_out(args, job), spec.model)
-        if not os.path.isdir(src):
-            continue
-        os.makedirs(dst, exist_ok=True)
-        for fn in os.listdir(src):
-            if fn.startswith(f"{spec.model}_{component}."):
-                if os.path.exists(os.path.join(dst, fn)):
-                    os.remove(os.path.join(dst, fn))
+        for dirpath, _, files in os.walk(src):
+            into = os.path.join(dst, os.path.relpath(dirpath, src))
+            for fn in files:
+                if not fn.startswith(f"{spec.model}_{component}."):
+                    continue
+                os.makedirs(into, exist_ok=True)
+                if os.path.exists(os.path.join(into, fn)):
+                    os.remove(os.path.join(into, fn))
                 try:
-                    os.link(os.path.join(src, fn), os.path.join(dst, fn))
+                    os.link(os.path.join(dirpath, fn), os.path.join(into, fn))
                 except OSError:
-                    shutil.copyfile(os.path.join(src, fn), os.path.join(dst, fn))
+                    shutil.copyfile(os.path.join(dirpath, fn), os.path.join(into, fn))
 
 
 def job_summary(args, job: str, summaries: dict) -> dict:
@@ -570,21 +606,23 @@ def job_summary(args, job: str, summaries: dict) -> dict:
 
 def train_jobs(args, cards, records: Records, t_start: float) -> bool:
     """The jobs on free cards (``--group`` of them for each model's
-    training), in ``job_queue``'s order as their ``job_after`` allow, each
-    started only if its estimate ends before the deadline; their summaries
-    and sidecars into the records.  True if every job ran, ended with 0 and
-    met its bound."""
+    training, or the job's own count), in ``job_queue``'s order as their
+    ``job_after`` allow, each started only if its estimate ends before the
+    deadline; their summaries and sidecars into the records.  True if every
+    job ran, ended with 0 and met its bound."""
+    counts = parse_jobs(args.jobs, args.group)
     queue = job_queue(args.jobs, args.group)
     # a card takes one job at a time; on the CPU each entry is a slot
     free = list(cards) if args.device == "cpu" else list(dict.fromkeys(cards))
     running, ok = {}, True
     failed, summaries = set(), {}
     bounds = records.driver.setdefault("bounds", {})
-    records.driver["jobs"] = {j: {"estimate_s": round(job_estimate(j, args.group), 1)}
+    records.driver["jobs"] = {j: {"n_cards": counts[j],
+                                  "estimate_s": round(job_estimate(j, counts), 1)}
                               for j in queue}
 
     def fits(job):
-        return not args.deadline or (time.time() - t_start + job_estimate(job, args.group)
+        return not args.deadline or (time.time() - t_start + job_estimate(job, counts)
                                      <= args.deadline)
 
     while queue or running:
@@ -614,12 +652,12 @@ def train_jobs(args, cards, records: Records, t_start: float) -> bool:
             else:
                 merge_summary(records, spec.layout, summary)
                 records.copy(os.path.join(out, TRUTH), os.path.join(spec.layout, TRUTH))
-                bounds[job] = held_to_bounds(base, summary)
+                bounds[job] = held_to_bounds(spec.model or base, summary)
             ok = ok and bounds[job]["ok"]
             print(f"[{job}] {json.dumps(bounds[job])}", flush=True)
             records.save()
         pending = set(queue) | {job for job, _ in running.values()}
-        started, dropped = place(queue, free, pending, failed, args.group, fits)
+        started, dropped = place(queue, free, pending, failed, counts, fits)
         for job, why in dropped:
             ok = False
             failed.add(job)
@@ -636,8 +674,8 @@ def train_jobs(args, cards, records: Records, t_start: float) -> bool:
                          os.path.join(records.root, "train", job, "train.log"))] = (job, group)
             records.save()
         if queue and not running and not started and not dropped:
-            raise RuntimeError(f"jobs {queue} cannot start on cards {free} (--group "
-                               f"{args.group})")
+            raise RuntimeError(f"jobs {queue} cannot start on cards {free} (cards a job: "
+                               f"{ {j: counts[j] for j in queue} })")
         time.sleep(POLL_S if running else 0)
     records.save()
     return ok
@@ -677,9 +715,11 @@ def main(argv=None) -> int:
     ap.add_argument("--topup-args", default="", help="more arguments of torch_datagen_topup.py")
     ap.add_argument("--jobs", default=",".join(TRAIN_FULL_JOBS),
                     help="training runs ('' for none): names of JOBS, a model's half as "
-                         "<job>.x or <job>.y")
+                         "<job>.x or <job>.y, a model's training over its own k cards as "
+                         "<job>@k (e.g. cnn_nine_s1.x@2)")
     ap.add_argument("--group", type=int, default=1,
-                    help="cards that train each model (or half) together, data-parallel")
+                    help="cards that train each model (or half) together, data-parallel, "
+                         "where --jobs gives no count of its own")
     ap.add_argument("--determinism-record", default=DETERMINISM_RECORD,
                     help="an earlier sweep's metadata.json that the rebuilt one must equal "
                          "chunk for chunk ('' for no check)")

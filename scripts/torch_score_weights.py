@@ -22,6 +22,11 @@ Usage (from the repository root):
         [--source jax] [--out docs/artifacts/torch/ml_full/weights_scores.json]
 
 Each run's models are merged into ``--out`` under ``models.<name>.<source>``.
+
+``--components x`` scores each model's x half alone (a seeded run's x half,
+or one of ``torch_train_full.py --snapshots``' snapshots, whose directory
+is a weights directory of its own): R^2(ux) only, since the prediction puts
+x in y's place.
 """
 
 from __future__ import annotations
@@ -58,6 +63,8 @@ def main(argv=None) -> int:
     ap.add_argument("--weights", default=",".join(f"{m}={d}" for m, d in JAX_WEIGHTS.items()),
                     help="model=directory of its saved halves, comma-separated")
     ap.add_argument("--source", default="jax", help="whose weights these are")
+    ap.add_argument("--components", default="x,y",
+                    help="the halves to score: x,y, or x alone (R^2(ux) only)")
     ap.add_argument("--out", default=OUT)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
@@ -73,11 +80,12 @@ def main(argv=None) -> int:
         with open(args.out) as fh:
             summary = json.load(fh)
     summary["truth"] = _rel(args.truth)
+    components = tuple(filter(None, args.components.split(",")))
     for item in filter(None, args.weights.split(",")):
         name, _, weights_dir = item.partition("=")
-        entry = score_saved(name, weights_dir, truth, log, args.device)
+        entry = score_saved(name, weights_dir, truth, log, args.device, components)
         record = dict(beside(entry, jax_record(name)), weights=_rel(weights_dir),
-                      device=args.device)
+                      components=list(components), device=args.device)
         summary["models"].setdefault(name, {})[args.source] = record
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as fh:

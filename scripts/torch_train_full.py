@@ -40,6 +40,21 @@ in ``<out>/<model>`` (one run per component, as ``--components x`` and
 and the evaluated weights are read back from disk for the evaluation
 (``evaluate_saved``), so it is the same either way.
 
+``--seed S`` draws the run's initial weights and its epochs' shuffle from
+``S`` (``ml.train.train``'s ``seed``, which draws both, as JAX's ``train``
+does); the train/validation split (``train_val_split``, seed 4) and the
+held-out Re do not move.  ``--snapshots N`` also keeps each component's
+weights every ``SNAPSHOT_EVERY`` epochs over its last ``N`` and at its last,
+in ``<out>/<model>/snapshots/e<epoch>/`` (``snapshot_epochs``): the run
+trains up to each kept epoch in turn and resumes through a checkpoint
+(``ml.train.train``'s resume continues the run exactly), so every snapshot
+lies on the trajectory whose last epoch is the result.  Each model's
+evaluation also scores every snapshot in its directory with the components
+there (``entry["snapshots"]``).
+
+An x half evaluated alone (``--components x``) reads R^2(ux) only: the
+prediction puts x in y's place, so relL2 and R^2(uy) would mean nothing.
+
 A run that evaluates a model also keeps what it scored against,
 ``<out>/held_out_truth.npz`` (``save_truth``: the held-out LBM fields, the
 lid speed, each evaluated model's scalers, and ``feq_initial`` only where
@@ -66,7 +81,7 @@ sys.path.insert(0, ROOT)
 from latticeboltzmannsimulations_torch import engine  # noqa: E402
 from latticeboltzmannsimulations_torch.config import SimConfig  # noqa: E402
 from latticeboltzmannsimulations_torch.ml import datagen, predict, train as tr  # noqa: E402
-from latticeboltzmannsimulations_torch.ml.models import PRESETS  # noqa: E402
+from latticeboltzmannsimulations_torch.ml.models import PRESETS, make_model  # noqa: E402
 from latticeboltzmannsimulations_torch.parallel.mesh import make_mesh  # noqa: E402
 from latticeboltzmannsimulations_torch.validate.ghia_data import has_reynolds  # noqa: E402
 
@@ -75,6 +90,7 @@ HELD_OUT = [500.0, 1500.0, 2500.0, 3200.0, 4500.0, 5000.0, 5050.0]
 JAX_RECORDS = [os.path.join(ROOT, "docs", "artifacts", d, "summary.json")
                for d in ("ml_full", "ml_full_b")]
 SEED = 0                   # train's default: every model's initial weights
+SNAPSHOT_EVERY = 10        # epochs between the snapshots --snapshots keeps
 # The kept record of what the evaluation scores against, written beside the
 # summary (``save_truth``)
 TRUTH = "held_out_truth.npz"
@@ -155,17 +171,43 @@ def figures() -> bool:
     return importlib.util.find_spec("matplotlib") is not None
 
 
+def snapshot_epochs(epochs: int, last: int) -> list:
+    """The epochs a run of ``epochs`` keeps for ``--snapshots last``, in
+    order: the last and every ``SNAPSHOT_EVERY``-th counted back from it,
+    over the last ``last`` epochs (none for 0)."""
+    back = range(epochs, epochs - last - 1, -SNAPSHOT_EVERY) if last else ()
+    return sorted(e for e in back if e >= 1)
+
+
+def snapshot_dir(out_dir: str, epoch: int) -> str:
+    return os.path.join(out_dir, "snapshots", f"e{epoch:04d}")
+
+
 def train_model(name, data, components, epochs_scale, out_dir, log,
-                optimizer=None, lr=1e-3, schedule=None, device="cuda", mesh=None):
-    """Train and save each component; returns the seconds each trained."""
+                optimizer=None, lr=1e-3, schedule=None, device="cuda", mesh=None,
+                seed=SEED, snapshots=0):
+    """Train and save each component; returns the seconds each trained.
+    With ``snapshots`` each component trains up to each of its
+    ``snapshot_epochs`` in turn, resumed through ``<out_dir>/<name>_<c>.ckpt``
+    (removed after), and saves the weights there in ``snapshot_dir``."""
     preset = PRESETS[name]
     seconds = {}
     for comp in components:
         epochs = max(1, int(round(preset.epochs * epochs_scale)))
+        keep = snapshot_epochs(epochs, snapshots)
+        ckpt = os.path.join(out_dir, f"{name}_{comp}.ckpt") if keep else None
+        if ckpt and os.path.exists(ckpt):
+            os.remove(ckpt)                 # an earlier run's: this one starts fresh
         t0 = time.time()
-        res = tr.train(name, data, component=comp, epochs=epochs,
-                       verbose=False, optimizer=optimizer,
-                       learning_rate=lr, schedule=schedule, device=device, mesh=mesh)
+        for stop in keep or [epochs]:
+            res = tr.train(name, data, component=comp, epochs=stop,
+                           verbose=False, optimizer=optimizer, learning_rate=lr,
+                           schedule=schedule, seed=seed, device=device, mesh=mesh,
+                           checkpoint_path=ckpt, checkpoint_every=epochs)
+            if keep:
+                tr.save_weights(res, snapshot_dir(out_dir, stop), scalers=data.scalers)
+        if ckpt:
+            os.remove(ckpt)
         dt = time.time() - t0
         tr.save_weights(res, out_dir, scalers=data.scalers)
         if figures():
@@ -179,9 +221,20 @@ def train_model(name, data, components, epochs_scale, out_dir, log,
 
 class Saved(NamedTuple):
     """A component as ``save_weights`` wrote it: what ``evaluate`` reads of
-    ``train``'s result."""
+    ``train``'s result, and its sidecar's scalers."""
     params: dict
     history: dict
+    scalers: dict = None
+
+
+def load_saved(name, components, weights_dir) -> dict:
+    """Each of ``name``'s ``components`` saved in ``weights_dir`` (``.pt`` or
+    ``.msgpack`` and its sidecar), by component."""
+    results = {}
+    for comp in components:
+        params, meta = tr.load_weights(name, comp, weights_dir)
+        results[comp] = Saved(params, meta.get("history"), meta.get("scalers"))
+    return results
 
 
 def evaluate_saved(name, components, data, ds, held, u_lid, out_dir, log, lr=1e-3,
@@ -190,11 +243,9 @@ def evaluate_saved(name, components, data, ds, held, u_lid, out_dir, log, lr=1e-
     (each ``<name>_<c>.pt`` or ``.msgpack`` and its sidecar's history) and
     the model's summary entry as ``train_full`` writes it; returns
     ``(results, entry)``.  A y half alone is not evaluated: the evaluation
-    predicts with x (and with x in y's place where y is missing)."""
-    results = {}
-    for comp in components:
-        params, meta = tr.load_weights(name, comp, out_dir)
-        results[comp] = Saved(params, meta["history"])
+    predicts with x (and with x in y's place where y is missing, reading
+    R^2(ux) only)."""
+    results = load_saved(name, components, out_dir)
     recs = (evaluate(name, results, data, ds, held, u_lid, out_dir, log, device)
             if "x" in results else [])
     entry = {
@@ -206,18 +257,38 @@ def evaluate_saved(name, components, data, ds, held, u_lid, out_dir, log, lr=1e-
     return results, entry
 
 
-def score_saved(name, weights_dir, truth: Truth, log, device="cuda") -> dict:
-    """``name``'s two halves saved in ``weights_dir`` (the port's ``.pt`` or
-    the JAX package's ``.msgpack``) evaluated against a kept ``truth``
-    with the scalers of their own x sidecar, which their training fitted;
-    returns the entry: those scalers, the ones the truth's dataset gives
-    the model (where the record holds them) and the held-out rows.  No
-    figures are drawn."""
-    results, scalers = {}, None
-    for comp in ("x", "y"):
-        params, meta = tr.load_weights(name, comp, weights_dir)
-        results[comp] = Saved(params, meta.get("history"))
-        scalers = scalers or meta["scalers"]
+def score_snapshots(name, components, data, ds, held, u_lid, out_dir, log, device="cuda"):
+    """Each snapshot in ``<out_dir>/snapshots`` evaluated as ``evaluate_saved``
+    does (no figures), with those of ``components`` saved there (none
+    without x): its epoch, final validation MSE and held-out rows, by
+    epoch."""
+    root, rows = os.path.join(out_dir, "snapshots"), []
+    for sub in sorted(os.listdir(root)) if os.path.isdir(root) else ():
+        d = os.path.join(root, sub)
+        comps = [c for c in components if os.path.exists(os.path.join(d, f"{name}_{c}.json"))]
+        if "x" not in comps:
+            continue
+        results = load_saved(name, comps, d)
+        log(f"{name} snapshot {sub} ({','.join(comps)}):")
+        rows.append({"epoch": len(results["x"].history["loss"]),
+                     "final_val_mse": {c: r.history["val_loss"][-1] for c, r in results.items()},
+                     "held_out_eval": evaluate(name, results, data, ds, held, u_lid, None, log,
+                                               device)})
+    return rows
+
+
+def score_saved(name, weights_dir, truth: Truth, log, device="cuda",
+                components=("x", "y")) -> dict:
+    """``name``'s halves of ``components`` saved in ``weights_dir`` (the
+    port's ``.pt`` or the JAX package's ``.msgpack``) evaluated against a
+    kept ``truth`` with the scalers of their own x sidecar, which their
+    training fitted; returns the entry: those scalers, the ones the truth's
+    dataset gives the model (where the record holds them) and the held-out
+    rows (R^2(ux) only for an x half alone).  No figures are drawn."""
+    if "x" not in components:
+        raise ValueError(f"{name}: the evaluation predicts with x, not only {components}")
+    results = load_saved(name, components, weights_dir)
+    scalers = results["x"].scalers
     recs = evaluate(name, results, types.SimpleNamespace(scalers=scalers), truth, truth.held,
                     truth.u_lid, None, log, device)
     return {"scalers": scalers, "dataset_scalers": truth.scalers.get(name),
@@ -244,14 +315,23 @@ def merge_summary(out_root, name=None, record=None, **top) -> None:
         json.dump(summary, fh, indent=1)
 
 
+def built(name, params):
+    """``name``'s model holding ``params`` (``predict_velocity`` moves it to
+    its device once and serves it as it is after)."""
+    model = make_model(name)
+    model.load_state_dict(params)
+    return model
+
+
 def evaluate(name, results, data, ds, held, u_lid, out_dir, log, device="cuda"):
     """Held-out-Re evaluation vs stored LBM truth (+ Ghia dashboards in
     ``out_dir`` where matplotlib is and ``out_dir`` is not None, the Ghia
-    numbers everywhere).  Of ``ds`` (the dataset, or a kept ``Truth``) only
-    ``feq_initial`` is read, of ``data`` only ``scalers``."""
+    numbers everywhere); an x half alone reads R^2(ux) only.  Of ``ds``
+    (the dataset, or a kept ``Truth``) only ``feq_initial`` is read, of
+    ``data`` only ``scalers``."""
     recs = []
-    px = results["x"].params
-    py = results["y"].params if "y" in results else results["x"].params
+    px = built(name, results["x"].params)        # built once for every Re
+    py = built(name, results["y"].params) if "y" in results else px
     g = ds.feq_initial.shape[-1]
     for re in sorted(held):
         fnet, aux = predict.build_input(name, re, ds.feq_initial,
@@ -259,13 +339,10 @@ def evaluate(name, results, data, ds, held, u_lid, out_dir, log, device="cuda"):
         u_cnn = predict.predict_velocity(name, px, py, fnet, aux, data.scalers,
                                          device=device)
         u_lbm = held[re]
-        rec = {
-            "re": re,
-            "r2_ux": round(full_field_r2(u_lbm[0], u_cnn[0]), 5),
-            "rel_l2": round(float(np.linalg.norm(u_cnn - u_lbm)
-                                  / np.linalg.norm(u_lbm)), 5),
-        }
+        rec = {"re": re, "r2_ux": round(full_field_r2(u_lbm[0], u_cnn[0]), 5)}
         if "y" in results:
+            rec["rel_l2"] = round(float(np.linalg.norm(u_cnn - u_lbm)
+                                        / np.linalg.norm(u_lbm)), 5)
             rec["r2_uy"] = round(full_field_r2(u_lbm[1], u_cnn[1]), 5)
             if has_reynolds(re):
                 cfg = SimConfig(nx=g, ny=g, reynolds=re, collision="srt",
@@ -282,8 +359,8 @@ def evaluate(name, results, data, ds, held, u_lid, out_dir, log, device="cuda"):
                 rec.update({k: (round(v, 5) if isinstance(v, float) else v)
                             for k, v in fig.items()})
         recs.append(rec)
-        log(f"{name} Re={re:g}: R2(ux)={rec['r2_ux']:.4f} "
-            f"relL2={rec['rel_l2']:.4f}")
+        log(f"{name} Re={re:g}: R2(ux)={rec['r2_ux']:.4f}"
+            + (f" relL2={rec['rel_l2']:.4f}" if "rel_l2" in rec else " (x alone)"))
     return recs
 
 
@@ -369,10 +446,21 @@ def main(argv=None) -> int:
     ap.add_argument("--data-parallel", type=int, default=1,
                     help="train each component of --models over the first K visible "
                          "cards (K CPU entries with --device cpu)")
+    ap.add_argument("--seed", type=int, default=SEED,
+                    help="draws the initial weights and the epochs' shuffle (ml.train.train's "
+                         "seed, as JAX's train); not the train/validation split (seed 4) nor "
+                         "the held-out Re")
+    ap.add_argument("--snapshots", type=int, default=0,
+                    help=f"also keep each component's weights every {SNAPSHOT_EVERY} epochs over "
+                         "its last N and at its last, in <out>/<model>/snapshots/e<epoch> "
+                         "(0: none); each model's evaluation scores them")
     ap.add_argument("--evaluate-only", action="store_true",
                     help="train nothing: evaluate each model's --components saved in "
                          "<out>/<model> by earlier runs")
     args = ap.parse_args(argv)
+    if args.snapshots and args.schedule in ("cosine", "plateau"):
+        ap.error(f"--snapshots resumes through a checkpoint, which the {args.schedule} "
+                 "schedule's epoch budget refuses")
     device = args.device
     k = args.data_parallel
     mesh = None if k == 1 else make_mesh((k, 1), None if device == "cuda" else [device] * k)
@@ -407,9 +495,14 @@ def main(argv=None) -> int:
         seconds = {} if args.evaluate_only else train_model(
             name, data, components, args.epochs_scale, out_dir, log,
             optimizer=args.optimizer or None, lr=args.lr,
-            schedule=args.schedule or None, device=device, mesh=mesh)
+            schedule=args.schedule or None, device=device, mesh=mesh, seed=args.seed,
+            snapshots=args.snapshots)
         results, entry = evaluate_saved(name, components, data, ds, held, u_lid, out_dir,
                                         log, args.lr, args.schedule or None, device)
+        snapshots = score_snapshots(name, components, data, ds, held, u_lid, out_dir, log,
+                                    device)
+        if snapshots:
+            entry["snapshots"] = snapshots
         if entry["held_out_eval"]:
             evaluated[name] = data.scalers
         if args.fine_tune_epochs and name == "cnn_eight" and not args.evaluate_only:
@@ -436,7 +529,7 @@ def main(argv=None) -> int:
                                   for c in ft},
                 "held_out_eval": ft_recs,
             }
-        merge_summary(out_root, name, model_record(name, entry, train_s=seconds, seed=SEED,
+        merge_summary(out_root, name, model_record(name, entry, train_s=seconds, seed=args.seed,
                                                    device=device, data_parallel=k), **top)
 
     if args.early_preset and not args.evaluate_only:
@@ -450,7 +543,7 @@ def main(argv=None) -> int:
         data = tr.prepare_inputs(ds192, PRESETS[name], u_lid=u_lid)
         t0 = time.time()
         res = tr.train(name, data, component="x", epochs=args.early_epochs,
-                       optimizer=args.optimizer or None, device=device)
+                       optimizer=args.optimizer or None, seed=args.seed, device=device)
         train_s = round(time.time() - t0, 2)
         tr.save_weights(res, out_dir, scalers=data.scalers)
         if figures():
@@ -463,7 +556,7 @@ def main(argv=None) -> int:
             "final_val_mse": {"x": h["val_loss"][-1]},
         }
         merge_summary(out_root, name + "_192",
-                      model_record(name + "_192", entry, train_s={"x": train_s}, seed=SEED,
+                      model_record(name + "_192", entry, train_s={"x": train_s}, seed=args.seed,
                                    device=device), **top)
         log(f"{name}@192: loss {h['loss'][0]:.3e} -> {h['loss'][-1]:.3e}")
 

@@ -96,3 +96,46 @@ def test_forward_refuses_missing_aux_planes():
     model = models.make_model("cnn_eight")
     with pytest.raises(ValueError, match="aux"):
         model(torch.zeros(1, 192, 192, 10))
+
+
+@pytest.mark.parametrize("name", ["cnn_nine", "cnn_ten"])
+def test_initial_weights_have_flaxs_distribution(name):
+    """The port's draw (``reset_parameters``, seed 0) against flax's
+    ``model.init(PRNGKey(0))`` of the JAX package, layer by layer: each
+    kernel's standard deviation, and the other's, within six standard
+    errors of a sample deviation (6 / sqrt(2n) relative) of LeCun normal's
+    sqrt(1 / fan_in), with flax's fan_in (kernel height x width x input
+    features, for a transposed convolution too); every value inside the
+    truncation at two deviations of the underlying normal, the largest
+    within 5 % of it where a layer has 1 000 values or more; the mean within
+    six standard errors of 0; every bias zero.  The parameters' shapes do
+    not depend on the grid: flax's init runs, jitted, at the smallest grid
+    of the stride pyramid (192^2)."""
+    import jax.numpy as jnp
+
+    preset = jmodels.PRESETS[name]
+    args = [jnp.zeros((1, *(2 * (jmodels.stride_product(preset),)), c), jnp.float32)
+            for c in (10, 2)[:2 if preset.aux_bc_at_input or preset.aux_bc_at_head else 1]]
+    # XLA's cheapest compile: the draws agree with the default compile's to
+    # 2.1e-7 of a layer's largest value (float rounding), the compile takes
+    # a third of the time
+    init = jax.jit(jmodels.make_model(name).init, compiler_options={
+        "xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True})
+    flax = init(jax.random.PRNGKey(0), *args)["params"]
+    port = models.make_model(name, seed=0).state_dict()
+    assert set(port) == {f"{layer}.{p}" for layer in flax for p in ("weight", "bias")}
+    for layer, leaf in flax.items():
+        kernel = np.asarray(leaf["kernel"], np.float64)
+        drawn = port[f"{layer}.weight"].double().numpy()
+        n = kernel.size
+        std = np.sqrt(1.0 / np.prod(kernel.shape[:-1]))
+        cut = 2 * std / 0.87962566103423978
+        tol = 6 / np.sqrt(2 * n)
+        assert drawn.size == n, layer
+        for w in (drawn, kernel):
+            assert abs(w.std() / std - 1) <= tol, (layer, w.std(), std)
+            assert np.abs(w).max() <= cut * (1 + 1e-6), layer
+            assert n < 1000 or np.abs(w).max() >= 0.95 * cut, layer
+            assert abs(w.mean()) <= 6 * std / np.sqrt(n), layer
+        assert abs(drawn.std() / kernel.std() - 1) <= 2 * tol, layer
+        assert not np.asarray(leaf["bias"]).any() and not port[f"{layer}.bias"].any(), layer

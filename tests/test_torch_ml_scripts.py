@@ -54,8 +54,9 @@ class _Parsed(Exception):
 
 
 # the port's own flags: the device, and torch_train_full.py's training over
-# several cards and its evaluation of halves trained apart
-PORT_FLAGS = ("device", "data_parallel", "evaluate_only")
+# several cards, its evaluation of halves trained apart, the seed of its
+# initial weights and its kept snapshots
+PORT_FLAGS = ("device", "data_parallel", "evaluate_only", "seed", "snapshots")
 
 
 def _options(mod, monkeypatch) -> dict:

@@ -410,6 +410,109 @@ def test_pipeline_runner_trains_halves_then_evaluates(monkeypatch, tmp_path):
     assert m["final_val_mse"] == {c: halves[c]["final_val_mse"][c] for c in "xy"}
 
 
+class _Ended:
+    """A ``Proc`` that has ended with 1 at once (no summary): the runner's
+    placement without a training run."""
+
+    def __init__(self, name, argv, card, device, log_path):
+        self.name, self.argv, self.card = name, argv, card
+
+    def poll(self):
+        return 1
+
+    def row(self) -> dict:
+        return {"name": self.name, "card": self.card, "argv": self.argv, "rc": 1,
+                "seconds": 0.0}
+
+
+@pytest.mark.parametrize("deadline", [400.0, 350.0])
+def test_a_job_takes_its_own_card_count(deadline, monkeypatch, tmp_path):
+    """``--jobs cnn_ten.x,cnn_ten.y,cnn_nine_s1.x@2`` under ``--group 1`` on
+    four cards: ``cnn_ten``'s halves take one card each and its evaluation
+    one after both, the seed-1 x half of ``cnn_nine`` two (with
+    ``--data-parallel 2`` and the two-card epoch's estimate, 379.5 s); the
+    deadline holds each job to its own estimate (at 350 s only the seed-1
+    half is dropped); ``--group 2`` still gives every model's training two
+    cards."""
+    drv = _script("torch_pipeline_cards")
+    jobs = "cnn_ten.x,cnn_ten.y,cnn_nine_s1.x@2"
+    counts = drv.parse_jobs(jobs, 1)
+    assert counts == {"cnn_ten.x": 1, "cnn_ten.y": 1, "cnn_nine_s1.x": 2, "cnn_ten.eval": 1}
+    assert drv.parse_jobs("cnn_ten.x,cnn_ten.y", 2) == {"cnn_ten.x": 2, "cnn_ten.y": 2,
+                                                        "cnn_ten.eval": 1}
+    nine, ten = (drv.job_estimate(j, counts) for j in ("cnn_nine_s1.x", "cnn_ten.x"))
+    assert nine == pytest.approx(drv.JOB_SETUP_S + 350 * drv.EPOCH_S["cnn_nine@2"])
+    assert ten == pytest.approx(drv.JOB_SETUP_S + 200 * drv.EPOCH_S["cnn_ten"])
+    assert drv.job_estimate("cnn_ten.x", 2) == pytest.approx(
+        drv.JOB_SETUP_S + 200 * drv.EPOCH_S["cnn_ten@2"])
+    for bad in ("cnn_ten.eval@2", "resume_eight_y@2", "cnn_ten.x@0", "cnn_ten.x@1,cnn_ten.x@2"):
+        with pytest.raises(ValueError):
+            drv.parse_jobs(bad, 1)
+    queue = drv.job_queue(jobs, 1)
+    assert queue == ["cnn_nine_s1.x", "cnn_ten.x", "cnn_ten.y", "cnn_ten.eval"]
+
+    monkeypatch.setattr(drv, "Proc", _Ended)
+    args = types.SimpleNamespace(out=str(tmp_path), jobs=jobs, group=1, device="cuda",
+                                 deadline=deadline)
+    records = drv.Records(str(tmp_path / "records"))
+    assert not drv.train_jobs(args, [0, 1, 2, 3], records, drv.time.time())
+    got = records.driver["jobs"]
+    assert {j: got[j]["n_cards"] for j in got} == counts
+    assert got["cnn_nine_s1.x"]["estimate_s"] == round(nine, 1)
+    assert got["cnn_ten.eval"]["started"] is False        # its halves failed
+    assert "failed" in records.driver["bounds"]["cnn_ten.eval"]["why"]
+    argv = {p["name"]: p["argv"] for p in records.driver["processes"]}
+    if deadline >= nine:
+        assert [got[j]["cards"] for j in queue[:3]] == [[0, 1], [2], [3]]
+        s1 = argv["cnn_nine_s1.x"]
+        assert s1[s1.index("--data-parallel") + 1] == "2" and s1[s1.index("--seed") + 1] == "1"
+    else:
+        assert got["cnn_nine_s1.x"]["started"] is False
+        assert "ends past the deadline" in records.driver["bounds"]["cnn_nine_s1.x"]["why"]
+        assert [got[j]["cards"] for j in queue[1:3]] == [[0], [1]]
+    assert "--data-parallel" not in argv["cnn_ten.x"]
+
+
+def test_a_seeded_job_draws_other_initial_weights_on_the_same_split(data96, tmp_path,
+                                                                    monkeypatch):
+    """``cnn_nine_s1``'s x half passes ``--seed 1`` (and ``--snapshots 50``) to
+    ``torch_train_full.py`` and writes to its own directory; a run at
+    ``--seed 1`` (``cnn_three`` at 96^2, one epoch) records its seed, starts
+    from other initial weights than seed 0's and trains and validates on
+    the same split."""
+    drv, tf = _script("torch_pipeline_cards"), _script("torch_train_full")
+    tf.figures = lambda: False
+    args = types.SimpleNamespace(out="/d", device="cuda")
+    argv = drv.job_argv(args, "cnn_nine_s1.x", 2)
+    parsed = _parser(tf).parse_args(argv[1:])
+    assert (parsed.models, parsed.components, parsed.seed, parsed.snapshots) == (
+        "cnn_nine", "x", 1, 50)
+    assert parsed.out == os.path.join("/d", "train", "cnn_nine_s1.x") != drv.job_out(
+        args, "cnn_nine.x")
+    assert drv.JOBS["cnn_nine_s1"].layout != drv.JOBS["cnn_nine"].layout
+    inits, splits = [], []
+    make, split = ptrain.make_model, ptrain.train_val_split
+
+    def made(*a, **k):
+        model = make(*a, **k)
+        if "seed" in k:                       # train's draw, not a weights file's template
+            inits.append({n: t.clone() for n, t in model.state_dict().items()})
+        return model
+
+    monkeypatch.setattr(ptrain, "make_model", made)
+    monkeypatch.setattr(ptrain, "train_val_split", lambda *a, **k: splits.append(
+        split(*a, **k)) or splits[-1])
+    for seed in (0, 1):
+        assert tf.main(["--models", "cnn_three", "--components", "x", "--epochs-scale", "0.002",
+                        *FULL, "--data", str(data96), "--out", str(tmp_path / f"s{seed}"),
+                        "--device", "cpu", "--seed", str(seed)]) == 0
+        assert _model(tmp_path / f"s{seed}")["cnn_three"]["seed"] == seed
+    assert len(inits) == len(splits) == 2
+    assert all(not torch.equal(inits[0][n], inits[1][n]) for n in inits[0] if "weight" in n)
+    for a, b in zip(*splits):
+        np.testing.assert_array_equal(a, b)
+
+
 # --- the training scripts against JAX's ---------------------------------------
 
 def _drop(obj, keys=("train_s", "d_train_s")):

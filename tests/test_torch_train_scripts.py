@@ -284,6 +284,82 @@ def test_jax_weights_on_a_kept_truth_score_as_the_jax_script(tmp_path):
         assert row["d_rel_l2"] == row["rel_l2"] - record[row["re"]]["rel_l2"]
 
 
+def test_an_x_half_alone_scores_its_r2_ux(reduced_runs, tmp_path):
+    """The reduced run's x half scored alone on its kept truth (its files in
+    a directory of their own, as a seeded run's x half or a snapshot lies)
+    gives exactly the R^2(ux) of the same half scored with its y half, and
+    writes no relL2 and no R^2(uy), in ``score_saved`` and through
+    ``torch_score_weights.py --components x``; y alone is refused."""
+    import shutil
+
+    tf = _script("torch_train_full")
+    out = reduced_runs["root"] / "torch"
+    truth = tf.load_truth(str(out / tf.TRUTH))
+    alone = tmp_path / "x"
+    alone.mkdir()
+    for ext in (".pt", ".json"):
+        shutil.copyfile(out / "cnn_one" / f"cnn_one_x{ext}", alone / f"cnn_one_x{ext}")
+    both = tf.score_saved("cnn_one", str(out / "cnn_one"), truth, lambda msg: None, "cpu")
+    x = tf.score_saved("cnn_one", str(alone), truth, lambda msg: None, "cpu", ("x",))
+    assert [list(r) for r in x["held_out_eval"]] == [["re", "r2_ux"]] * 3
+    assert x["held_out_eval"] == [{"re": r["re"], "r2_ux": r["r2_ux"]}
+                                  for r in both["held_out_eval"]]
+    assert x["scalers"] == both["scalers"]
+    with pytest.raises(ValueError, match="predicts with x"):
+        tf.score_saved("cnn_one", str(out / "cnn_one"), truth, lambda msg: None, "cpu", ("y",))
+    scores = tmp_path / "scores.json"
+    assert _script("torch_score_weights").main([
+        "--truth", str(out / tf.TRUTH), "--weights", f"cnn_one={alone}", "--components", "x",
+        "--source", "port", "--out", str(scores), "--device", "cpu"]) == 0
+    got = json.loads(scores.read_text())["models"]["cnn_one"]["port"]
+    assert got["held_out_eval"] == x["held_out_eval"] and got["components"] == ["x"]
+
+
+def test_snapshots_lie_on_the_uninterrupted_run(tmp_path, monkeypatch):
+    """``--snapshots 4`` with a snapshot every second epoch (``cnn_three`` at
+    96^2, x alone, six epochs: epochs 2, 4 and 6) trains in segments
+    resumed through a checkpoint: each snapshot's weights are one
+    uninterrupted run's at that epoch, tensor for tensor, the last is the
+    run's result, the checkpoint is gone after, and the evaluation scores
+    each snapshot (R^2(ux) alone; the last one's rows are the run's)."""
+    from latticeboltzmannsimulations_torch.ml import train as ptrain
+
+    tf = _script("torch_train_full")
+    tf.figures = lambda: False
+    monkeypatch.setattr(tf, "SNAPSHOT_EVERY", 2)
+    assert tf.snapshot_epochs(6, 4) == [2, 4, 6] and tf.snapshot_epochs(6, 0) == []
+    assert tf.snapshot_epochs(7, 3) == [5, 7] and tf.snapshot_epochs(3, 9) == [1, 3]
+    data, out = tmp_path / "data", tmp_path / "out"
+    datagen.save_dataset(_dataset(datagen), str(data))
+    assert tf.main(["--models", "cnn_three", "--components", "x", "--epochs-scale", "0.012",
+                    "--early-preset", "", "--fine-tune-epochs", "0", "--snapshots", "4",
+                    "--data", str(data), "--out", str(out), "--device", "cpu"]) == 0
+    caught = {}
+    monkeypatch.setattr(ptrain, "_save_train_checkpoint", lambda path, model, opt, history,
+                        epoch, recipe: caught.__setitem__(epoch, {
+                            k: v.detach().clone() for k, v in model.state_dict().items()}))
+    train_ds, _ = tf.split_dataset(datagen.load_dataset(str(data)), tf.HELD_OUT)
+    whole = ptrain.train("cnn_three", ptrain.prepare_inputs(train_ds, models.PRESETS["cnn_three"],
+                                                          u_lid=0.08),
+                         component="x", epochs=6, optimizer="adam", device="cpu",
+                         checkpoint_path=str(tmp_path / "caught"), checkpoint_every=1)
+    model_dir = out / "cnn_three"
+    for epoch in (2, 4, 6):
+        snap, meta = ptrain.load_weights("cnn_three", "x", tf.snapshot_dir(str(model_dir), epoch))
+        assert len(meta["history"]["loss"]) == epoch
+        for k, v in snap.items():
+            assert torch.equal(v, caught[epoch][k]), (epoch, k)
+    result, _ = ptrain.load_weights("cnn_three", "x", str(model_dir))
+    for k, v in result.items():
+        assert torch.equal(v, snap[k]) and torch.equal(v, whole.params[k])
+    assert not (model_dir / "cnn_three_x.ckpt").exists()
+    m = json.loads((out / "summary.json").read_text())["models"]["cnn_three"]
+    assert [s["epoch"] for s in m["snapshots"]] == [2, 4, 6]
+    assert all(list(r) == ["re", "r2_ux"] for s in m["snapshots"] for r in s["held_out_eval"])
+    assert m["snapshots"][-1]["held_out_eval"] == m["held_out_eval"]
+    assert m["snapshots"][-1]["final_val_mse"] == m["final_val_mse"]
+
+
 # --- the dataset check's readings ---------------------------------------------
 
 def test_dataset_check_readings_of_jax_record_against_itself(tmp_path):
