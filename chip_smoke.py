@@ -2234,7 +2234,9 @@ def time_training_epochs(device) -> None:
 
 # (u): the scripts of the other runs that read the whole dataset
 # (resume_eight_y, train_eight_faithful, train_early_presets,
-# diagnose_cnn_eight) on a dataset made in the call, card against CPU; and
+# diagnose_cnn_eight) and the precision probe (cnn_nine's x half in float32
+# and at the TPU's convolution precision) on a dataset made in the call,
+# card against CPU; and
 # the determinism of the port's sweep: chunk Re 520-580 of its whole-sweep
 # record rebuilt at 384^2 (290 000 steps there, all seven cavities
 # converged), which must equal that record exactly.
@@ -2253,6 +2255,7 @@ WHOLE_RUNS = (
                                    str(WHOLE_EPOCHS), "--seven-384-epochs", "0"), "summary.json"),
     ("torch_diagnose_cnn_eight", ("--epochs", str(WHOLE_EPOCHS), "--only", "base150,msfront"),
      "summary.json"),
+    ("torch_precision_probe", ("--epochs", str(WHOLE_EPOCHS)), "summary.json"),
 )
 
 
@@ -2298,8 +2301,9 @@ def run_whole_dataset_scripts(device, tmp: str) -> dict:
     card and on the CPU, from the same initial weights (the preset's seed;
     ``resume_eight_y`` from the same x weights, trained on the card by
     ``torch_train_full.py``), cut to ``WHOLE_EPOCHS`` epochs a run: the
-    summaries within ``TRAIN_TOL`` but their seconds, no kernel of the port
-    launched by the training.  Returns the dataset's launches."""
+    summaries within ``TRAIN_TOL`` but their seconds (and the probe's card
+    line and verdict: its ratio is held), no kernel of the port launched by
+    the training.  Returns the dataset's launches."""
     cfg = SimConfig(nx=WHOLE_N, ny=WHOLE_N, reynolds=1000.0, collision="srt",
                     turbulence="smagorinsky", precision="float32", max_steps=WHOLE_STEPS,
                     report_interval=WHOLE_STEPS // 2, convergence_tol=1e-7).validate()
@@ -2343,7 +2347,8 @@ def run_whole_dataset_scripts(device, tmp: str) -> dict:
             if any(read_counters().values()):
                 raise AssertionError(f"{name} launched a kernel of the port: {read_counters()}")
             with open(os.path.join(out, summary)) as fh:
-                got[dev] = drop_keys(json.load(fh), ("train_s", "d_train_s", "device"))
+                got[dev] = drop_keys(json.load(fh), ("train_s", "d_train_s", "device", "card",
+                                                     "verdict"))
             print(f"  {name} {shlex.join(args)} --device {dev}: "
                   f"{time.perf_counter() - t0:.2f} s", flush=True)
         worst = train_full.hold_close(got["cuda"], got["cpu"], TRAIN_TOL, TRAIN_TOL, name)

@@ -55,7 +55,9 @@ Usage (from the repository root, on a machine with four cards):
 ``cnn_nine``'s x half on cards 0-1 and its y half on cards 2-3:
 ``--jobs cnn_nine.x,cnn_nine.y --group 2``.  ``cnn_ten``'s halves on one
 card each and the x half of ``cnn_nine`` from seed 1 over the other two:
-``--jobs cnn_ten.x,cnn_ten.y,cnn_nine_s1.x@2``.
+``--jobs cnn_ten.x,cnn_ten.y,cnn_nine_s1.x@2``.  The other whole-dataset
+runs and the precision probe, one card each: ``--jobs
+diagnose_cnn_eight,eight_faithful,cnn_eight.x,resume_eight_y,early_presets,precision_probe``.
 
 ``--cards 0,0`` runs two ranges on the one card 0; ``--device cpu`` runs
 every process on the CPU; ``--re-stop``, ``--sweep-args`` and
@@ -93,6 +95,8 @@ TRUTH = "held_out_truth.npz"
 # weights of its last 40 epochs every tenth (--snapshots), and cnn_nine_s1
 # is cnn_nine's run from the initial weights and shuffle of seed 1 with
 # those of its last 50: whether a late epoch's score is a draw or a fault.
+# precision_probe (scripts/torch_precision_probe.py) trains cnn_nine's x
+# half at 192^2 in float32 and at the TPU's convolution precision.
 class Job(NamedTuple):
     script: str
     argv: list
@@ -130,6 +134,8 @@ JOBS = {
     "diagnose_cnn_eight": Job("torch_diagnose_cnn_eight", [], "cnn_eight_diag",
                               {"cnn_eight": 4 * 150, "cnn_eight_auxin": 150,
                                "cnn_eight_ms": 150, "cnn_eight_192": 150}),
+    "precision_probe": Job("torch_precision_probe", [], "precision_probe",
+                           {"cnn_nine_192": 175, "cnn_nine_192_tpu": 175}),
 }
 # the jobs run when --jobs is not given: train_full.py's recorded runs
 TRAIN_FULL_JOBS = ("cnn_eight", "cnn_nine", "cnn_ten", "cnn_one_192")
@@ -142,6 +148,10 @@ TRAIN_FULL_JOBS = ("cnn_eight", "cnn_nine", "cnn_ten", "cnn_one_192")
 # whichever runs, and reads its x weights.
 HALVES = ("x", "y")
 NEEDS = {"resume_eight_y": ("cnn_eight", "x")}
+# AFTER: jobs that start only once another has ended (or failed) where both
+# run, reading nothing of it: the precision probe takes the card that the
+# early presets leave.
+AFTER = {"precision_probe": ("early_presets",)}
 # Each training job's model by key: its preset, its grid and the seconds an
 # epoch (training and validation) on 493 cavities at batch 20 (cnn_one,
 # cnn_two and cnn_three at their batch of 5), Adam, TF32 off, on one NVIDIA
@@ -160,7 +170,11 @@ NEEDS = {"resume_eight_y": ("cnn_eight", "x")}
 # readings each on NVIDIA H100 80GB HBM3 cards spread with the host's load,
 # 0.4356-0.9680 and 0.1056-0.2246 s an epoch, and each estimate is the
 # geometric middle of its spread.  JOB_SETUP_S: a job's start, the dataset's read
-# and the evaluation beside train_s (15.6-21.2 s).
+# and the evaluation beside train_s (15.6-21.2 s).  cnn_nine_192 and
+# cnn_nine_192_tpu (torch_precision_probe.py's two runs, TPU_PRECISION: with
+# every convolution at the TPU's precision) are estimates, not readings:
+# cnn_nine's one-card epoch at 384^2 over the four times fewer cells, and a
+# third more for the rounding of every convolution's operands.
 EPOCHS = {
     "cnn_nine": ("cnn_nine", 384, 1.57), "cnn_ten": ("cnn_ten", 384, 1.43),
     "cnn_eight": ("cnn_eight", 384, 0.415), "cnn_one_192": ("cnn_one", 192, 0.735),
@@ -172,7 +186,9 @@ EPOCHS = {
     "cnn_seven_384": ("cnn_seven", 384, 0.38), "cnn_eight_192": ("cnn_eight", 192, 0.15),
     "cnn_eight_auxin": ("cnn_eight_auxin", 384, 0.40),
     "cnn_eight_ms": ("cnn_eight_ms", 384, 1.37),
+    "cnn_nine_192": ("cnn_nine", 192, 0.45), "cnn_nine_192_tpu": ("cnn_nine", 192, 0.6),
 }
+TPU_PRECISION = ("cnn_nine_192_tpu",)
 EPOCH_S = {key: s for key, (_, _, s) in EPOCHS.items()}
 JOB_SETUP_S = 40.0
 POLL_S = 0.5               # seconds between looks at the running processes
@@ -517,7 +533,8 @@ def job_queue(jobs: str, group: int = 1) -> list:
 def place(queue: list, free: list, pending: set, failed: set, group,
           fits=lambda job: True) -> tuple:
     """The jobs of ``queue`` that start now, in its order: each whose
-    ``job_after`` jobs are neither pending nor failed, for which enough of
+    ``job_after`` jobs are neither pending nor failed and whose ``AFTER``
+    jobs are not pending, for which enough of
     the ``free`` cards are left (the first of them, ``job_cards``) and
     which ``fits``.
     Returns ``([(job, cards)], [(job, why)])``, the jobs started and those
@@ -531,7 +548,7 @@ def place(queue: list, free: list, pending: set, failed: set, group,
             dropped.append((job, f"{[d for d in after if d in failed]} failed"))
             continue
         n = job_cards(job, group)
-        if any(d in pending for d in after) or len(free) < n:
+        if any(d in pending for d in (*after, *AFTER.get(job, ()))) or len(free) < n:
             continue
         queue.remove(job)
         if not fits(job):

@@ -49,7 +49,8 @@ sys.path.insert(0, SCRIPTS)
 
 from latticeboltzmannsimulations_torch.ml import datagen, models, train  # noqa: E402
 from torch_diagnose_cnn_eight import register_variants  # noqa: E402
-from torch_pipeline_cards import EPOCHS  # noqa: E402
+from torch_pipeline_cards import EPOCHS, TPU_PRECISION  # noqa: E402
+from torch_precision_probe import precision  # noqa: E402
 
 CAVITIES = 500 - 7
 # the runner's one-card keys: the preset and its grid
@@ -109,7 +110,13 @@ def epoch_seconds(key: str, devices, reps: int = REPS, seed: int = 0) -> dict:
     """One epoch of ``key`` over ``devices`` (one replica each): the step's
     and the validation forward's milliseconds, each the fastest of
     ``BLOCKS`` timed blocks (``reps`` steps, one forward), and the epoch's
-    seconds."""
+    seconds; a key of ``TPU_PRECISION`` with every convolution at the
+    TPU's precision."""
+    with precision("tpu" if key in TPU_PRECISION else "float32"):
+        return _epoch_seconds(key, devices, reps, seed)
+
+
+def _epoch_seconds(key: str, devices, reps: int, seed: int) -> dict:
     c = _case(key, devices, seed)
     tr_idx, va_idx = train.train_val_split(CAVITIES)
     va = torch.arange(len(va_idx), device=c.devices[0]) % c.b

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from latticeboltzmannsimulations_torch.ml import models
+from latticeboltzmannsimulations_torch.ml import models, train
 from latticeboltzmannsimulations_tpu.ml import models as jmodels
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -139,3 +139,87 @@ def test_initial_weights_have_flaxs_distribution(name):
             assert abs(w.mean()) <= 6 * std / np.sqrt(n), layer
         assert abs(drawn.std() / kernel.std() - 1) <= 2 * tol, layer
         assert not np.asarray(leaf["bias"]).any() and not port[f"{layer}.bias"].any(), layer
+
+
+# --- the 384^2 presets' training step against JAX's ------------------------------
+
+GRAD_F64 = 1e-5         # float64 both sides: per-leaf relative norm
+GRAD_F32_PLAIN = 1e-4   # float32, the port's convolutions without oneDNN
+GRAD_F32 = 1e-2         # float32 as the port runs on the CPU (oneDNN's convolutions)
+
+
+def _rel_norms(got: dict, want: dict) -> dict:
+    """Each leaf's ``|got - want| / |want|`` (2-norms over the leaf)."""
+    return {k: float(np.linalg.norm(got[k] - want[k]) / np.linalg.norm(want[k])) for k in want}
+
+
+@pytest.mark.parametrize("name", ["cnn_eight", "cnn_nine", "cnn_ten"])
+def test_384_preset_step_matches_jax_value_and_grad(name):
+    """The 384^2 presets (aux-BC planes at the input and the head, the
+    multiscale front, the twin decoders, leaky ReLU) at 192^2, their stride
+    product: a seeded batch of 2 with its aux planes and flax's
+    ``init(PRNGKey(0))`` carried across by ``state_dict_from_flax``; the
+    port's loss (``train._mse``) and each leaf's gradient (``backward``)
+    against ``jax.value_and_grad`` of JAX ``train``'s loss, leaf by leaf as
+    a relative 2-norm over the leaf (an elementwise bound is no measure
+    where a leaf's gradients are near 1e-7).
+
+    - float64 on both sides (``compute_dtype``; ``head1`` stays float32 in
+      both models): the loss to rel 1e-9, every leaf to ``GRAD_F64`` (read:
+      at most 2.0e-6, in ``head1``'s bias, the float32 layer; every other
+      leaf within 1.4e-7).  The same arithmetic: a wrong layer, padding or
+      joined plane would show at order 1.
+    - float32, the port's convolutions without oneDNN: the loss to rel
+      1e-6, every leaf to ``GRAD_F32_PLAIN`` (read: at most 5.4e-6; each
+      side within 3e-6 of the float64 gradient).
+    - float32 as the port runs on the CPU: every leaf to ``GRAD_F32``.
+      oneDNN's CPU float32 convolutions move ``cnn_nine``'s ``dec_b``
+      decoder gradients (norms near 2e-5) by up to 1.3e-3 of their norm
+      from the float64 gradient (read: 1.3e-3 in ``dec_b_deconv2``'s
+      kernel); without oneDNN the same leaves lie within 1e-6 of it.  That
+      is the CPU library's summation, not the port's arithmetic; on the
+      card the port runs cuDNN."""
+    import jax.numpy as jnp
+
+    preset = jmodels.PRESETS[name]
+    n = jmodels.stride_product(preset)
+    x, aux = _inputs(preset, n)
+    y = np.random.default_rng(1).standard_normal((2, n, n, 1)).astype(np.float32)
+    params = jax.device_get(jmodels.make_model(name).init(jax.random.PRNGKey(0), x, aux)
+                            ["params"])
+    sd = models.state_dict_from_flax(models.PRESETS[name], params)
+
+    def jax_step(dtype):
+        model = jmodels.make_model(name, compute_dtype=dtype)
+        p = jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype), params)
+        args = [jnp.asarray(a, dtype) for a in (x, aux, y)]
+
+        def loss_fn(p):
+            return jnp.mean((model.apply({"params": p}, *args[:2]) - args[2]) ** 2)
+
+        loss, grads = jax.value_and_grad(loss_fn)(p)
+        grads = models.state_dict_from_flax(models.PRESETS[name], jax.device_get(grads))
+        return float(loss), {k: v.double().numpy() for k, v in grads.items()}
+
+    def port_step(dtype, onednn=True):
+        model = models.make_model(name, compute_dtype=dtype).to(dtype)
+        model.load_state_dict(sd)
+        with torch.backends.mkldnn.flags(enabled=onednn):
+            loss = train._mse(model, *(torch.from_numpy(a).to(dtype) for a in (x, aux, y)))
+            loss.backward()
+        return float(loss.detach()), {k: p.grad.double().numpy()
+                                     for k, p in model.named_parameters()}
+
+    (jl64, jg64), (pl64, pg64) = jax_step(jnp.float64), port_step(torch.float64)
+    assert pl64 == pytest.approx(jl64, rel=1e-9)
+    assert set(pg64) == set(jg64) == set(sd)
+    worst = _rel_norms(pg64, jg64)
+    assert max(worst.values()) <= GRAD_F64, max(worst.items(), key=lambda kv: kv[1])
+    jl32, jg32 = jax_step(jnp.float32)
+    pl32, pg32 = port_step(torch.float32, onednn=False)
+    assert pl32 == pytest.approx(jl32, rel=1e-6)
+    worst = _rel_norms(pg32, jg32)
+    assert max(worst.values()) <= GRAD_F32_PLAIN, max(worst.items(), key=lambda kv: kv[1])
+    _, pg32 = port_step(torch.float32)
+    worst = _rel_norms(pg32, jg32)
+    assert max(worst.values()) <= GRAD_F32, max(worst.items(), key=lambda kv: kv[1])

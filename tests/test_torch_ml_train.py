@@ -432,3 +432,47 @@ def test_plot_history_writes_a_png(short_run, tmp_path):
                               str(tmp_path / "plots" / "history.png"))
     with open(path, "rb") as fh:
         assert fh.read(8) == b"\x89PNG\r\n\x1a\n"
+
+
+# --- the 384^2 presets' training against JAX's ----------------------------------
+
+UPDATE_TOL = 0.25    # per-leaf relative norm of the difference of the updates
+
+
+@pytest.mark.parametrize("name", ["cnn_eight", "cnn_nine", "cnn_ten"])
+def test_384_preset_train_matches_jax_train(name):
+    """``cnn_eight``, ``cnn_nine`` and ``cnn_ten`` at 192^2 (their stride
+    product), five seeded cavities (four train, one validates), one epoch
+    of two steps at batch 2, Adam at ``train_full``'s lr 1e-3, from flax's
+    ``init(PRNGKey(0))``: ``prepare_inputs`` (the aux-BC planes and the
+    ``minmax_all`` scalers, which ``cnn_one`` never reaches) equal to JAX's
+    exactly; the loss and validation loss to rel 1e-4 (read: at most
+    5.2e-6); each leaf's update (trained less initial weights) against
+    JAX's to ``UPDATE_TOL`` of its 2-norm (read: at most 0.099, in
+    ``cnn_eight``'s ``dec_a_deconv2`` bias).  Adam's first steps move each
+    weight by about the learning rate whatever its gradient's size, so an
+    entry whose gradient lies within float32 rounding of zero moves either
+    way; a wrong gradient would move the whole leaf the wrong way, a
+    relative norm near 1.4."""
+    port_data = train.prepare_inputs(_synthetic(datagen, n=5, res=192), models.PRESETS[name])
+    jdata = jtrain.prepare_inputs(_synthetic(jdatagen, n=5, res=192), jmodels.PRESETS[name])
+    for key in ("fnet", "aux"):
+        np.testing.assert_array_equal(getattr(port_data, key), np.asarray(getattr(jdata, key)),
+                                      err_msg=key)
+    np.testing.assert_array_equal(port_data.targets["x"], np.asarray(jdata.targets["x"]))
+    assert port_data.scalers == jdata.scalers
+    jparams = jax.device_get(jmodels.make_model(name).init(
+        jax.random.PRNGKey(0), jnp.asarray(jdata.fnet[:1]), jnp.asarray(jdata.aux[:1]))["params"])
+    sd = models.state_dict_from_flax(models.PRESETS[name], jparams)
+    common = dict(component="x", epochs=1, batch_size=2, learning_rate=1e-3, optimizer="adam")
+    want = jtrain.train(name, jdata, init_params=jparams, **common)
+    got = train.train(name, port_data, init_params=sd, device="cpu", **common)
+    assert got.history["loss"] == pytest.approx(want.history["loss"], rel=1e-4)
+    assert got.history["val_loss"] == pytest.approx(want.history["val_loss"], rel=1e-4)
+    ref = models.state_dict_from_flax(models.PRESETS[name], jax.device_get(want.params))
+    assert set(got.params) == set(ref)
+    for leaf, w in ref.items():
+        step = w.double().numpy() - sd[leaf].double().numpy()
+        diff = got.params[leaf].double().numpy() - w.double().numpy()
+        assert np.linalg.norm(step) > 0, leaf                   # every leaf trained
+        assert np.linalg.norm(diff) <= UPDATE_TOL * np.linalg.norm(step), leaf
