@@ -268,15 +268,22 @@ along x, each with its own omega) and the surrogate pipeline:
     half with snapshots on the card (``seeded_x_half``: ``--seed 1
     --components x --snapshots 10``, twelve epochs kept at 2 and 12 through
     a checkpoint's resume), its last snapshot the run's weights bit for bit,
-    it and the seed-0 x half scored alone (R^2(ux) only) equal to their
+    it and the seed-0 x half scored alone (R^2(ux) and the relL2 of ux
+    only) equal to their
     in-run and two-half scores;
 (t) the pipeline runner's epoch estimates (``time_training_epochs``): a
     training step and a validation forward of each of its jobs' models at
     the job's grid and batch, timed (the fastest of seven blocks), and the epoch they make on 493
     cavities printed beside ``torch_pipeline_cards.EPOCH_S``, which must lie
-    within a factor of 2;
+    within a factor of 2; the keys of ``TPU_PRECISION`` (``cnn_nine_tpu``,
+    the full-scale run at the TPU's convolution precision, among them) timed
+    at that precision; the readings printed again in one line near the end;
 (u) the whole-dataset scripts and the sweep's determinism
-    (``check_sweep_determinism``, ``run_whole_dataset_scripts``);
+    (``check_sweep_determinism``, ``run_whole_dataset_scripts``), with the
+    pipeline runner's jobs ``cnn_nine_jax0`` and ``cnn_nine_jax0_tpu``
+    (``cnn_nine``'s x half from the JAX package's own initial weights, in
+    float32 and at the TPU's convolution precision) through
+    ``torch_train_full.py``'s command line;
 (v) the last three scripts at a cut scale (``run_last_scripts``):
     ``scripts/torch_probe_fidelity.py``'s run ``re400_192_srt`` cut to 96^2
     and two 2 000-step intervals through ``auto`` (``cuda-pull``, launches
@@ -289,8 +296,10 @@ along x, each with its own omega) and the surrogate pipeline:
     ``cuda-pull``, over 3 000 timed steps, launches counted (one exchange a
     step on 1x1 too), each mesh's final state equal to ``cuda-pull``'s.
 
-The last three lines are ``nvidia-smi``'s line, one JSON object describing
-each kernel, and ``{"ok": true, "device": {...}}``.  Any failed check raises,
+Before the last three lines, one line of (t)'s readings (``t epochs:``,
+each key's seconds an epoch beside ``EPOCH_S``).  The last three lines are
+``nvidia-smi``'s line, one JSON object describing each kernel, and
+``{"ok": true, "device": {...}}``.  Any failed check raises,
 so the script exits non-zero and prints no result; so does a machine with no
 CUDA device.
 """
@@ -2097,7 +2106,8 @@ def seeded_x_half(train_full, data_dir: str, tmp: str, device, truth0, both_rows
     bit for bit and its scores the run's; the x half scored alone on the
     kept truth equal to the in-run evaluation, and the seed-0 run's x half
     scored alone on its kept truth ``truth0`` equal in R^2(ux) to its score
-    beside its y half there (``both_rows``), R^2(ux) only."""
+    beside its y half there (``both_rows``), R^2(ux) and the relL2 of ux
+    only."""
     out = os.path.join(tmp, "train_seeded")
     reset_counters()
     if train_full.main([*SEEDED_ARGS, "--data", data_dir, "--out", out, "--device", "cuda"]):
@@ -2126,10 +2136,12 @@ def seeded_x_half(train_full, data_dir: str, tmp: str, device, truth0, both_rows
         raise AssertionError("the last snapshot's weights are not the run's result")
     if m["snapshots"][-1]["held_out_eval"] != m["held_out_eval"]:
         raise AssertionError(f"the last snapshot scored {m['snapshots'][-1]} against {m}")
-    if any(list(r) != ["re", "r2_ux"] for r in m["held_out_eval"] + seed0["held_out_eval"]):
-        raise AssertionError("an x half alone wrote more than R2(ux)")
+    if any(list(r) != ["re", "r2_ux", "rel_l2_ux"]
+           for r in m["held_out_eval"] + seed0["held_out_eval"]):
+        raise AssertionError("an x half alone wrote more than R2(ux) and the relL2 of ux")
     train_full.hold_close(alone["held_out_eval"], m["held_out_eval"], 0.0, 1e-5, "x alone")
-    if seed0["held_out_eval"] != [{"re": r["re"], "r2_ux": r["r2_ux"]} for r in both_rows]:
+    if ([{"re": r["re"], "r2_ux": r["r2_ux"]} for r in seed0["held_out_eval"]]
+            != [{"re": r["re"], "r2_ux": r["r2_ux"]} for r in both_rows]):
         raise AssertionError("seed 0's x half alone differs from its score beside y")
 
 
@@ -2205,7 +2217,7 @@ def run_train_scripts(device, tmp: str) -> dict:
 EPOCH_FACTOR = 2.0    # an EPOCH_S more than this far from the reading fails
 
 
-def time_training_epochs(device) -> None:
+def time_training_epochs(device) -> dict:
     """(t): one epoch of each of the pipeline runner's training jobs'
     models (every key of its ``EPOCH_S`` but the ones over several cards,
     which this one card cannot read) as ``ml.train.train`` runs it:
@@ -2214,9 +2226,11 @@ def time_training_epochs(device) -> None:
     on a random dataset of one batch made in the call.  Printed beside the runner's ``EPOCH_S``; fails if
     that is more than ``EPOCH_FACTOR`` from the reading (its values for
     ``cnn_eight`` and ``cnn_one_192`` are whole training runs' times,
-    start-up included)."""
+    start-up included).  Returns each key read: ``[seconds an epoch,
+    EPOCH_S]``."""
     drv = load_script("torch_pipeline_cards")
     epochs = load_script("torch_train_epochs")
+    read = {}
     for key, est in drv.EPOCH_S.items():
         if "@" in key:
             print(f"  {key}: {est} s an epoch over several cards, not read on one card",
@@ -2230,17 +2244,23 @@ def time_training_epochs(device) -> None:
         if not r["epoch_s"] / EPOCH_FACTOR <= est <= r["epoch_s"] * EPOCH_FACTOR:
             raise AssertionError(f"torch_pipeline_cards.EPOCH_S[{key!r}] = {est} s against a "
                                  f"reading of {r['epoch_s']:.4f} s an epoch")
+        read[key] = [round(r["epoch_s"], 4), est]
+    return read
 
 
 # (u): the scripts of the other runs that read the whole dataset
 # (resume_eight_y, train_eight_faithful, train_early_presets,
-# diagnose_cnn_eight) and the precision probe (cnn_nine's x half in float32
-# and at the TPU's convolution precision) on a dataset made in the call,
-# card against CPU; and
+# diagnose_cnn_eight), the precision probe (cnn_nine's x half in float32
+# and at the TPU's convolution precision) and the pipeline runner's jobs
+# cnn_nine_jax0 and cnn_nine_jax0_tpu (the same half from the JAX package's
+# own initial weights, its snapshots kept, in float32 and at the TPU's
+# precision) on a dataset made in the call, card against CPU; and
 # the determinism of the port's sweep: chunk Re 520-580 of its whole-sweep
 # record rebuilt at 384^2 (290 000 steps there, all seven cavities
 # converged), which must equal that record exactly.
 DET_RE = ("--re-start", "520", "--re-stop", "590")
+# the pipeline runner's jobs' own arguments, by job
+JOB_ARGV = {job: tuple(spec.argv) for job, spec in load_script("torch_pipeline_cards").JOBS.items()}
 WHOLE_N = 192                       # cnn_eight's stride pyramid divides 192
 # train_full holds out Re 500, 1500, 2500 and 5000 of these; the early
 # presets and the diagnosis evaluate at Re 5000
@@ -2256,6 +2276,9 @@ WHOLE_RUNS = (
     ("torch_diagnose_cnn_eight", ("--epochs", str(WHOLE_EPOCHS), "--only", "base150,msfront"),
      "summary.json"),
     ("torch_precision_probe", ("--epochs", str(WHOLE_EPOCHS)), "summary.json"),
+    *(("torch_train_full", (*JOB_ARGV[job], "--components", "x", "--epochs-scale",
+                            str(WHOLE_EPOCHS / models.PRESETS["cnn_nine"].epochs)),
+       "summary.json") for job in ("cnn_nine_jax0", "cnn_nine_jax0_tpu")),
 )
 
 
@@ -2326,11 +2349,11 @@ def run_whole_dataset_scripts(device, tmp: str) -> dict:
                         "--out", x_out]):
         raise AssertionError("torch_train_full of cnn_eight's x half: exit code not 0")
     train_fn = train.train
-    for name, args, summary in WHOLE_RUNS:
+    for i, (name, args, summary) in enumerate(WHOLE_RUNS):
         mod = load_script(name)
         got = {}
         for dev in ("cuda", "cpu"):
-            out = os.path.join(tmp, name, dev)
+            out = os.path.join(tmp, f"{i}_{name}", dev)
             if name == "torch_resume_eight_y":
                 shutil.copytree(os.path.join(x_out, "cnn_eight"), os.path.join(out, "cnn_eight"))
                 train.train = functools.partial(train_fn, epochs=WHOLE_EPOCHS)
@@ -2352,7 +2375,7 @@ def run_whole_dataset_scripts(device, tmp: str) -> dict:
             print(f"  {name} {shlex.join(args)} --device {dev}: "
                   f"{time.perf_counter() - t0:.2f} s", flush=True)
         worst = train_full.hold_close(got["cuda"], got["cpu"], TRAIN_TOL, TRAIN_TOL, name)
-        print(f"  {name}: card against CPU from the same weights, largest difference "
+        print(f"  {name} (run {i}): card against CPU from the same weights, largest difference "
               f"{worst:.3e} (rel and abs {TRAIN_TOL:g})", flush=True)
     return counts
 
@@ -3334,7 +3357,7 @@ def main() -> None:
         add_counts(main_launches, run_train_scripts(device, tmp))
 
     with phase("the pipeline runner's epoch estimates"):
-        time_training_epochs(device)
+        epoch_readings = time_training_epochs(device)
 
     with phase("main path: the whole-dataset scripts and the sweep's determinism"), \
             tempfile.TemporaryDirectory() as tmp:
@@ -3708,6 +3731,7 @@ def main() -> None:
     check_memory()
     print(f"chip_smoke total wall time: {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    print(f"t epochs: {json.dumps(epoch_readings, separators=(',', ':'))}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": name,

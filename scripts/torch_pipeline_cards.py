@@ -58,6 +58,9 @@ card each and the x half of ``cnn_nine`` from seed 1 over the other two:
 ``--jobs cnn_ten.x,cnn_ten.y,cnn_nine_s1.x@2``.  The other whole-dataset
 runs and the precision probe, one card each: ``--jobs
 diagnose_cnn_eight,eight_faithful,cnn_eight.x,resume_eight_y,early_presets,precision_probe``.
+``cnn_nine``'s x half from the JAX package's own initial weights, in
+float32 and at the TPU's convolution precision, over two cards each:
+``--jobs cnn_nine_jax0.x@2,cnn_nine_jax0_tpu.x@2``.
 
 ``--cards 0,0`` runs two ranges on the one card 0; ``--device cpu`` runs
 every process on the CPU; ``--re-stop``, ``--sweep-args`` and
@@ -82,6 +85,10 @@ RECORDS = os.path.join(ROOT, "chiprun_out", "pipeline_cards")
 # the port's own whole sweep (four cards, one NVIDIA H100 80GB HBM3 each)
 DETERMINISM_RECORD = os.path.join(ROOT, "docs", "artifacts", "torch", "ml_full", "metadata.json")
 RE_STEP = 10.0
+# The JAX package's own initial weights of cnn_nine: flax's init from
+# PRNGKey(0), as JAX's train drew them for its record's two halves
+# (tests/test_torch_ml_jax_init.py writes it and holds it to a fresh draw)
+JAX_INIT = os.path.join(ROOT, "docs", "artifacts", "torch", "init", "cnn_nine_prngkey0.msgpack")
 # the held-out record a model's evaluation keeps (torch_train_full.TRUTH)
 TRUTH = "held_out_truth.npz"
 
@@ -96,7 +103,11 @@ TRUTH = "held_out_truth.npz"
 # is cnn_nine's run from the initial weights and shuffle of seed 1 with
 # those of its last 50: whether a late epoch's score is a draw or a fault.
 # precision_probe (scripts/torch_precision_probe.py) trains cnn_nine's x
-# half at 192^2 in float32 and at the TPU's convolution precision.
+# half at 192^2 in float32 and at the TPU's convolution precision; the pair
+# cnn_nine_jax0 and cnn_nine_jax0_tpu supersedes it: cnn_nine trained at
+# full scale from JAX's own initial weights (JAX_INIT) and seed 0's shuffle,
+# as JAX's record was, in float32 and at the TPU's convolution precision
+# (--tpu-precision), each keeping the weights of its last 50 epochs.
 class Job(NamedTuple):
     script: str
     argv: list
@@ -121,6 +132,14 @@ JOBS = {
                                             "--fine-tune-epochs", "0", "--seed", "1",
                                             "--snapshots", "50"],
                        "ml_full_s1", {"cnn_nine": 2 * 350}, "cnn_nine"),
+    "cnn_nine_jax0": Job("torch_train_full", [
+        "--models", "cnn_nine", "--early-preset", "", "--fine-tune-epochs", "0",
+        "--init-from", JAX_INIT, "--snapshots", "50"], "ml_full_jax0", {"cnn_nine": 2 * 350},
+        "cnn_nine"),
+    "cnn_nine_jax0_tpu": Job("torch_train_full", [
+        "--models", "cnn_nine", "--early-preset", "", "--fine-tune-epochs", "0",
+        "--init-from", JAX_INIT, "--snapshots", "50", "--tpu-precision"], "ml_full_jax0_tpu",
+        {"cnn_nine_tpu": 2 * 350}, "cnn_nine"),
     "cnn_one_192": Job("torch_train_full", ["--models", "", "--early-epochs", "80"],
                        "ml_full_b", {"cnn_one_192": 80}),
     "resume_eight_y": Job("torch_resume_eight_y", [], "ml_full", {"cnn_eight": 600}),
@@ -174,7 +193,11 @@ AFTER = {"precision_probe": ("early_presets",)}
 # cnn_nine_192_tpu (torch_precision_probe.py's two runs, TPU_PRECISION: with
 # every convolution at the TPU's precision) are estimates, not readings:
 # cnn_nine's one-card epoch at 384^2 over the four times fewer cells, and a
-# third more for the rounding of every convolution's operands.
+# third more for the rounding of every convolution's operands.  cnn_nine_tpu
+# (cnn_nine_jax0_tpu's epoch, TPU_PRECISION) is chip_smoke.py's phase (t)
+# reading, 1.7570 (1.12x cnn_nine's 1.5673 in the same call), rounded up;
+# cnn_nine_tpu@2 is that reading times cnn_nine's two-card over one-card
+# ratio, 0.97 / 1.57, rounded up (an estimate, not a reading).
 EPOCHS = {
     "cnn_nine": ("cnn_nine", 384, 1.57), "cnn_ten": ("cnn_ten", 384, 1.43),
     "cnn_eight": ("cnn_eight", 384, 0.415), "cnn_one_192": ("cnn_one", 192, 0.735),
@@ -187,8 +210,9 @@ EPOCHS = {
     "cnn_eight_auxin": ("cnn_eight_auxin", 384, 0.40),
     "cnn_eight_ms": ("cnn_eight_ms", 384, 1.37),
     "cnn_nine_192": ("cnn_nine", 192, 0.45), "cnn_nine_192_tpu": ("cnn_nine", 192, 0.6),
+    "cnn_nine_tpu": ("cnn_nine", 384, 1.76), "cnn_nine_tpu@2": ("cnn_nine", 384, 1.09),
 }
-TPU_PRECISION = ("cnn_nine_192_tpu",)
+TPU_PRECISION = ("cnn_nine_192_tpu", "cnn_nine_tpu")
 EPOCH_S = {key: s for key, (_, _, s) in EPOCHS.items()}
 JOB_SETUP_S = 40.0
 POLL_S = 0.5               # seconds between looks at the running processes

@@ -34,14 +34,11 @@ Usage (from the repository root, one card visible):
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import sys
 import time
 import types
-
-import numpy as np
 
 SCRIPTS = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(SCRIPTS)
@@ -51,15 +48,14 @@ sys.path.insert(0, SCRIPTS)
 from latticeboltzmannsimulations_torch.bench import card_line, device_name  # noqa: E402
 from latticeboltzmannsimulations_torch.ml import datagen, train as tr  # noqa: E402
 from latticeboltzmannsimulations_torch.ml.models import PRESETS  # noqa: E402
-from torch_predict_extrapolate import tpu_conv_precision  # noqa: E402
-from torch_train_full import HELD_OUT, Saved, downsample, evaluate, split_dataset  # noqa: E402
+from torch_train_full import (HELD_OUT, LATE, Saved, downsample, evaluate, late,  # noqa: E402
+                              precision, split_dataset)
 
 MODEL = "cnn_nine"
 GRID = 192
 EPOCHS = 175
 LR = 1e-3
 SEED = 0
-LATE = 25                          # the last epochs whose validation MSE is read
 PRECISIONS = ("float32", "tpu")
 # The decision on the ratio of the late medians (TPU precision over
 # float32), set before the call: at most "lead", precision is a lead (the
@@ -82,13 +78,6 @@ def probe_inputs(ds, u_lid: float):
     return data, {re: u[:, ::k, ::k] for re, u in held.items()}, ds.feq_initial[:, ::k, ::k], k
 
 
-def late(val_loss: list, n: int = LATE) -> dict:
-    """The last ``n`` epochs' validation MSE: last, q10, median, q90."""
-    tail = np.asarray(val_loss[-n:], np.float64)
-    return {"epochs": len(tail), "last": float(tail[-1]), "q10": float(np.quantile(tail, 0.1)),
-            "median": float(np.median(tail)), "q90": float(np.quantile(tail, 0.9))}
-
-
 def verdict(ratio: float) -> str:
     lo, hi = RULE["no_lead"]
     if ratio <= RULE["lead"]:
@@ -98,15 +87,11 @@ def verdict(ratio: float) -> str:
     return "open"
 
 
-def precision(name: str):
-    return tpu_conv_precision() if name == "tpu" else contextlib.nullcontext()
-
-
 def run(name, data, held, feq, u_lid, epochs, device, log) -> dict:
     """One run of ``MODEL``'s x half at precision ``name``, trained and
     served within it."""
     t0 = time.time()
-    with precision(name):
+    with precision(name == "tpu"):
         res = tr.train(MODEL, data, component="x", epochs=epochs, optimizer="adam",
                        learning_rate=LR, seed=SEED, device=device)
         train_s = round(time.time() - t0, 2)

@@ -25,8 +25,8 @@ Each run's models are merged into ``--out`` under ``models.<name>.<source>``.
 
 ``--components x`` scores each model's x half alone (a seeded run's x half,
 or one of ``torch_train_full.py --snapshots``' snapshots, whose directory
-is a weights directory of its own): R^2(ux) only, since the prediction puts
-x in y's place.
+is a weights directory of its own): R^2(ux) and the relative L2 of ux alone
+(``rel_l2_ux``) only, since the prediction puts x in y's place.
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ def main(argv=None) -> int:
                     help="model=directory of its saved halves, comma-separated")
     ap.add_argument("--source", default="jax", help="whose weights these are")
     ap.add_argument("--components", default="x,y",
-                    help="the halves to score: x,y, or x alone (R^2(ux) only)")
+                    help="the halves to score: x,y, or x alone (R^2(ux) and relL2 of ux only)")
     ap.add_argument("--out", default=OUT)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)

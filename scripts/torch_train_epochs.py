@@ -50,7 +50,7 @@ sys.path.insert(0, SCRIPTS)
 from latticeboltzmannsimulations_torch.ml import datagen, models, train  # noqa: E402
 from torch_diagnose_cnn_eight import register_variants  # noqa: E402
 from torch_pipeline_cards import EPOCHS, TPU_PRECISION  # noqa: E402
-from torch_precision_probe import precision  # noqa: E402
+from torch_train_full import precision  # noqa: E402
 
 CAVITIES = 500 - 7
 # the runner's one-card keys: the preset and its grid
@@ -112,7 +112,7 @@ def epoch_seconds(key: str, devices, reps: int = REPS, seed: int = 0) -> dict:
     ``BLOCKS`` timed blocks (``reps`` steps, one forward), and the epoch's
     seconds; a key of ``TPU_PRECISION`` with every convolution at the
     TPU's precision."""
-    with precision("tpu" if key in TPU_PRECISION else "float32"):
+    with precision(key in TPU_PRECISION):
         return _epoch_seconds(key, devices, reps, seed)
 
 

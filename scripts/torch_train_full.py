@@ -52,8 +52,24 @@ lies on the trajectory whose last epoch is the result.  Each model's
 evaluation also scores every snapshot in its directory with the components
 there (``entry["snapshots"]``).
 
-An x half evaluated alone (``--components x``) reads R^2(ux) only: the
-prediction puts x in y's place, so relL2 and R^2(uy) would mean nothing.
+An x half evaluated alone (``--components x``) reads R^2(ux) and the
+relative L2 of ux alone (``rel_l2_ux``): the prediction puts x in y's
+place, so relL2 and R^2(uy) would mean nothing.
+
+Two flags train as JAX's record was trained.  ``--init-from <msgpack>``
+starts every component from the flax parameters in that file
+(``models.state_dict_from_flax`` into ``ml.train.train``'s
+``init_params``; ``--seed`` still draws the epochs' shuffle), e.g. the
+JAX package's own ``PRNGKey(0)`` draw of ``cnn_nine``,
+``docs/artifacts/torch/init/cnn_nine_prngkey0.msgpack``; such a run also
+records, per component, its first ``FIRST`` epochs' training loss beside
+JAX's history of the same model (its weight sidecar) with the ratios, and
+the median of its last ``LATE`` epochs' validation MSE over JAX's
+(``against_jax_history``).  ``--tpu-precision`` runs the training and the
+evaluation inside ``torch_predict_extrapolate.tpu_conv_precision`` (every
+convolution at the TPU's default precision: bfloat16 operands, float32
+sums, forward and backward).  The summary records both (``init_from``,
+``tpu_precision``).
 
 A run that evaluates a model also keeps what it scored against,
 ``<out>/held_out_truth.npz`` (``save_truth``: the held-out LBM fields, the
@@ -65,6 +81,7 @@ be scored later without the dataset (``scripts/torch_score_weights.py``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import os
@@ -75,13 +92,14 @@ from typing import NamedTuple
 
 import numpy as np
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCRIPTS = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(SCRIPTS)
 sys.path.insert(0, ROOT)
 
 from latticeboltzmannsimulations_torch import engine  # noqa: E402
 from latticeboltzmannsimulations_torch.config import SimConfig  # noqa: E402
-from latticeboltzmannsimulations_torch.ml import datagen, predict, train as tr  # noqa: E402
-from latticeboltzmannsimulations_torch.ml.models import PRESETS, make_model  # noqa: E402
+from latticeboltzmannsimulations_torch.ml import datagen, flax_msgpack, predict, train as tr  # noqa: E402
+from latticeboltzmannsimulations_torch.ml.models import PRESETS, make_model, state_dict_from_flax  # noqa: E402
 from latticeboltzmannsimulations_torch.parallel.mesh import make_mesh  # noqa: E402
 from latticeboltzmannsimulations_torch.validate.ghia_data import has_reynolds  # noqa: E402
 
@@ -90,6 +108,8 @@ HELD_OUT = [500.0, 1500.0, 2500.0, 3200.0, 4500.0, 5000.0, 5050.0]
 JAX_RECORDS = [os.path.join(ROOT, "docs", "artifacts", d, "summary.json")
                for d in ("ml_full", "ml_full_b")]
 SEED = 0                   # train's default: every model's initial weights
+FIRST = 10                 # the first epochs set beside JAX's history (--init-from)
+LATE = 25                  # the last epochs whose validation MSE `late` reads
 SNAPSHOT_EVERY = 10        # epochs between the snapshots --snapshots keeps
 # The kept record of what the evaluation scores against, written beside the
 # summary (``save_truth``)
@@ -185,8 +205,9 @@ def snapshot_dir(out_dir: str, epoch: int) -> str:
 
 def train_model(name, data, components, epochs_scale, out_dir, log,
                 optimizer=None, lr=1e-3, schedule=None, device="cuda", mesh=None,
-                seed=SEED, snapshots=0):
-    """Train and save each component; returns the seconds each trained.
+                seed=SEED, snapshots=0, init_params=None):
+    """Train and save each component (from ``init_params``, a state dict,
+    where given); returns the seconds each trained.
     With ``snapshots`` each component trains up to each of its
     ``snapshot_epochs`` in turn, resumed through ``<out_dir>/<name>_<c>.ckpt``
     (removed after), and saves the weights there in ``snapshot_dir``."""
@@ -203,7 +224,8 @@ def train_model(name, data, components, epochs_scale, out_dir, log,
             res = tr.train(name, data, component=comp, epochs=stop,
                            verbose=False, optimizer=optimizer, learning_rate=lr,
                            schedule=schedule, seed=seed, device=device, mesh=mesh,
-                           checkpoint_path=ckpt, checkpoint_every=epochs)
+                           checkpoint_path=ckpt, checkpoint_every=epochs,
+                           init_params=init_params)
             if keep:
                 tr.save_weights(res, snapshot_dir(out_dir, stop), scalers=data.scalers)
         if ckpt:
@@ -244,7 +266,7 @@ def evaluate_saved(name, components, data, ds, held, u_lid, out_dir, log, lr=1e-
     the model's summary entry as ``train_full`` writes it; returns
     ``(results, entry)``.  A y half alone is not evaluated: the evaluation
     predicts with x (and with x in y's place where y is missing, reading
-    R^2(ux) only)."""
+    R^2(ux) and the relL2 of ux only)."""
     results = load_saved(name, components, out_dir)
     recs = (evaluate(name, results, data, ds, held, u_lid, out_dir, log, device)
             if "x" in results else [])
@@ -284,7 +306,8 @@ def score_saved(name, weights_dir, truth: Truth, log, device="cuda",
     kept ``truth`` with the scalers of their own x sidecar, which their
     training fitted; returns the entry: those scalers, the ones the truth's
     dataset gives the model (where the record holds them) and the held-out
-    rows (R^2(ux) only for an x half alone).  No figures are drawn."""
+    rows (R^2(ux) and the relL2 of ux only for an x half alone).  No figures
+    are drawn."""
     if "x" not in components:
         raise ValueError(f"{name}: the evaluation predicts with x, not only {components}")
     results = load_saved(name, components, weights_dir)
@@ -326,7 +349,8 @@ def built(name, params):
 def evaluate(name, results, data, ds, held, u_lid, out_dir, log, device="cuda"):
     """Held-out-Re evaluation vs stored LBM truth (+ Ghia dashboards in
     ``out_dir`` where matplotlib is and ``out_dir`` is not None, the Ghia
-    numbers everywhere); an x half alone reads R^2(ux) only.  Of ``ds``
+    numbers everywhere); an x half alone reads R^2(ux) and the relL2 of ux
+    (``rel_l2_ux``) only.  Of ``ds``
     (the dataset, or a kept ``Truth``) only ``feq_initial`` is read, of
     ``data`` only ``scalers``."""
     recs = []
@@ -340,7 +364,10 @@ def evaluate(name, results, data, ds, held, u_lid, out_dir, log, device="cuda"):
                                          device=device)
         u_lbm = held[re]
         rec = {"re": re, "r2_ux": round(full_field_r2(u_lbm[0], u_cnn[0]), 5)}
-        if "y" in results:
+        if "y" not in results:
+            rec["rel_l2_ux"] = round(float(np.linalg.norm(u_cnn[0] - u_lbm[0])
+                                           / np.linalg.norm(u_lbm[0])), 5)
+        else:
             rec["rel_l2"] = round(float(np.linalg.norm(u_cnn - u_lbm)
                                         / np.linalg.norm(u_lbm)), 5)
             rec["r2_uy"] = round(full_field_r2(u_lbm[1], u_cnn[1]), 5)
@@ -360,8 +387,61 @@ def evaluate(name, results, data, ds, held, u_lid, out_dir, log, device="cuda"):
                             for k, v in fig.items()})
         recs.append(rec)
         log(f"{name} Re={re:g}: R2(ux)={rec['r2_ux']:.4f}"
-            + (f" relL2={rec['rel_l2']:.4f}" if "rel_l2" in rec else " (x alone)"))
+            + (f" relL2={rec['rel_l2']:.4f}" if "rel_l2" in rec
+               else f" relL2(ux)={rec['rel_l2_ux']:.4f} (x alone)"))
     return recs
+
+
+def jax_history(name: str, component: str):
+    """The training history of JAX's record of ``name``'s ``component`` (its
+    weight sidecar beside the summary), or None."""
+    for path in JAX_RECORDS:
+        sidecar = os.path.join(os.path.dirname(path), name, f"{name}_{component}.json")
+        if os.path.exists(sidecar):
+            with open(sidecar) as fh:
+                return json.load(fh)["history"]
+    return None
+
+
+def against_jax_history(name: str, histories: dict) -> dict:
+    """Each component's history (``histories``: component -> ``train``'s
+    history) beside JAX's record of the same model: the first ``FIRST``
+    epochs' training loss with the ratio port / JAX, and the median of the
+    last ``LATE`` epochs' validation MSE (or of as many as the run has) over
+    JAX's; components without a JAX history are left out."""
+    out = {}
+    for comp, h in histories.items():
+        jax = jax_history(name, comp)
+        if jax is None:
+            continue
+        port_late, jax_late = late(h["val_loss"]), late(jax["val_loss"])
+        out[comp] = {
+            "first_epochs": [{"epoch": i + 1, "loss": p, "jax_loss": j, "ratio": p / j}
+                             for i, (p, j) in enumerate(zip(h["loss"][:FIRST],
+                                                            jax["loss"][:FIRST]))],
+            "late_val_mse_median": {"epochs": port_late["epochs"], "port": port_late["median"],
+                                    "jax": jax_late["median"],
+                                    "ratio": port_late["median"] / jax_late["median"]}}
+    return out
+
+
+def late(val_loss: list) -> dict:
+    """The last ``LATE`` epochs' validation MSE (or as many as the run has):
+    their count, the last, q10, median and q90."""
+    tail = np.asarray(val_loss[-LATE:], np.float64)
+    return {"epochs": len(tail), "last": float(tail[-1]), "q10": float(np.quantile(tail, 0.1)),
+            "median": float(np.median(tail)), "q90": float(np.quantile(tail, 0.9))}
+
+
+def precision(tpu: bool):
+    """The context a run trains and evaluates in: the TPU's convolution
+    precision (``torch_predict_extrapolate.tpu_conv_precision``), or as it is."""
+    if not tpu:
+        return contextlib.nullcontext()
+    if SCRIPTS not in sys.path:
+        sys.path.insert(0, SCRIPTS)
+    from torch_predict_extrapolate import tpu_conv_precision
+    return tpu_conv_precision()
 
 
 def jax_record(name: str):
@@ -454,6 +534,13 @@ def main(argv=None) -> int:
                     help=f"also keep each component's weights every {SNAPSHOT_EVERY} epochs over "
                          "its last N and at its last, in <out>/<model>/snapshots/e<epoch> "
                          "(0: none); each model's evaluation scores them")
+    ap.add_argument("--init-from", default=None,
+                    help="a flax .msgpack of the model's parameters (e.g. the JAX package's own "
+                         "initial draw) that every component starts from in place of the seed's "
+                         "draw; --seed still draws the shuffle")
+    ap.add_argument("--tpu-precision", action="store_true",
+                    help="train and evaluate with every convolution at the TPU's default "
+                         "precision (bfloat16 operands, float32 sums)")
     ap.add_argument("--evaluate-only", action="store_true",
                     help="train nothing: evaluate each model's --components saved in "
                          "<out>/<model> by earlier runs")
@@ -488,77 +575,85 @@ def main(argv=None) -> int:
     top = {"held_out": sorted(held), "dataset": meta, "epochs_scale": args.epochs_scale}
     evaluated = {}                  # model -> the scalers its evaluation used
 
-    for name in [m for m in args.models.split(",") if m]:
-        out_dir = os.path.join(out_root, name)
-        os.makedirs(out_dir, exist_ok=True)
-        data = tr.prepare_inputs(train_ds, PRESETS[name], u_lid=u_lid)
-        seconds = {} if args.evaluate_only else train_model(
-            name, data, components, args.epochs_scale, out_dir, log,
-            optimizer=args.optimizer or None, lr=args.lr,
-            schedule=args.schedule or None, device=device, mesh=mesh, seed=args.seed,
-            snapshots=args.snapshots)
-        results, entry = evaluate_saved(name, components, data, ds, held, u_lid, out_dir,
-                                        log, args.lr, args.schedule or None, device)
-        snapshots = score_snapshots(name, components, data, ds, held, u_lid, out_dir, log,
-                                    device)
-        if snapshots:
-            entry["snapshots"] = snapshots
-        if entry["held_out_eval"]:
-            evaluated[name] = data.scalers
-        if args.fine_tune_epochs and name == "cnn_eight" and not args.evaluate_only:
-            # CNN_test parity at native scale: reload the saved weights and
-            # refit at RMSprop lr=1e-4 (reference: CNN_test.py:100-106).
-            ft = {}
-            for comp in components:
-                res = tr.fine_tune(name, data, results[comp].params,
-                                   component=comp,
-                                   epochs=args.fine_tune_epochs,
-                                   optimizer=args.optimizer or None,
-                                   device=device)
-                ft[comp] = res
-                log(f"{name}/{comp} fine-tune: val MSE "
-                    f"{results[comp].history['val_loss'][-1]:.3e} -> "
-                    f"{res.history['val_loss'][-1]:.3e}")
-                tr.save_weights(res, os.path.join(out_dir, "fine_tuned"),
-                                scalers=data.scalers)
-            ft_recs = evaluate(name, ft, data, ds, held, u_lid,
-                               os.path.join(out_dir, "fine_tuned"), log, device)
-            entry["fine_tuned"] = {
-                "epochs": args.fine_tune_epochs,
-                "final_val_mse": {c: ft[c].history["val_loss"][-1]
-                                  for c in ft},
-                "held_out_eval": ft_recs,
-            }
-        merge_summary(out_root, name, model_record(name, entry, train_s=seconds, seed=args.seed,
-                                                   device=device, data_parallel=k), **top)
+    init_from = args.init_from and os.path.relpath(os.path.abspath(args.init_from), ROOT)
+    with precision(args.tpu_precision):
+        for name in [m for m in args.models.split(",") if m]:
+            out_dir = os.path.join(out_root, name)
+            os.makedirs(out_dir, exist_ok=True)
+            data = tr.prepare_inputs(train_ds, PRESETS[name], u_lid=u_lid)
+            init = (state_dict_from_flax(PRESETS[name], flax_msgpack.load(args.init_from))
+                    if args.init_from else None)
+            seconds = {} if args.evaluate_only else train_model(
+                name, data, components, args.epochs_scale, out_dir, log,
+                optimizer=args.optimizer or None, lr=args.lr,
+                schedule=args.schedule or None, device=device, mesh=mesh, seed=args.seed,
+                snapshots=args.snapshots, init_params=init)
+            results, entry = evaluate_saved(name, components, data, ds, held, u_lid, out_dir,
+                                            log, args.lr, args.schedule or None, device)
+            snapshots = score_snapshots(name, components, data, ds, held, u_lid, out_dir, log,
+                                        device)
+            if snapshots:
+                entry["snapshots"] = snapshots
+            if entry["held_out_eval"]:
+                evaluated[name] = data.scalers
+            if args.fine_tune_epochs and name == "cnn_eight" and not args.evaluate_only:
+                # CNN_test parity at native scale: reload the saved weights and
+                # refit at RMSprop lr=1e-4 (reference: CNN_test.py:100-106).
+                ft = {}
+                for comp in components:
+                    res = tr.fine_tune(name, data, results[comp].params,
+                                       component=comp,
+                                       epochs=args.fine_tune_epochs,
+                                       optimizer=args.optimizer or None,
+                                       device=device)
+                    ft[comp] = res
+                    log(f"{name}/{comp} fine-tune: val MSE "
+                        f"{results[comp].history['val_loss'][-1]:.3e} -> "
+                        f"{res.history['val_loss'][-1]:.3e}")
+                    tr.save_weights(res, os.path.join(out_dir, "fine_tuned"),
+                                    scalers=data.scalers)
+                ft_recs = evaluate(name, ft, data, ds, held, u_lid,
+                                   os.path.join(out_dir, "fine_tuned"), log, device)
+                entry["fine_tuned"] = {
+                    "epochs": args.fine_tune_epochs,
+                    "final_val_mse": {c: ft[c].history["val_loss"][-1]
+                                      for c in ft},
+                    "held_out_eval": ft_recs,
+                }
+            if args.init_from:
+                entry["against_jax_history"] = against_jax_history(
+                    name, {c: r.history for c, r in results.items()})
+            merge_summary(out_root, name, model_record(
+                name, entry, train_s=seconds, seed=args.seed, device=device, data_parallel=k,
+                init_from=init_from, tpu_precision=args.tpu_precision), **top)
 
-    if args.early_preset and not args.evaluate_only:
-        # One early-generation 192² preset, sanity-trained on the
-        # downsampled dataset: shows the M1-M7 family trains, not just
-        # forward-shapes (VERDICT r1 missing #3).
-        name = args.early_preset
-        out_dir = os.path.join(out_root, name + "_192")
-        os.makedirs(out_dir, exist_ok=True)
-        ds192 = downsample(train_ds, 2)
-        data = tr.prepare_inputs(ds192, PRESETS[name], u_lid=u_lid)
-        t0 = time.time()
-        res = tr.train(name, data, component="x", epochs=args.early_epochs,
-                       optimizer=args.optimizer or None, seed=args.seed, device=device)
-        train_s = round(time.time() - t0, 2)
-        tr.save_weights(res, out_dir, scalers=data.scalers)
-        if figures():
-            tr.plot_history(res.history,
-                            os.path.join(out_dir, f"{name}_x_loss.png"))
-        h = res.history
-        entry = {
-            "epochs": args.early_epochs,
-            "first_loss": h["loss"][0], "final_loss": h["loss"][-1],
-            "final_val_mse": {"x": h["val_loss"][-1]},
-        }
-        merge_summary(out_root, name + "_192",
-                      model_record(name + "_192", entry, train_s={"x": train_s}, seed=args.seed,
-                                   device=device), **top)
-        log(f"{name}@192: loss {h['loss'][0]:.3e} -> {h['loss'][-1]:.3e}")
+        if args.early_preset and not args.evaluate_only:
+            # One early-generation 192² preset, sanity-trained on the
+            # downsampled dataset: shows the M1-M7 family trains, not just
+            # forward-shapes (VERDICT r1 missing #3).
+            name = args.early_preset
+            out_dir = os.path.join(out_root, name + "_192")
+            os.makedirs(out_dir, exist_ok=True)
+            ds192 = downsample(train_ds, 2)
+            data = tr.prepare_inputs(ds192, PRESETS[name], u_lid=u_lid)
+            t0 = time.time()
+            res = tr.train(name, data, component="x", epochs=args.early_epochs,
+                           optimizer=args.optimizer or None, seed=args.seed, device=device)
+            train_s = round(time.time() - t0, 2)
+            tr.save_weights(res, out_dir, scalers=data.scalers)
+            if figures():
+                tr.plot_history(res.history,
+                                os.path.join(out_dir, f"{name}_x_loss.png"))
+            h = res.history
+            entry = {
+                "epochs": args.early_epochs,
+                "first_loss": h["loss"][0], "final_loss": h["loss"][-1],
+                "final_val_mse": {"x": h["val_loss"][-1]},
+            }
+            merge_summary(out_root, name + "_192",
+                          model_record(name + "_192", entry, train_s={"x": train_s}, seed=args.seed,
+                                       device=device), **top)
+            log(f"{name}@192: loss {h['loss'][0]:.3e} -> {h['loss'][-1]:.3e}")
 
     if evaluated:
         save_truth(os.path.join(out_root, TRUTH), held, ds.feq_initial, u_lid, evaluated)

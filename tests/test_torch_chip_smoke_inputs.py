@@ -10,8 +10,10 @@ surrogate pipeline's scripts (``scripts/torch_check_dataset.py``,
 ``torch_diagnose_cnn_eight.py``, and the determinism check's record of the
 port's own sweep, and since the last three scripts, ``torch_probe_fidelity.py``,
 ``torch_rollup_validation.py`` and ``torch_weak_scaling_cpu.py``, JAX's
-``probes.json``, ``validation_rollup.json`` and ``weak_scaling_cpu.json``)
-read there:
+``probes.json``, ``validation_rollup.json`` and ``weak_scaling_cpu.json``,
+and the JAX package's own initial weights of ``cnn_nine`` that the
+pipeline runner's jobs ``cnn_nine_jax0`` and ``cnn_nine_jax0_tpu`` start
+from) read there:
 a file added to ``docs/artifacts`` that the list does not name would reach
 that copy unseen."""
 
@@ -66,6 +68,7 @@ def _needed() -> set[str]:
     probes = _script("torch_probe_fidelity")
     paths += [probes.JAX_PROBES, probes.JAX_RECORD, _script("torch_rollup_validation").JAX_ROLLUP,
               _script("torch_weak_scaling_cpu").JAX_RECORD]
+    paths.append(_script("torch_pipeline_cards").JAX_INIT)
     return {Path(p).resolve().relative_to(REPO).as_posix() for p in paths}
 
 

@@ -55,8 +55,10 @@ class _Parsed(Exception):
 
 # the port's own flags: the device, and torch_train_full.py's training over
 # several cards, its evaluation of halves trained apart, the seed of its
-# initial weights and its kept snapshots
-PORT_FLAGS = ("device", "data_parallel", "evaluate_only", "seed", "snapshots")
+# initial weights, its kept snapshots, the flax parameters it starts from and
+# its training at the TPU's convolution precision
+PORT_FLAGS = ("device", "data_parallel", "evaluate_only", "seed", "snapshots", "init_from",
+              "tpu_precision")
 
 
 def _options(mod, monkeypatch) -> dict:

@@ -820,7 +820,7 @@ def test_precision_probe_runs_differ_only_in_rounding(root192, tmp_path, monkeyp
     assert f32["first_loss"] == pytest.approx(tpu["first_loss"], rel=1e-2)
     for run in (f32, tpu):
         assert [r["re"] for r in run["held_out_eval"]] == [500.0, 3200.0, 5000.0]
-        assert set(run["held_out_eval"][0]) == {"re", "r2_ux"}
+        assert set(run["held_out_eval"][0]) == {"re", "r2_ux", "rel_l2_ux"}   # an x half
         assert run["late_val_mse"]["epochs"] == 1
     ratio = tpu["late_val_mse"]["median"] / f32["late_val_mse"]["median"]
     assert got["ratio_tpu_to_float32"] == pytest.approx(ratio)
@@ -924,15 +924,81 @@ def test_the_last_calls_job_list_runs_and_merges_on_the_cpu(monkeypatch, tmp_pat
 
 def test_epoch_timing_of_the_probe_keys_takes_their_precision(monkeypatch):
     """``torch_train_epochs.epoch_seconds`` times a key of the runner's
-    ``TPU_PRECISION`` (the probe's second run) inside ``tpu_conv_precision``
-    and every other key with the plain convolutions."""
+    ``TPU_PRECISION`` (the probe's second run, and ``cnn_nine_jax0_tpu``'s
+    full-scale epoch) inside ``tpu_conv_precision`` and every other key with
+    the plain convolutions."""
     drv, epochs = _script("torch_pipeline_cards"), _script("torch_train_epochs")
-    assert drv.TPU_PRECISION == ("cnn_nine_192_tpu",)
+    assert drv.TPU_PRECISION == ("cnn_nine_192_tpu", "cnn_nine_tpu")
     assert epochs.MODELS["cnn_nine_192"] == epochs.MODELS["cnn_nine_192_tpu"] == ("cnn_nine", 192)
+    assert epochs.MODELS["cnn_nine"] == epochs.MODELS["cnn_nine_tpu"] == ("cnn_nine", 384)
     seen = {}
     monkeypatch.setattr(epochs, "_epoch_seconds", lambda key, *a: seen.setdefault(
         key, models.F is torch.nn.functional))
-    for key in ("cnn_nine_192", "cnn_nine_192_tpu"):
+    for key in ("cnn_nine_192", "cnn_nine_192_tpu", "cnn_nine", "cnn_nine_tpu"):
         epochs.epoch_seconds(key, ["cpu"])
-    assert seen == {"cnn_nine_192": True, "cnn_nine_192_tpu": False}
+    assert seen == {"cnn_nine_192": True, "cnn_nine_192_tpu": False, "cnn_nine": True,
+                    "cnn_nine_tpu": False}
     assert models.F is torch.nn.functional
+
+
+JAX0_CALL = "cnn_nine_jax0.x@2,cnn_nine_jax0_tpu.x@2"
+
+
+def test_the_jax_init_jobs_differ_only_in_precision():
+    """``cnn_nine_jax0`` and ``cnn_nine_jax0_tpu`` pass ``torch_train_full.py``
+    the JAX package's own initial weights (``--init-from JAX_INIT``), seed
+    0's shuffle and ``--snapshots 50``; only the second ``--tpu-precision``;
+    each writes to its own directory and layout, and its estimate is 350
+    epochs of its own two-card key."""
+    drv, tf = _script("torch_pipeline_cards"), _script("torch_train_full")
+    args = types.SimpleNamespace(out="/d", device="cuda")
+    parsed = {}
+    for job in ("cnn_nine_jax0", "cnn_nine_jax0_tpu"):
+        argv = drv.job_argv(args, f"{job}.x", 2)
+        parsed[job] = p = _parser(tf).parse_args(argv[1:])
+        assert (p.models, p.components, p.seed, p.snapshots, p.init_from, p.data_parallel,
+                p.fine_tune_epochs, p.early_preset) == (
+            "cnn_nine", "x", 0, 50, drv.JAX_INIT, 2, 0, "")
+        assert p.out == os.path.join("/d", "train", f"{job}.x")
+    assert not parsed["cnn_nine_jax0"].tpu_precision and parsed["cnn_nine_jax0_tpu"].tpu_precision
+    assert (vars(parsed["cnn_nine_jax0"]) == dict(vars(parsed["cnn_nine_jax0_tpu"]),
+                                                  tpu_precision=False,
+                                                  out=parsed["cnn_nine_jax0"].out))
+    layouts = {spec.layout for spec in drv.JOBS.values()}
+    assert len(layouts) == len({spec.layout for job, spec in drv.JOBS.items()
+                                if job not in ("cnn_nine_jax0", "cnn_nine_jax0_tpu")}) + 2
+    counts = drv.parse_jobs(JAX0_CALL, 1)
+    assert counts == {"cnn_nine_jax0.x": 2, "cnn_nine_jax0_tpu.x": 2}
+    assert drv.job_estimate("cnn_nine_jax0.x", counts) == pytest.approx(
+        drv.JOB_SETUP_S + 350 * drv.EPOCH_S["cnn_nine@2"])
+    assert drv.job_estimate("cnn_nine_jax0_tpu.x", counts) == pytest.approx(
+        drv.JOB_SETUP_S + 350 * drv.EPOCH_S["cnn_nine_tpu@2"])
+    assert "cnn_nine_tpu" in drv.TPU_PRECISION and drv.BOUNDS["cnn_nine"] == (0.999, 0.05)
+
+
+@pytest.mark.parametrize("cut", [False, True])
+def test_the_jax_init_pair_takes_two_cards_each(cut, monkeypatch, tmp_path):
+    """The pair on four cards: the longer (the TPU's precision) first on
+    cards 0-1, the float32 run on cards 2-3, each with ``--data-parallel
+    2``; under a deadline that only the float32 run's estimate meets, the
+    other is dropped and the float32 run still takes its cards."""
+    drv = _script("torch_pipeline_cards")
+    monkeypatch.setattr(drv, "Proc", _Ended)
+    assert drv.job_queue(JAX0_CALL, 1) == ["cnn_nine_jax0_tpu.x", "cnn_nine_jax0.x"]
+    ends = [drv.job_estimate(f"{job}.x", 2) for job in ("cnn_nine_jax0", "cnn_nine_jax0_tpu")]
+    assert ends[0] < ends[1]
+    deadline = sum(ends) / 2 if cut else None
+    args = types.SimpleNamespace(out=str(tmp_path), jobs=JAX0_CALL, group=1, device="cuda",
+                                 deadline=deadline)
+    records = drv.Records(str(tmp_path / "records"))
+    drv.train_jobs(args, [0, 1, 2, 3], records, drv.time.time())
+    got = records.driver["jobs"]
+    argv = {p["name"]: p["argv"] for p in records.driver["processes"]}
+    if not cut:
+        assert (got["cnn_nine_jax0_tpu.x"]["cards"], got["cnn_nine_jax0.x"]["cards"]) == (
+            [0, 1], [2, 3])
+    else:
+        assert got["cnn_nine_jax0_tpu.x"]["started"] is False
+        assert got["cnn_nine_jax0.x"]["cards"] == [0, 1]
+    a = argv["cnn_nine_jax0.x"]
+    assert a[a.index("--data-parallel") + 1] == "2" and "--tpu-precision" not in a

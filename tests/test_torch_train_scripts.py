@@ -288,7 +288,8 @@ def test_an_x_half_alone_scores_its_r2_ux(reduced_runs, tmp_path):
     """The reduced run's x half scored alone on its kept truth (its files in
     a directory of their own, as a seeded run's x half or a snapshot lies)
     gives exactly the R^2(ux) of the same half scored with its y half, and
-    writes no relL2 and no R^2(uy), in ``score_saved`` and through
+    writes the relative L2 of ux alone (``rel_l2_ux``) but no relL2 and no
+    R^2(uy), in ``score_saved`` and through
     ``torch_score_weights.py --components x``; y alone is refused."""
     import shutil
 
@@ -301,9 +302,9 @@ def test_an_x_half_alone_scores_its_r2_ux(reduced_runs, tmp_path):
         shutil.copyfile(out / "cnn_one" / f"cnn_one_x{ext}", alone / f"cnn_one_x{ext}")
     both = tf.score_saved("cnn_one", str(out / "cnn_one"), truth, lambda msg: None, "cpu")
     x = tf.score_saved("cnn_one", str(alone), truth, lambda msg: None, "cpu", ("x",))
-    assert [list(r) for r in x["held_out_eval"]] == [["re", "r2_ux"]] * 3
-    assert x["held_out_eval"] == [{"re": r["re"], "r2_ux": r["r2_ux"]}
-                                  for r in both["held_out_eval"]]
+    assert [list(r) for r in x["held_out_eval"]] == [["re", "r2_ux", "rel_l2_ux"]] * 3
+    assert [{"re": r["re"], "r2_ux": r["r2_ux"]} for r in x["held_out_eval"]] == [
+        {"re": r["re"], "r2_ux": r["r2_ux"]} for r in both["held_out_eval"]]
     assert x["scalers"] == both["scalers"]
     with pytest.raises(ValueError, match="predicts with x"):
         tf.score_saved("cnn_one", str(out / "cnn_one"), truth, lambda msg: None, "cpu", ("y",))
@@ -355,7 +356,8 @@ def test_snapshots_lie_on_the_uninterrupted_run(tmp_path, monkeypatch):
     assert not (model_dir / "cnn_three_x.ckpt").exists()
     m = json.loads((out / "summary.json").read_text())["models"]["cnn_three"]
     assert [s["epoch"] for s in m["snapshots"]] == [2, 4, 6]
-    assert all(list(r) == ["re", "r2_ux"] for s in m["snapshots"] for r in s["held_out_eval"])
+    assert all(list(r) == ["re", "r2_ux", "rel_l2_ux"]
+               for s in m["snapshots"] for r in s["held_out_eval"])
     assert m["snapshots"][-1]["held_out_eval"] == m["held_out_eval"]
     assert m["snapshots"][-1]["final_val_mse"] == m["final_val_mse"]
 
