@@ -294,7 +294,14 @@ along x, each with its own omega) and the surrogate pipeline:
     ``scripts/torch_weak_scaling_cpu.py``'s measurement on 1x1 and 2x2 meshes
     of 64^2 shards on the card, routed to ``cuda-sharded`` against
     ``cuda-pull``, over 3 000 timed steps, launches counted (one exchange a
-    step on 1x1 too), each mesh's final state equal to ``cuda-pull``'s.
+    step on 1x1 too), each mesh's final state equal to ``cuda-pull``'s;
+(w) flax's initial draw on the host without JAX (``check_flax_draw``):
+    ``make_model("cnn_nine", seed=0)`` equal bit for bit to the JAX
+    package's committed eager ``init(PRNGKey(0))``
+    (``docs/artifacts/torch/init/cnn_nine_prngkey0.msgpack``), the draws
+    of ``cnn_nine`` and ``cnn_ten`` timed on the wall clock, and one epoch
+    of ``cnn_nine``'s x half at 192^2 from seed 0 on the card, its loss
+    within 1e-3 relative of the CPU's from the same draw.
 
 Before the last three lines, one line of (t)'s readings (``t epochs:``,
 each key's seconds an epoch beside ``EPOCH_S``).  The last three lines are
@@ -349,7 +356,8 @@ from latticeboltzmannsimulations_torch.parallel import (
     shard_state,
     unshard_state,
 )
-from latticeboltzmannsimulations_torch.ml import datagen, models, predict, train
+from latticeboltzmannsimulations_torch.ml import (datagen, flax_init, flax_msgpack, models, predict,
+                                                   train)
 from latticeboltzmannsimulations_torch.sim import SimOptions, simulate
 from latticeboltzmannsimulations_torch.validate import compare_to_ghia
 
@@ -1593,6 +1601,8 @@ def serve_artifact(ds, device) -> None:
 
     with open(ARTIFACT_CKPT, "rb") as fh:
         recipe = json.loads(fh.read(int.from_bytes(fh.read(8), "little")))["recipe"]
+    # the JAX recipe as the port's train names it: JAX's run drew flax's weights
+    recipe = {**recipe, "init": flax_init.DRAW}
     preset = models.PRESETS[recipe["preset"]]
     steps_per_epoch = max(1, len(train.train_val_split(recipe["data_n"])[0])
                           // recipe["batch_size"])
@@ -2250,8 +2260,7 @@ def time_training_epochs(device) -> dict:
 
 # (u): the scripts of the other runs that read the whole dataset
 # (resume_eight_y, train_eight_faithful, train_early_presets,
-# diagnose_cnn_eight), the precision probe (cnn_nine's x half in float32
-# and at the TPU's convolution precision) and the pipeline runner's jobs
+# diagnose_cnn_eight) and the pipeline runner's jobs
 # cnn_nine_jax0 and cnn_nine_jax0_tpu (the same half from the JAX package's
 # own initial weights, its snapshots kept, in float32 and at the TPU's
 # precision) on a dataset made in the call, card against CPU; and
@@ -2275,7 +2284,6 @@ WHOLE_RUNS = (
                                    str(WHOLE_EPOCHS), "--seven-384-epochs", "0"), "summary.json"),
     ("torch_diagnose_cnn_eight", ("--epochs", str(WHOLE_EPOCHS), "--only", "base150,msfront"),
      "summary.json"),
-    ("torch_precision_probe", ("--epochs", str(WHOLE_EPOCHS)), "summary.json"),
     *(("torch_train_full", (*JOB_ARGV[job], "--components", "x", "--epochs-scale",
                             str(WHOLE_EPOCHS / models.PRESETS["cnn_nine"].epochs)),
        "summary.json") for job in ("cnn_nine_jax0", "cnn_nine_jax0_tpu")),
@@ -2324,9 +2332,8 @@ def run_whole_dataset_scripts(device, tmp: str) -> dict:
     card and on the CPU, from the same initial weights (the preset's seed;
     ``resume_eight_y`` from the same x weights, trained on the card by
     ``torch_train_full.py``), cut to ``WHOLE_EPOCHS`` epochs a run: the
-    summaries within ``TRAIN_TOL`` but their seconds (and the probe's card
-    line and verdict: its ratio is held), no kernel of the port launched by
-    the training.  Returns the dataset's launches."""
+    summaries within ``TRAIN_TOL`` but their seconds, no kernel of the
+    port launched by the training.  Returns the dataset's launches."""
     cfg = SimConfig(nx=WHOLE_N, ny=WHOLE_N, reynolds=1000.0, collision="srt",
                     turbulence="smagorinsky", precision="float32", max_steps=WHOLE_STEPS,
                     report_interval=WHOLE_STEPS // 2, convergence_tol=1e-7).validate()
@@ -2370,8 +2377,7 @@ def run_whole_dataset_scripts(device, tmp: str) -> dict:
             if any(read_counters().values()):
                 raise AssertionError(f"{name} launched a kernel of the port: {read_counters()}")
             with open(os.path.join(out, summary)) as fh:
-                got[dev] = drop_keys(json.load(fh), ("train_s", "d_train_s", "device", "card",
-                                                     "verdict"))
+                got[dev] = drop_keys(json.load(fh), ("train_s", "d_train_s", "device", "card"))
             print(f"  {name} {shlex.join(args)} --device {dev}: "
                   f"{time.perf_counter() - t0:.2f} s", flush=True)
         worst = train_full.hold_close(got["cuda"], got["cpu"], TRAIN_TOL, TRAIN_TOL, name)
@@ -2492,6 +2498,70 @@ def run_last_scripts(device, tmp: str) -> dict:
             raise AssertionError(f"weak scaling {rec['mesh']}: {rec}")
         add_counts(total, counts)
     return total
+
+
+# (w): flax's initial draw (ml.flax_init) on the card's host, without JAX:
+# make_model's seed-0 draw of cnn_nine held bit for bit to the JAX package's
+# committed eager init(PRNGKey(0)), the draws of DRAW_TIMED timed, and one
+# epoch of cnn_nine's x half at 192^2 from seed 0 (train_full's Adam at lr
+# 1e-3; DRAW_EPOCH_N cavities at a batch of DRAW_EPOCH_BATCH make two steps
+# and a validation fifth, few enough for the CPU's epoch) on the card
+# against the CPU.
+DRAW_TIMED = ("cnn_nine", "cnn_ten")
+DRAW_EPOCH_N, DRAW_EPOCH_BATCH = 25, 10
+DRAW_EPOCH_RTOL = 1e-3
+
+
+def check_flax_draw(device) -> dict:
+    """(w): returns each timed draw's seconds and the epoch's loss on the
+    card and on the CPU."""
+    committed = flax_msgpack.load(load_script("torch_pipeline_cards").JAX_INIT)
+    seconds = {}
+    for name in DRAW_TIMED:
+        t0 = time.perf_counter()
+        model = models.make_model(name, seed=0)
+        seconds[name] = time.perf_counter() - t0
+        print(f"  make_model({name!r}, seed=0), flax's draw of PRNGKey(0) on the host: "
+              f"{sum(p.numel() for p in model.parameters())} parameters in "
+              f"{seconds[name]:.3f} s", flush=True)
+        if name == "cnn_nine":
+            want = models.state_dict_from_flax(models.PRESETS[name], committed)
+            got = model.state_dict()
+            if set(got) != set(want):
+                raise AssertionError(f"the draw's layers {sorted(set(got) ^ set(want))}")
+            diff = max(float((got[k] - w).abs().max()) for k, w in want.items())
+            print(f"  {name}'s seed-0 draw against the committed PRNGKey(0) draw: max |d| "
+                  f"{diff:g} (tolerance 0)", flush=True)
+            if diff != 0:
+                raise AssertionError(f"{name}'s seed-0 draw is not flax's: max |d| {diff}")
+    rng = np.random.default_rng(11)
+    n, res = DRAW_EPOCH_N, 192
+    ds = datagen.DatasetArrays(
+        re_range=np.linspace(100.0, 5000.0, n),
+        feq_initial=rng.uniform(0.0, 0.5, (9, res, res)).astype(np.float32),
+        f_final=np.zeros((n, 9, res, res), np.float32),
+        u_final=(0.05 * rng.standard_normal((n, 2, res, res))).astype(np.float32), failed=None)
+    data = train.prepare_inputs(ds, models.PRESETS["cnn_nine"])
+    loss = {}
+    for dev in (device, "cpu"):
+        reset_counters()
+        t0 = time.perf_counter()
+        hist = train.train("cnn_nine", data, component="x", epochs=1, seed=0,
+                           batch_size=DRAW_EPOCH_BATCH, optimizer="adam", learning_rate=1e-3,
+                           device=dev).history
+        if any(read_counters().values()):
+            raise AssertionError(f"training launched a kernel of the port: {read_counters()}")
+        loss[torch.device(dev).type] = hist["loss"][0]
+        print(f"  cnn_nine x at {res}^2 from seed 0, one epoch on {dev}: loss "
+              f"{hist['loss'][0]!r}, val_loss {hist['val_loss'][0]!r}, "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    print(f"  the epoch's loss, card against CPU: rel {rel:.3e} (tolerance {DRAW_EPOCH_RTOL:g})",
+          flush=True)
+    if not math.isfinite(loss["cuda"]) or rel > DRAW_EPOCH_RTOL:
+        raise AssertionError(f"cnn_nine's first epoch from seed 0: card {loss['cuda']!r}, "
+                             f"CPU {loss['cpu']!r}")
+    return {"draw_s": seconds, "loss": loss}
 
 
 def run_bench_command(pull_mlups: float) -> None:
@@ -3367,6 +3437,9 @@ def main() -> None:
     with phase("main path: the fidelity probe, the rollup and weak scaling"), \
             tempfile.TemporaryDirectory() as tmp:
         add_counts(main_launches, run_last_scripts(device, tmp))
+
+    with phase("main path: flax's initial draw and an epoch from it"):
+        check_flax_draw(device)
 
     with phase("main path: checkpoint and resume"), tempfile.TemporaryDirectory() as tmp:
         add_counts(main_launches, run_checkpoint_resume(device, tmp))

@@ -40,6 +40,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import flax_init
+
 
 @dataclasses.dataclass(frozen=True)
 class CNNPreset:
@@ -161,7 +163,7 @@ class _Conv(nn.Module):
 
     def __init__(self, c_in: int, c_out: int, k: int, s: int = 1):
         super().__init__()
-        self.k, self.s, self.fans = k, s, (k * k * c_in, k * k * c_out)
+        self.k, self.s = k, s
         self.weight = nn.Parameter(torch.empty(c_out, c_in, k, k))
         self.bias = nn.Parameter(torch.zeros(c_out))
 
@@ -181,7 +183,7 @@ class _ConvTranspose(nn.Module):
 
     def __init__(self, c_in: int, c_out: int, k: int, s: int):
         super().__init__()
-        self.k, self.s, self.fans = k, s, (k * k * c_in, k * k * c_out)
+        self.k, self.s = k, s
         self.weight = nn.Parameter(torch.empty(c_in, c_out, k, k))
         self.bias = nn.Parameter(torch.zeros(c_out))
 
@@ -227,7 +229,7 @@ class CavityCNN(nn.Module):
     ``(B, H, W, 1)`` in float32.  ``compute_dtype`` is the type of every
     layer but ``head1`` (float32 whatever it is); ``kernel_init`` is the
     weight initialisation ('lecun_normal' or 'glorot_uniform', bias zeros),
-    drawn from ``seed``.
+    drawn as flax draws it from ``PRNGKey(seed)`` (``reset_parameters``).
     """
 
     def __init__(self, preset: CNNPreset, compute_dtype: torch.dtype = torch.float32,
@@ -261,26 +263,11 @@ class CavityCNN(nn.Module):
         self.reset_parameters(kernel_init, seed)
 
     def reset_parameters(self, kernel_init: str = "lecun_normal", seed: int = 0) -> None:
-        """Weights drawn from ``seed`` (flax's initialisers: LeCun normal,
-        truncated at two deviations, or Glorot uniform), biases zero."""
-        gen = torch.Generator().manual_seed(seed)
-        with torch.no_grad():
-            for layer in self.modules():
-                if not isinstance(layer, (_Conv, _ConvTranspose)):
-                    continue
-                w = layer.weight
-                fan_in, fan_out = layer.fans
-                if kernel_init == "lecun_normal":
-                    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                    w.copy_(torch.nn.init.trunc_normal_(
-                        torch.empty(w.shape), std=std, a=-2 * std, b=2 * std,
-                        generator=gen))
-                elif kernel_init == "glorot_uniform":
-                    lim = math.sqrt(6.0 / (fan_in + fan_out))
-                    w.copy_(torch.empty(w.shape).uniform_(-lim, lim, generator=gen))
-                else:
-                    raise ValueError(f"unknown kernel_init {kernel_init!r}")
-                layer.bias.zero_()
+        """The weights the JAX package's ``model.init(PRNGKey(seed), ...)``
+        gives (``flax_init.init_params``: flax's key per layer, LeCun normal
+        truncated at two deviations or Glorot uniform), biases zero."""
+        params = flax_init.init_params(self.preset, seed, kernel_init)
+        self.load_state_dict(state_dict_from_flax(self.preset, params))
 
     def _act(self, x: torch.Tensor) -> torch.Tensor:
         if self.preset.activation == "leaky_relu":
@@ -342,7 +329,8 @@ def state_dict_from_flax(preset: CNNPreset, params: dict) -> dict:
             w = kernel.transpose(3, 2, 0, 1)
         out[f"{name}.weight"] = torch.from_numpy(np.array(w, dtype=np.float32))
         out[f"{name}.bias"] = torch.from_numpy(np.array(leaf["bias"], dtype=np.float32))
-    model_keys = set(CavityCNN(preset).state_dict())
+    model_keys = {f"{layer}.{p}" for layer in flax_init.kernel_shapes(preset)
+                  for p in ("weight", "bias")}
     if set(out) != model_keys:
         raise ValueError(f"the parameters do not fit {preset.name}: "
                          f"{sorted(set(out) ^ model_keys)}")

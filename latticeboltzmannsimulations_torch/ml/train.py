@@ -35,7 +35,7 @@ import torch
 
 from ..config import resolve_device
 from ..parallel.mesh import Mesh
-from . import flax_msgpack
+from . import flax_init, flax_msgpack
 from .datagen import DatasetArrays, drop_failed
 from .models import (PRESETS, CavityCNN, CNNPreset, _cudnn_tf32, check_grid, make_model,
                      state_dict_from_flax)
@@ -314,11 +314,12 @@ def _sync_replicas(replicas: Sequence[CavityCNN]) -> None:
 
 def _recipe(preset_name, preset, data, component, epochs, batch_size,
             learning_rate, seed, schedule, clip_norm, kernel_init) -> dict:
-    """The JAX package's recipe fingerprint, key for key: it pins a
-    checkpoint to the run that wrote it.  The epoch budget is part of it only
-    for the schedules it shapes (cosine, plateau); the dataset by its size,
-    grid and a strided centre-pixel checksum; ``kernel_init`` only when not
-    the default."""
+    """The JAX package's recipe fingerprint, key for key, and the draw the
+    weights start from (``"init"``, flax's since the port draws as flax
+    does): it pins a checkpoint to the run that wrote it.  The epoch budget
+    is part of it only for the schedules it shapes (cosine, plateau); the
+    dataset by its size, grid and a strided centre-pixel checksum;
+    ``kernel_init`` only when not the default."""
     g = data.fnet.shape[1] // 2
     sig = np.asarray(data.fnet[:: max(1, len(data.fnet) // 8), g, g, :], np.float64)
     recipe = {"preset": preset_name, "component": component,
@@ -327,7 +328,7 @@ def _recipe(preset_name, preset, data, component, epochs, batch_size,
               "clip_norm": clip_norm,
               "epochs": epochs if schedule in ("cosine", "plateau") else None,
               "data_n": int(len(data.fnet)), "data_shape": list(data.fnet.shape),
-              "data_sig": float(np.abs(sig).sum())}
+              "data_sig": float(np.abs(sig).sum()), "init": flax_init.DRAW}
     if kernel_init != "lecun_normal":
         recipe["kernel_init"] = kernel_init
     return recipe
@@ -498,12 +499,17 @@ def _load_train_checkpoint(path, recipe, device, model: CavityCNN, opt: Optimize
     different recipe and must not be resumed from.  The blob is this
     package's ``torch.save`` or the JAX package's flax msgpack of
     ``(params, opt_state)``, told apart by its first bytes; ``model`` and
-    ``opt`` (this run's) give a JAX blob its places."""
+    ``opt`` (this run's) give a JAX blob its places.  A JAX recipe names no
+    draw: its run started from flax's, ``flax_init.DRAW``; a checkpoint of
+    this package that names none is of the draw before it, and is refused."""
     with open(path, "rb") as fh:
         hlen = int.from_bytes(fh.read(8), "little")
         header = json.loads(fh.read(hlen))
         blob = fh.read()
-    if header.get("recipe") != recipe:
+    stored = header.get("recipe")
+    if isinstance(stored, dict) and not blob.startswith(_ZIP_MAGIC):
+        stored = {**stored, "init": flax_init.DRAW}
+    if stored != recipe:
         return None
     epoch = int(header["epoch"])
     if blob.startswith(_ZIP_MAGIC):

@@ -56,8 +56,8 @@ Usage (from the repository root, on a machine with four cards):
 ``--jobs cnn_nine.x,cnn_nine.y --group 2``.  ``cnn_ten``'s halves on one
 card each and the x half of ``cnn_nine`` from seed 1 over the other two:
 ``--jobs cnn_ten.x,cnn_ten.y,cnn_nine_s1.x@2``.  The other whole-dataset
-runs and the precision probe, one card each: ``--jobs
-diagnose_cnn_eight,eight_faithful,cnn_eight.x,resume_eight_y,early_presets,precision_probe``.
+runs, one card each: ``--jobs
+diagnose_cnn_eight,eight_faithful,cnn_eight.x,resume_eight_y,early_presets``.
 ``cnn_nine``'s x half from the JAX package's own initial weights, in
 float32 and at the TPU's convolution precision, over two cards each:
 ``--jobs cnn_nine_jax0.x@2,cnn_nine_jax0_tpu.x@2``.
@@ -102,12 +102,12 @@ TRUTH = "held_out_truth.npz"
 # weights of its last 40 epochs every tenth (--snapshots), and cnn_nine_s1
 # is cnn_nine's run from the initial weights and shuffle of seed 1 with
 # those of its last 50: whether a late epoch's score is a draw or a fault.
-# precision_probe (scripts/torch_precision_probe.py) trains cnn_nine's x
-# half at 192^2 in float32 and at the TPU's convolution precision; the pair
-# cnn_nine_jax0 and cnn_nine_jax0_tpu supersedes it: cnn_nine trained at
-# full scale from JAX's own initial weights (JAX_INIT) and seed 0's shuffle,
-# as JAX's record was, in float32 and at the TPU's convolution precision
-# (--tpu-precision), each keeping the weights of its last 50 epochs.
+# The pair cnn_nine_jax0 and cnn_nine_jax0_tpu trains cnn_nine at full
+# scale from JAX's own initial weights read from a file (JAX_INIT) and seed
+# 0's shuffle, in float32 and at the TPU's convolution precision
+# (--tpu-precision), each keeping the weights of its last 50 epochs; since
+# the port draws as flax does, cnn_nine's own run starts from those weights
+# too.
 class Job(NamedTuple):
     script: str
     argv: list
@@ -153,8 +153,6 @@ JOBS = {
     "diagnose_cnn_eight": Job("torch_diagnose_cnn_eight", [], "cnn_eight_diag",
                               {"cnn_eight": 4 * 150, "cnn_eight_auxin": 150,
                                "cnn_eight_ms": 150, "cnn_eight_192": 150}),
-    "precision_probe": Job("torch_precision_probe", [], "precision_probe",
-                           {"cnn_nine_192": 175, "cnn_nine_192_tpu": 175}),
 }
 # the jobs run when --jobs is not given: train_full.py's recorded runs
 TRAIN_FULL_JOBS = ("cnn_eight", "cnn_nine", "cnn_ten", "cnn_one_192")
@@ -167,10 +165,6 @@ TRAIN_FULL_JOBS = ("cnn_eight", "cnn_nine", "cnn_ten", "cnn_one_192")
 # whichever runs, and reads its x weights.
 HALVES = ("x", "y")
 NEEDS = {"resume_eight_y": ("cnn_eight", "x")}
-# AFTER: jobs that start only once another has ended (or failed) where both
-# run, reading nothing of it: the precision probe takes the card that the
-# early presets leave.
-AFTER = {"precision_probe": ("early_presets",)}
 # Each training job's model by key: its preset, its grid and the seconds an
 # epoch (training and validation) on 493 cavities at batch 20 (cnn_one,
 # cnn_two and cnn_three at their batch of 5), Adam, TF32 off, on one NVIDIA
@@ -189,12 +183,9 @@ AFTER = {"precision_probe": ("early_presets",)}
 # readings each on NVIDIA H100 80GB HBM3 cards spread with the host's load,
 # 0.4356-0.9680 and 0.1056-0.2246 s an epoch, and each estimate is the
 # geometric middle of its spread.  JOB_SETUP_S: a job's start, the dataset's read
-# and the evaluation beside train_s (15.6-21.2 s).  cnn_nine_192 and
-# cnn_nine_192_tpu (torch_precision_probe.py's two runs, TPU_PRECISION: with
-# every convolution at the TPU's precision) are estimates, not readings:
-# cnn_nine's one-card epoch at 384^2 over the four times fewer cells, and a
-# third more for the rounding of every convolution's operands.  cnn_nine_tpu
-# (cnn_nine_jax0_tpu's epoch, TPU_PRECISION) is chip_smoke.py's phase (t)
+# and the evaluation beside train_s (15.6-21.2 s).  cnn_nine_tpu
+# (cnn_nine_jax0_tpu's epoch, TPU_PRECISION: with every convolution at the
+# TPU's precision) is chip_smoke.py's phase (t)
 # reading, 1.7570 (1.12x cnn_nine's 1.5673 in the same call), rounded up;
 # cnn_nine_tpu@2 is that reading times cnn_nine's two-card over one-card
 # ratio, 0.97 / 1.57, rounded up (an estimate, not a reading).
@@ -209,10 +200,9 @@ EPOCHS = {
     "cnn_seven_384": ("cnn_seven", 384, 0.38), "cnn_eight_192": ("cnn_eight", 192, 0.15),
     "cnn_eight_auxin": ("cnn_eight_auxin", 384, 0.40),
     "cnn_eight_ms": ("cnn_eight_ms", 384, 1.37),
-    "cnn_nine_192": ("cnn_nine", 192, 0.45), "cnn_nine_192_tpu": ("cnn_nine", 192, 0.6),
     "cnn_nine_tpu": ("cnn_nine", 384, 1.76), "cnn_nine_tpu@2": ("cnn_nine", 384, 1.09),
 }
-TPU_PRECISION = ("cnn_nine_192_tpu", "cnn_nine_tpu")
+TPU_PRECISION = ("cnn_nine_tpu",)
 EPOCH_S = {key: s for key, (_, _, s) in EPOCHS.items()}
 JOB_SETUP_S = 40.0
 POLL_S = 0.5               # seconds between looks at the running processes
@@ -557,8 +547,7 @@ def job_queue(jobs: str, group: int = 1) -> list:
 def place(queue: list, free: list, pending: set, failed: set, group,
           fits=lambda job: True) -> tuple:
     """The jobs of ``queue`` that start now, in its order: each whose
-    ``job_after`` jobs are neither pending nor failed and whose ``AFTER``
-    jobs are not pending, for which enough of
+    ``job_after`` jobs are neither pending nor failed, for which enough of
     the ``free`` cards are left (the first of them, ``job_cards``) and
     which ``fits``.
     Returns ``([(job, cards)], [(job, why)])``, the jobs started and those
@@ -572,7 +561,7 @@ def place(queue: list, free: list, pending: set, failed: set, group,
             dropped.append((job, f"{[d for d in after if d in failed]} failed"))
             continue
         n = job_cards(job, group)
-        if any(d in pending for d in (*after, *AFTER.get(job, ()))) or len(free) < n:
+        if any(d in pending for d in after) or len(free) < n:
             continue
         queue.remove(job)
         if not fits(job):

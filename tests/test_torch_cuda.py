@@ -932,17 +932,30 @@ def test_training_backward_runs_without_tf32(cuda):
     ``train.loss_and_grads`` on the card equal the CPU's to GRAD_RTOL, the
     backward under the model's TF32 switch.  The same backward under
     cuDNN's global default (TF32 on), as a backward outside the switch
-    would take it, misses that tolerance."""
+    would take it, misses that tolerance.  GRAD_RTOL holds only where the
+    CPU's own float32 gradients lie close to float64's; the test checks
+    that of its draw first.  (Of flax's draws of ``cnn_eight``, seeds 0-6
+    leave the decoder branch ``dec_b`` nearly dead on this batch: its weight
+    gradients are a cancellation whose float32 rounding reads 1e-3-5e-3 of
+    float64's, on the CPU (seeds 0-4, 6) or on the card (seeds 3, 5), so no
+    float32 backward could meet GRAD_RTOL there; seed 7's read 2.6e-6 on
+    the CPU, and 2.5e-6 card against CPU, on one NVIDIA H100 80GB HBM3.)"""
     from latticeboltzmannsimulations_torch.ml import models, train
 
     data = _train_data(res=192, n=4)
     xb = torch.from_numpy(data.fnet[:2])
     auxb = torch.from_numpy(data.aux[:2])
     yb = torch.from_numpy(data.targets["x"][:2].copy())
-    cpu_model = models.make_model("cnn_eight", seed=3)
-    card_model = models.make_model("cnn_eight", seed=3).to(cuda)
+    seed = 7
+    cpu_model = models.make_model("cnn_eight", seed=seed)
+    card_model = models.make_model("cnn_eight", seed=seed).to(cuda)
+    f64_model = models.make_model("cnn_eight", compute_dtype=torch.float64,
+                                  seed=seed).to(torch.float64)
     args = [t.to(cuda) for t in (xb, auxb, yb)]
     loss_cpu = train.loss_and_grads([cpu_model], xb, auxb, yb)
+    train.loss_and_grads([f64_model], *(t.double() for t in (xb, auxb, yb)))
+    rounding = _grad_errors(f64_model, cpu_model)
+    assert max(rounding.values()) <= GRAD_RTOL / 10, rounding
     before = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = True
     try:

@@ -20,7 +20,11 @@ epochs' worth of Adam steps (about 15 minutes); and
 ``... correlations`` writes ``CORRELATIONS``: per layer, how JAX's
 trained halves correlate with ``INIT``, with the draw of the same key under
 the older, non-partitionable threefry and with the port's seed-0 draw, and
-how far each half moved from ``INIT``; and ``... late-history`` writes
+how far each half moved from ``INIT``.  The committed ``INIT_LOSSES`` and
+``CORRELATIONS`` are records of the port's former draw (a
+``torch.Generator``'s sample of the same law); since the port draws what
+flax draws (``ml.flax_init``), its seeds give flax's keys' numbers and a
+rerun of either command writes them twice.  ``... late-history`` writes
 ``LATE_HISTORY``: the late validation MSE of the runs from ``INIT`` and
 of the port's own draws beside JAX's history (``late_history``).
 
@@ -304,9 +308,10 @@ def test_train_full_from_the_init_file_matches_jax_train(tmp_path, monkeypatch, 
 def test_train_full_from_the_init_file_starts_fresh_past_a_foreign_checkpoint(
         tmp_path, monkeypatch, committed):
     """A checkpoint that an earlier run of the same recipe from another
-    start (the port's seed-0 draw) left in the output directory, and that
-    ``train`` would resume, is not resumed by ``--init-from INIT
-    --snapshots 1``: the run's history is a fresh run's from ``INIT``."""
+    start (the port's seed-1 draw, with seed 0's shuffle) left in the
+    output directory, and that ``train`` would resume, is not resumed by
+    ``--init-from INIT --snapshots 1``: the run's history is a fresh run's
+    from ``INIT``."""
     datagen.save_dataset(_dataset(), str(tmp_path / "data"))
     train_ds, _ = torch_train_full.split_dataset(
         datagen.load_dataset(str(tmp_path / "data")), torch_train_full.HELD_OUT)
@@ -319,7 +324,9 @@ def test_train_full_from_the_init_file_starts_fresh_past_a_foreign_checkpoint(
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        foreign = run(checkpoint_path=str(tmp_path / "foreign.ckpt"), checkpoint_every=1).history
+        other = models.make_model(MODEL, seed=1).state_dict()
+        foreign = run(init_params=other, checkpoint_path=str(tmp_path / "foreign.ckpt"),
+                      checkpoint_every=1).history
         fresh = run(init_params=init).history
         ckpt.write_bytes((tmp_path / "foreign.ckpt").read_bytes())
         assert run(init_params=init, checkpoint_path=str(tmp_path / "foreign.ckpt")

@@ -100,8 +100,9 @@ def test_forward_refuses_missing_aux_planes():
 
 @pytest.mark.parametrize("name", ["cnn_nine", "cnn_ten"])
 def test_initial_weights_have_flaxs_distribution(name):
-    """The port's draw (``reset_parameters``, seed 0) against flax's
-    ``model.init(PRNGKey(0))`` of the JAX package, layer by layer: each
+    """The port's draw (``reset_parameters``, seed 0; flax's own sample,
+    which ``test_torch_ml_flax_init.py`` holds bit for bit) against flax's
+    jitted ``model.init(PRNGKey(0))`` of the JAX package, layer by layer: each
     kernel's standard deviation, and the other's, within six standard
     errors of a sample deviation (6 / sqrt(2n) relative) of LeCun normal's
     sqrt(1 / fan_in), with flax's fan_in (kernel height x width x input

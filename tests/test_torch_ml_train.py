@@ -332,6 +332,8 @@ def test_jax_checkpoint_of_another_recipe_is_refused(data, tmp_path, capsys):
 
 
 def test_recipe_is_the_jax_recipe(data):
+    """JAX's recipe key for key, and the draw the weights start from:
+    flax's, which a JAX checkpoint's recipe leaves unnamed."""
     port_data, jdata = data
     preset = models.PRESETS[PRESET]
     got = train._recipe(PRESET, preset, port_data, "y", 7, 4, 1e-3, 3, "cosine", 0.5,
@@ -342,7 +344,7 @@ def test_recipe_is_the_jax_recipe(data):
                    "data_shape": [10, 48, 48, 10],
                    "data_sig": float(np.abs(np.asarray(
                        jdata.fnet[::1, 24, 24, :], np.float64)).sum()),
-                   "kernel_init": "glorot_uniform"}
+                   "init": "flax-threefry", "kernel_init": "glorot_uniform"}
     assert "kernel_init" not in train._recipe(PRESET, preset, port_data, "x", 7, 4, 1e-3, 0,
                                               None, None, "lecun_normal")
 

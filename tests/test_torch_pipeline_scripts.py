@@ -339,7 +339,7 @@ def test_resume_eight_y_waits_for_the_x_weights(dep, tmp_path):
 
 
 @pytest.mark.parametrize("job", ["resume_eight_y", "eight_faithful", "early_presets",
-                                 "diagnose_cnn_eight", "precision_probe"])
+                                 "diagnose_cnn_eight"])
 def test_pipeline_runner_names_the_other_whole_dataset_runs(job):
     """Each of the other scripts' runs is a job of the runner on one card:
     its command line parses in its script, and its estimate is its epochs
@@ -746,117 +746,9 @@ def test_command_lines_are_the_jax_scripts(jax_name, port_name):
     assert options(_script(port_name)) == options(_script(jax_name))
 
 
-# --- the precision probe and the last four-card call's job list ------------------
+# --- the other whole-dataset runs' four-card job list ---------------------------
 
-LAST_CALL = "diagnose_cnn_eight,eight_faithful,cnn_eight.x,resume_eight_y,early_presets,precision_probe"
-
-
-class _Caught(Exception):
-    pass
-
-
-def test_precision_probe_takes_the_early_presets_data(monkeypatch, tmp_path):
-    """``torch_precision_probe.py`` trains on what ``torch_train_early_presets.py``
-    trains on, on a cut 384^2 dataset: the same cavities (``train_full``'s
-    held-out Re out) downsampled 2x to 192^2, exactly; its held-out fields
-    are the dataset's at those Re downsampled the same way, and the split
-    is ``train_val_split``'s default (seed 4) in both."""
-    probe, early = _script("torch_precision_probe"), _script("torch_train_early_presets")
-    ds = _dataset(384, RES, seed=7)
-    seen = []
-
-    def prepare(ds_arg, preset, u_lid=0.08):
-        seen.append(ds_arg)
-        raise _Caught
-
-    monkeypatch.setattr(early.datagen, "load_dataset", lambda path: ds)
-    monkeypatch.setattr(ptrain, "prepare_inputs", prepare)
-    with pytest.raises(_Caught):
-        early.main(["--models", "cnn_four", "--data", str(tmp_path), "--out",
-                    str(tmp_path / "out"), "--device", "cpu"])
-    with pytest.raises(_Caught):
-        probe.probe_inputs(ds, 0.08)
-    want, got = seen
-    for key in ("re_range", "feq_initial", "f_final", "u_final"):
-        np.testing.assert_array_equal(getattr(got, key), getattr(want, key), err_msg=key)
-    assert got.u_final.shape[-1] == 192 and not set(got.re_range) & set(probe.HELD_OUT)
-    monkeypatch.undo()
-    data, held, feq, k = probe.probe_inputs(ds, 0.08)
-    assert k == 2 and sorted(held) == [500.0, 3200.0, 5000.0]
-    for re, u in held.items():
-        np.testing.assert_array_equal(u, ds.u_final[list(ds.re_range).index(re)][:, ::2, ::2])
-    np.testing.assert_array_equal(feq, ds.feq_initial[:, ::2, ::2])
-    assert data.fnet.shape == (len(RES) - 3, 192, 192, 10) and data.aux.shape[-1] == 2
-    with pytest.raises(ValueError, match="downsample"):
-        probe.probe_inputs(_dataset(96, RES[:2]), 0.08)
-
-
-def test_precision_probe_runs_differ_only_in_rounding(root192, tmp_path, monkeypatch):
-    """The probe's two runs on a 192^2 dataset (taken as it is), one epoch
-    each: ``train`` called twice with the same data and arguments (seed 0:
-    the same initial weights and shuffle, Adam at lr 1e-3, batch 20), the
-    first with the plain convolutions and the second inside
-    ``tpu_conv_precision``; their losses close but not equal (bfloat16
-    operands); the summary holds each run's late validation MSE and its
-    held-out R^2(ux), the ratio of the medians and the rule's verdict."""
-    probe = _script("torch_precision_probe")
-    calls, train_fn = [], ptrain.train
-
-    def spy(*args, **kw):
-        calls.append((args, kw, models.F is torch.nn.functional))
-        return train_fn(*args, **kw)
-
-    monkeypatch.setattr(ptrain, "train", spy)
-    out = tmp_path / "probe"
-    assert probe.main(["--epochs", "1", "--data", str(root192 / "data" / "ml_full"),
-                       "--out", str(out), "--device", "cpu"]) == 0
-    (a0, k0, plain0), (a1, k1, plain1) = calls
-    assert a0[0] == a1[0] == "cnn_nine" and a0[1] is a1[1] and k0 == k1
-    assert (k0["seed"], k0["optimizer"], k0["learning_rate"], k0["epochs"]) == (0, "adam", 1e-3, 1)
-    assert plain0 and not plain1 and models.F is torch.nn.functional
-    got = json.loads((out / "summary.json").read_text())
-    f32, tpu = got["runs"]["float32"], got["runs"]["tpu"]
-    assert f32["first_loss"] != tpu["first_loss"]
-    assert f32["first_loss"] == pytest.approx(tpu["first_loss"], rel=1e-2)
-    for run in (f32, tpu):
-        assert [r["re"] for r in run["held_out_eval"]] == [500.0, 3200.0, 5000.0]
-        assert set(run["held_out_eval"][0]) == {"re", "r2_ux", "rel_l2_ux"}   # an x half
-        assert run["late_val_mse"]["epochs"] == 1
-    ratio = tpu["late_val_mse"]["median"] / f32["late_val_mse"]["median"]
-    assert got["ratio_tpu_to_float32"] == pytest.approx(ratio)
-    assert got["verdict"] == probe.verdict(ratio) and got["downsample"] == 1
-    assert [probe.verdict(r).split(":")[0] for r in (0.75, 0.8, 0.85, 1.18, 1.3)] == [
-        "lead", "open", "no lead", "no lead", "open"]
-
-
-def test_runner_places_the_probe_after_the_early_presets():
-    """The last call's job list on four cards: the diagnosis, the faithful
-    run and ``cnn_eight``'s x half on cards 0-2 and the early presets on
-    card 3; ``resume_eight_y`` waits for the x half and the probe for the
-    early presets, whichever ends first, and the probe takes card 3 with
-    its ``EPOCHS`` estimate (175 epochs at each precision), ending within
-    60 s of the last other card."""
-    drv = _script("torch_pipeline_cards")
-    est = {j: drv.job_estimate(j) for j in drv.parse_jobs(LAST_CALL, 1)}
-    assert est["precision_probe"] == pytest.approx(
-        drv.JOB_SETUP_S + 175 * (drv.EPOCH_S["cnn_nine_192"] + drv.EPOCH_S["cnn_nine_192_tpu"]))
-    for first in ("early_presets", "cnn_eight.x"):
-        queue = drv.job_queue(LAST_CALL, 1)
-        pending = set(queue)
-        started, _ = drv.place(queue, [0, 1, 2, 3], pending, set(), 1)
-        assert started == [("diagnose_cnn_eight", (0,)), ("eight_faithful", (1,)),
-                           ("cnn_eight.x", (2,)), ("early_presets", (3,))]
-        cards = dict(started)
-        later = {}
-        for ended in (first, ({"early_presets", "cnn_eight.x"} - {first}).pop()):
-            pending.discard(ended)
-            got, _ = drv.place(queue, [cards[ended][0]], pending | set(queue), set(), 1)
-            later.update(got)
-        assert later == {"resume_eight_y": (2,), "precision_probe": (3,)} and not queue
-    ends = {0: est["diagnose_cnn_eight"], 1: est["eight_faithful"],
-            2: est["cnn_eight.x"] + est["resume_eight_y"],
-            3: est["early_presets"] + est["precision_probe"]}
-    assert ends[3] <= max(ends[c] for c in (0, 1, 2)) + 60
+LAST_CALL = "diagnose_cnn_eight,eight_faithful,cnn_eight.x,resume_eight_y,early_presets"
 
 
 class _InProcess:
@@ -875,17 +767,16 @@ class _InProcess:
 
 
 def test_the_last_calls_job_list_runs_and_merges_on_the_cpu(monkeypatch, tmp_path):
-    """The last four-card call's ``--jobs`` through the runner's training
+    """The other whole-dataset runs' ``--jobs`` through the runner's training
     stage on the CPU, cut: a seeded 192^2 dataset (held out: Re 500, 3200
     and 5000, where the diagnosis evaluates), every training one epoch, the diagnosis cut to ``base150``
     and the early presets to ``cnn_four`` (the grids and the presets the
     card runs cannot be cut to the CPU's time), no figures drawn; each job
-    runs to its end as it is started, so the cards it takes say nothing
-    (``test_runner_places_the_probe_after_the_early_presets`` holds
-    those).  Every job ends with 0 and
+    runs to its end as it is started, so the cards it takes say nothing.
+    Every job ends with 0 and
     its summary is merged where the JAX records lie: ``cnn_eight`` with
-    both halves in ``ml_full``, the faithful run, the diagnosis, the early
-    presets and the probe."""
+    both halves in ``ml_full``, the faithful run, the diagnosis and the
+    early presets."""
     drv = _script("torch_pipeline_cards")
     train_fn = ptrain.train
 
@@ -918,26 +809,22 @@ def test_the_last_calls_job_list_runs_and_merges_on_the_cpu(monkeypatch, tmp_pat
     assert {"x", "y"} <= set(merged("ml_full/cnn_eight_faithful")["final_val_mse"])
     assert [r["tag"] for r in merged("cnn_eight_diag")["runs"]] == ["base150"]
     assert list(merged("ml_early")["models"]) == ["cnn_four_192"]
-    probe = merged("precision_probe")
-    assert set(probe["runs"]) == {"float32", "tpu"} and "verdict" in probe
 
 
 def test_epoch_timing_of_the_probe_keys_takes_their_precision(monkeypatch):
-    """``torch_train_epochs.epoch_seconds`` times a key of the runner's
-    ``TPU_PRECISION`` (the probe's second run, and ``cnn_nine_jax0_tpu``'s
-    full-scale epoch) inside ``tpu_conv_precision`` and every other key with
-    the plain convolutions."""
+    """``torch_train_epochs.epoch_seconds`` times the key of the runner's
+    ``TPU_PRECISION`` (``cnn_nine_jax0_tpu``'s full-scale epoch) inside
+    ``tpu_conv_precision`` and every other key with the plain
+    convolutions."""
     drv, epochs = _script("torch_pipeline_cards"), _script("torch_train_epochs")
-    assert drv.TPU_PRECISION == ("cnn_nine_192_tpu", "cnn_nine_tpu")
-    assert epochs.MODELS["cnn_nine_192"] == epochs.MODELS["cnn_nine_192_tpu"] == ("cnn_nine", 192)
+    assert drv.TPU_PRECISION == ("cnn_nine_tpu",)
     assert epochs.MODELS["cnn_nine"] == epochs.MODELS["cnn_nine_tpu"] == ("cnn_nine", 384)
     seen = {}
     monkeypatch.setattr(epochs, "_epoch_seconds", lambda key, *a: seen.setdefault(
         key, models.F is torch.nn.functional))
-    for key in ("cnn_nine_192", "cnn_nine_192_tpu", "cnn_nine", "cnn_nine_tpu"):
+    for key in ("cnn_nine", "cnn_nine_tpu"):
         epochs.epoch_seconds(key, ["cpu"])
-    assert seen == {"cnn_nine_192": True, "cnn_nine_192_tpu": False, "cnn_nine": True,
-                    "cnn_nine_tpu": False}
+    assert seen == {"cnn_nine": True, "cnn_nine_tpu": False}
     assert models.F is torch.nn.functional
 
 
