@@ -7,14 +7,21 @@
 //
 // Bound.  A launch reads the 9 f32 planes once and writes them once for K
 // steps: 72/K B of device traffic per cell per step, against about 170
-// floating-point operations per cell per step (about 450 instructions with
-// the walls, the moments' divisions and the addressing).  At K = 5 the
-// published peaks give 0.0180 ms per step at 2048^2 by bytes and 0.0107 ms
-// by operations; the window recomputes its halo 64^2 / 54^2 = 1.40 times.
-// On the card it runs near neither bound: 32 warps per SM, one cell's
-// dependency chain each in flight, is what the register file holds (55
-// registers a thread), and the load and store of a window stand before
-// and after its compute (PERF.md, section 6).
+// floating-point operations per cell per step.  At K = 5 the published
+// peaks give 0.0180 ms per step at 2048^2 by bytes and 0.0107 ms by
+// operations; the window recomputes its halo 64^2 / 54^2 = 1.40 times.
+// Measured on one NVIDIA H100 80GB HBM3 at 700.00 W
+// (scripts/torch_tblock_designs.py; PERF.md, section 6): 0.0844 ms a step
+// at 2048^2, K = 5, MRT, 0.21 of the bound.  The no-wall MRT cell-step is
+// 200 SASS instructions (443 in the loop that serves every collision), at
+// 48 to 56 registers a thread and no spills; a step of the window's 4096
+// cells takes about 10 560 SM cycles, 2.4 warp instructions a cycle from
+// 32 warps.  A block's life is about 21 % staging, 68 % steps and 12 %
+// write-back at 2048^2 (13-16 %, 74-76 % and 10-11 % on the shards of
+// 4096^2 on a 2x2 mesh), and an SM that stages or writes back computes
+// nothing: the recompute and the steps' issue rate set the pace.  A
+// cluster design that cut the recompute (scripts/tblock_cluster) ran
+// slower at every size.
 //
 // Design.  Each block owns a tile of (64 - 2K) x (64 - 2K) cells and
 // stages the 64 x 64 window around it (a K-wide halo on all four sides),

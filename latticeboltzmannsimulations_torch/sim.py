@@ -138,7 +138,11 @@ CHUNK_SPAN = "simulate.chunk"
 # Set from chip_smoke.py's timing of cuda-tblock against cuda-pull in turns
 # in one call on one H100 (PERF.md, section 6): ahead by more than its
 # margin from rest and further on at 2048^2 and 4096^2, behind from rest at
-# 1024^2.
+# 1024^2 when it was set.  The latest such call, on one NVIDIA H100 80GB
+# HBM3 at 700.00 W, reads it ahead at 1024^2 too (1.095x from rest, 1.153x
+# further on; 1.221x / 1.317x at 2048^2, 1.236x / 1.397x at 4096^2); the
+# gate stays at 2048^2 until the headline bench and chip_smoke.py's main
+# paths, which run 1024^2 on cuda-pull, move with it.
 TBLOCK_AUTO_MIN_CELLS: Optional[int] = 2048 * 2048
 
 # Meshes whose shards hold at least this many cells take the sharded
@@ -148,7 +152,8 @@ TBLOCK_AUTO_MIN_CELLS: Optional[int] = 2048 * 2048
 # cuda-sharded by more than its margin in every reading (the runners from
 # rest and further on, and simulate in alternating order): at 4096^2 on a
 # 2x2 mesh of one H100, the one size measured (shards of 2048^2; PERF.md,
-# section 6).
+# section 6).  The latest call, on one NVIDIA H100 80GB HBM3 at 700.00 W,
+# reads it at 1.397x cuda-sharded in turns there, 1.210x from rest.
 SHARDED_TBLOCK_AUTO_MIN_CELLS: Optional[int] = 2048 * 2048
 
 # The transport of cuda-sharded-tblock's halo refresh (a mesh of CUDA devices

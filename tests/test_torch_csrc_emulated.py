@@ -2,8 +2,10 @@
 held to their plain versions on the CPU.
 
 There is no ``nvcc`` and no card here, so this is the only CPU check of the
-kernels' code.  The sources in ``latticeboltzmannsimulations_torch/csrc``
-are read as they are, and a copy is rewritten for the host:
+kernels' code.  The sources in ``latticeboltzmannsimulations_torch/csrc``,
+and the temporal-block window's cluster design in ``scripts/tblock_cluster``
+(measured against the package's window, not part of the package), are
+read as they are, and a copy is rewritten for the host:
 
 * a stub ``cuda_runtime.h`` turns the CUDA keywords into C++ (``__shared__``
   becomes ``static``, ``__syncthreads()`` does nothing) and keeps
@@ -14,20 +16,34 @@ are read as they are, and a copy is rewritten for the host:
   loop over the grid's blocks, in four passes by the parity of their x and
   y (a block that wrote a cell its neighbour owns would then show);
   dynamic shared memory, of any type, is a host buffer;
+* a cluster launch (``cudaLaunchKernelEx``, the cluster design) runs its
+  clusters in the same four passes, and the blocks of one
+  cluster as host threads at once (``-std=c++20 -pthread``), each with its
+  own shared memory (``__shared__`` becomes ``static thread_local``): the
+  cluster barrier is a ``std::barrier``, ``map_shared_rank`` finds another
+  block's buffer, an mbarrier is a phase and a byte count under a lock
+  that a wait sleeps on, a store into another block (``st.async``) writes
+  there and counts its bytes, and a ``cp.async`` or an L2 prefetch is a
+  plain copy or nothing; the card's occupancy query answers three
+  clusters, so each steps every third tile;
 * ``float4`` is a 16-byte struct, and the
   runtime calls that enable peer access or set a kernel's shared memory do
   nothing.
 
-The library is called through ``ctypes`` by each wrapper's own ``_launch``,
-on CPU tensors.  It holds every kernel to its plain version at atol 2e-5
+The library is called through ``ctypes`` by each wrapper's own ``_launch``
+(the cluster design's through ``scripts/tblock_cluster/cluster.py``), on
+CPU tensors.  It holds every kernel to its plain version at atol 2e-5
 over 20 float32 steps (an independent float32 implementation; the
 one-step kernel with either lid), and holds
 these bit for bit on ragged shapes: ``tblock_step`` against ``pull_step``
-(fields smaller than its window and than its halo included),
-the sharded one-step kernel on a mesh against ``pull_step`` on the global
-grid, and the sharded temporal-block kernel against the sharded one-step
-kernel; and the halo exchange kernel byte for byte against the refresh's
-definition (``halo.refresh_phases`` copied in order) on meshes (1, 1) to
+(fields smaller than its window and than its halo included, one cell past
+a multiple of its window, K = 1; and the cluster design in clusters of
+each shape), the sharded one-step kernel on a mesh against ``pull_step``
+on the global grid, and the sharded temporal-block kernel against the
+sharded one-step kernel (on 2x2 and 4x1 meshes; and the cluster design in
+clusters of each shape); and the halo exchange kernel byte for byte
+against the refresh's definition (``halo.refresh_phases`` copied in
+order) on meshes (1, 1) to
 (4, 1), ragged shards, K of 1, 4 and 5, tight carries with lid panels and
 aligned ones without, its x-only table against the x-phase copies, and
 rectangles of rows of every 16-byte phase and of both kinds of slot (one
@@ -41,9 +57,12 @@ the one-step kernel and the sweep under LES too).  A serial run cannot show a ra
 
 import ctypes
 import dataclasses
+import functools
+import importlib.util
 import re
 import shutil
 import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -63,15 +82,25 @@ from latticeboltzmannsimulations_torch.kernels import (
 from latticeboltzmannsimulations_torch.parallel import halo, make_mesh
 from latticeboltzmannsimulations_torch.parallel.mesh import block_shape
 
+_spec = importlib.util.spec_from_file_location(
+    "tblock_cluster_binding",
+    Path(__file__).resolve().parent.parent / "scripts" / "tblock_cluster" / "cluster.py")
+cluster = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(cluster)
+
 ATOL = 2e-5
 STEPS = 20
 
 _STUB = r"""
 #pragma once
 #include <algorithm>
+#include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <cstring>
+#include <optional>
+#include <thread>
 #include <vector>
 #define __global__
 #define __device__
@@ -79,14 +108,15 @@ _STUB = r"""
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __restrict__ __restrict
-#define __shared__ static
+#define __shared__ static thread_local
+#define __align__(n) alignas(n)
 using std::max;
 using std::min;
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
-inline dim3 threadIdx(0, 0, 0), blockIdx(0, 0, 0), blockDim, gridDim;
+inline thread_local dim3 threadIdx(0, 0, 0), blockIdx(0, 0, 0), blockDim, gridDim;
 inline void __syncthreads() {}
 typedef void* cudaStream_t;
 struct alignas(16) float4 { float x, y, z, w; };
@@ -96,24 +126,52 @@ enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1,
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 inline cudaError_t cudaDeviceEnablePeerAccess(int, unsigned) { return cudaSuccess; }
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed = 11 };
 template <class T>
 inline cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline float __uint_as_float(unsigned u) { float x; std::memcpy(&x, &u, 4); return x; }
 inline unsigned __float_as_uint(float x) { unsigned u; std::memcpy(&u, &x, 4); return u; }
-inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
-  const unsigned long long old = *p;
+template <class T>
+inline T atomicAdd(T* p, T v) {
+  const T old = *p;
   *p += v;
   return old;
 }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated error"; }
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  struct { struct { unsigned x, y, z; } clusterDim; } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
 namespace emu {
-inline std::vector<float> smem;
-inline float* dynamic_smem() { return smem.data(); }
+inline thread_local std::vector<float> smem;
+// a block's dynamic shared memory, at a 128-byte boundary as on the card
+inline float* dynamic_smem() {
+  const auto at = reinterpret_cast<std::uintptr_t>(smem.data());
+  return reinterpret_cast<float*>((at + 127) & ~std::uintptr_t{127});
+}
+// The blocks of one cluster, each a host thread: their shared memory and
+// the cluster barrier.
+struct Cluster {
+  unsigned cx, cy;
+  std::vector<float*> bases;
+  std::barrier<> bar;
+  Cluster(unsigned x, unsigned y) : cx(x), cy(y), bases(x * y), bar(x * y) {}
+};
+inline thread_local Cluster* cluster = nullptr;
+inline thread_local std::optional<std::barrier<>::arrival_token> token;
 template <class F>
 void launch(F body, dim3 grid, dim3 block, size_t smem_bytes = 0, void* = nullptr) {
-  smem.assign(smem_bytes / sizeof(float) + 1, 0.0f);
+  smem.assign(smem_bytes / sizeof(float) + 33, 0.0f);
   gridDim = grid;
   blockDim = block;
   // The blocks in four passes by the parity of x and y: a block that
@@ -130,6 +188,145 @@ void launch(F body, dim3 grid, dim3 block, size_t smem_bytes = 0, void* = nullpt
           }
 }
 }  // namespace emu
+// A cluster launch: the clusters in four passes by the parity of their x
+// and y, as emu::launch runs blocks, and the blocks of each cluster as
+// host threads at once, each with its own shared memory, meeting at the
+// cluster barrier.
+template <class... P, class... A>
+inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* config, void (*kernel)(P...),
+                                      A... args) {
+  unsigned cx = 1, cy = 1;
+  for (unsigned a = 0; a < config->numAttrs; ++a) {
+    if (config->attrs[a].id == cudaLaunchAttributeClusterDimension) {
+      cx = config->attrs[a].val.clusterDim.x;
+      cy = config->attrs[a].val.clusterDim.y;
+    }
+  }
+  const dim3 grid = config->gridDim;
+  if (grid.x % cx != 0 || grid.y % cy != 0) return cudaErrorInvalidConfiguration;
+  for (unsigned px = 0; px < 2; ++px)
+    for (unsigned py = 0; py < 2; ++py)
+      for (unsigned uy = py; uy < grid.y / cy; uy += 2)
+        for (unsigned ux = px; ux < grid.x / cx; ux += 2) {
+          emu::Cluster cl(cx, cy);
+          std::barrier<> ready(cx * cy);
+          std::vector<std::thread> blocks;
+          for (unsigned ry = 0; ry < cy; ++ry)
+            for (unsigned rx = 0; rx < cx; ++rx)
+              blocks.emplace_back([&, rx, ry] {
+                blockIdx = dim3(ux * cx + rx, uy * cy + ry, 0);
+                threadIdx = dim3(0, 0, 0);
+                gridDim = grid;
+                blockDim = config->blockDim;
+                emu::smem.assign(config->dynamicSmemBytes / sizeof(float) + 33, 0.0f);
+                cl.bases[rx + ry * cx] = emu::dynamic_smem();
+                emu::cluster = &cl;
+                ready.arrive_and_wait();
+                kernel(args...);
+              });
+          for (auto& t : blocks) t.join();
+        }
+  return cudaSuccess;
+}
+template <class... P>
+inline cudaError_t cudaOccupancyMaxActiveClusters(int* n, void (*)(P...),
+                                                  const cudaLaunchConfig_t*) {
+  *n = 3;   // a persistent grid of three clusters, each stepping every third tile
+  return cudaSuccess;
+}
+"""
+
+# cooperative_groups' cluster group for the emulation: the block's place in
+# its cluster, the cluster barrier, and another block's shared memory.
+_CG_STUB = r"""
+#pragma once
+#include "cuda_runtime.h"
+namespace cooperative_groups {
+struct cluster_group {
+  // a launch without clusters: each block its own cluster of one
+  dim3 block_index() const {
+    if (emu::cluster == nullptr) return dim3(0, 0, 0);
+    return dim3(blockIdx.x % emu::cluster->cx, blockIdx.y % emu::cluster->cy, 0);
+  }
+  dim3 dim_blocks() const {
+    if (emu::cluster == nullptr) return dim3(1, 1, 1);
+    return dim3(emu::cluster->cx, emu::cluster->cy, 1);
+  }
+  unsigned block_rank() const {
+    const dim3 at = block_index();
+    return at.x + at.y * emu::cluster->cx;
+  }
+  void sync() const { emu::cluster->bar.arrive_and_wait(); }
+  void barrier_arrive() const { emu::token = emu::cluster->bar.arrive(); }
+  void barrier_wait() const { emu::cluster->bar.wait(std::move(*emu::token)); }
+  template <class T>
+  T* map_shared_rank(T* p, unsigned rank) const {
+    const std::ptrdiff_t at = reinterpret_cast<char*>(p) -
+                              reinterpret_cast<char*>(emu::dynamic_smem());
+    return reinterpret_cast<T*>(reinterpret_cast<char*>(emu::cluster->bases[rank]) + at);
+  }
+};
+inline cluster_group this_cluster() { return cluster_group{}; }
+}  // namespace cooperative_groups
+"""
+
+# The cluster design's asynchronous copies (tblock_async.cuh) for the
+# emulation: a cp.async is a plain copy, and its groups are done at once;
+# an mbarrier is its pending arrival and phase bit and its
+# transaction count, under one lock, and a wait sleeps until its phase has
+# passed; a store into another block of the cluster writes there through
+# map_shared_rank and completes its bytes on that block's mbarrier.
+_ASYNC_STUB = r"""
+#pragma once
+#include <condition_variable>
+#include <cooperative_groups.h>
+#include <mutex>
+namespace lbm {
+namespace async {
+inline std::mutex bar_lock;
+inline std::condition_variable bar_passed;
+inline void bar_pass(int* b) {   // b[0]: phase << 31 | pending arrivals, b[1]: bytes
+  if ((b[0] & 0x7fffffff) == 0 && b[1] == 0) {
+    b[0] = (~b[0] & ~0x7fffffff) | 1;
+    bar_passed.notify_all();
+  }
+}
+inline void bar_init(unsigned long long* bar) {
+  std::lock_guard<std::mutex> g(bar_lock);
+  int* b = reinterpret_cast<int*>(bar);
+  b[0] = 1;
+  b[1] = 0;
+}
+inline void bar_expect(unsigned long long* bar, unsigned bytes) {
+  std::lock_guard<std::mutex> g(bar_lock);
+  int* b = reinterpret_cast<int*>(bar);
+  b[1] += static_cast<int>(bytes);
+  b[0] -= 1;
+  bar_pass(b);
+}
+inline void bar_wait(unsigned long long* bar, unsigned parity) {
+  const int* b = reinterpret_cast<const int*>(bar);
+  std::unique_lock<std::mutex> g(bar_lock);
+  bar_passed.wait(g, [&] { return (static_cast<unsigned>(b[0]) >> 31) != parity; });
+}
+inline void copy(float* dst, const float* src) { *dst = *src; }
+inline void prefetch_l2(const float*) {}
+inline void commit() {}
+inline void wait_all() {}
+inline void wait_all_but_one() {}
+inline void cluster_arrive() { cooperative_groups::this_cluster().barrier_arrive(); }
+inline void cluster_wait() { cooperative_groups::this_cluster().barrier_wait(); }
+inline void send(float* slot, unsigned long long* bar, unsigned rank, float v) {
+  const cooperative_groups::cluster_group cluster;
+  float* const at = cluster.map_shared_rank(slot, rank);
+  int* const b = reinterpret_cast<int*>(cluster.map_shared_rank(bar, rank));
+  std::lock_guard<std::mutex> g(bar_lock);
+  *at = v;
+  b[1] -= 4;
+  bar_pass(b);
+}
+}  // namespace async
+}  // namespace lbm
 """
 
 
@@ -146,7 +343,7 @@ def _matching(text: str, start: int, open_: str, close: str) -> int:
 def _emulate(source: str) -> str:
     """A CUDA source rewritten for the serial host build."""
     text = re.sub(r"constexpr int kThreads = [^;]+;", "constexpr int kThreads = 1;", source)
-    text = re.sub(r"extern __shared__ (\w[\w ]*?) (\w+)\[\];",
+    text = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?(\w[\w ]*?) (\w+)\[\];",
                   r"\1* \2 = reinterpret_cast<\1*>(emu::dynamic_smem());", text)
     while "<<<" in text:
         at = text.index("<<<")
@@ -162,31 +359,53 @@ def _emulate(source: str) -> str:
     return text
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def _build_emulated(out, sources, headers, name, stubs=()):
+    """The host build of ``sources`` (each ``.cu`` by its own ``g++``, all
+    at once) with ``headers`` emulated and the ``stubs`` (file name, text)
+    beside them, into ``out/name``."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the CUDA sources as a host emulation")
-    out = tmp_path_factory.mktemp("csrc_emulated")
     (out / "cuda_runtime.h").write_text(_STUB)
-    for header in _build.HEADERS:
+    (out / "cooperative_groups.h").write_text(_CG_STUB)
+    for header in headers:
         (out / header.name).write_text(_emulate(header.read_text()))
+    for file_name, text in stubs:
+        (out / file_name).write_text(text)
     procs, objs = [], []
-    for src in _build.SOURCES:
+    for src in sources:
         cpp = out / f"{src.stem}.cpp"
         cpp.write_text(_emulate(src.read_text()))
         objs.append(out / f"{src.stem}.o")
         procs.append(subprocess.Popen(
-            [gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-fPIC", "-I", str(out),
+            [gxx, "-std=c++20", "-pthread", "-O2", "-ffp-contract=off", "-fPIC", "-I", str(out),
              "-c", "-o", str(objs[-1]), str(cpp)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for src, proc in zip(_build.SOURCES, procs):
+    for src, proc in zip(sources, procs):
         log, _ = proc.communicate(timeout=300)
         assert proc.returncode == 0, f"{src.name}:\n{log}"
-    so = out / "lbm_emulated.so"
-    subprocess.run([gxx, "-shared", "-o", str(so), *map(str, objs)], check=True,
+    so = out / name
+    subprocess.run([gxx, "-shared", "-pthread", "-o", str(so), *map(str, objs)], check=True,
                    timeout=120)
-    return _build.declare(ctypes.CDLL(str(so)))
+    return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    out = tmp_path_factory.mktemp("csrc_emulated")
+    return _build.declare(_build_emulated(out, _build.SOURCES, _build.HEADERS,
+                                          "lbm_emulated.so"))
+
+
+@pytest.fixture(scope="module")
+def cluster_lib(tmp_path_factory):
+    """The cluster design's two kernels over the package's lbm_cell.cuh,
+    its asynchronous copies stubbed."""
+    out = tmp_path_factory.mktemp("cluster_emulated")
+    headers = [_build.CSRC / "lbm_cell.cuh", cluster.DIR / "tblock_window.cuh"]
+    return cluster.declare(_build_emulated(
+        out, [cluster.DIR / "tblock_step.cu", cluster.DIR / "tblock_sharded_step.cu"],
+        headers, "cluster_emulated.so", [("tblock_async.cuh", _ASYNC_STUB)]))
 
 
 CASES = {
@@ -280,13 +499,17 @@ def _cavity(state, cfg, c):
                         state.rho_lid[c * cfg.nx:(c + 1) * cfg.nx].clone())
 
 
-def _tblock_steps(lib, cfg, state, n_blocks, k):
+def _tblock_steps(lib, cfg, state, n_blocks, k, shape=None):
+    """``n_blocks`` launches of the emulated window through the wrapper's
+    ``_launch``; with ``shape``, of the cluster design ``lib`` in clusters
+    of ``shape`` through its binding's."""
+    assert tblock.unsupported_reason(cfg, k) is None
+    launch = tblock._launch if shape is None else functools.partial(cluster.launch, lib, shape)
     src = state
     for _ in range(n_blocks):
         dst = engine.State(torch.empty_like(src.f), torch.empty_like(src.rho_lid))
-        tblock._launch(lib, (src.f.data_ptr(), src.rho_lid.data_ptr()),
-                       (dst.f.data_ptr(), dst.rho_lid.data_ptr()),
-                       pull._scalars(cfg), k, None)
+        launch(lib, (src.f.data_ptr(), src.rho_lid.data_ptr()),
+               (dst.f.data_ptr(), dst.rho_lid.data_ptr()), pull._scalars(cfg), k, None)
         src = dst
     return src
 
@@ -313,10 +536,15 @@ def _pull_sharded_steps(lib, cfg, mesh, state, n):
     return halo.ShardedState(halo.unpad_blocks(carries[n % 2], lay), rows[n % 2])
 
 
-def _tblock_sharded_steps(lib, cfg, mesh, state, n_blocks, k):
+def _tblock_sharded_steps(lib, cfg, mesh, state, n_blocks, k, shape=None):
     """``tblock_sharded.make_sharded_runner``'s loop (no remainder),
-    launching the emulated kernel through the wrapper's ``_launch``."""
+    launching the emulated kernel through the wrapper's ``_launch``; with
+    ``shape``, the cluster design ``lib`` in clusters of ``shape`` through
+    its binding's."""
     lx, ly = block_shape(cfg.nx, cfg.ny, mesh.shape)
+    assert tblock_sharded.unsupported_reason(cfg, k) is None
+    launch = (tblock_sharded._launch if shape is None
+              else functools.partial(cluster.sharded_launch, lib, shape))
     lay = halo.Layout.tight(lx, ly, k)
     carries = [halo.pad_blocks(state.f, lay)]
     carries.append(halo.empty_blocks(carries[0]))
@@ -327,7 +555,7 @@ def _tblock_sharded_steps(lib, cfg, mesh, state, n_blocks, k):
         halo.copy_pairs(halo.halo_pairs(carries[src], lay)
                         + halo.row_halo_pairs(panels[src], k))
         for ix, iy in mesh.shards():
-            tblock_sharded._launch(
+            launch(
                 lib, carries[src][ix][iy].data_ptr(), panels[src][ix][iy].data_ptr(),
                 carries[dst][ix][iy].data_ptr(), panels[dst][ix][iy].data_ptr(),
                 lx, ly, (ix * lx, iy * ly), pull._scalars(cfg), k, None)
@@ -515,7 +743,9 @@ def test_tblock_step_matches_plain(lib, case):
     _close(_tblock_steps(lib, cfg, s0, STEPS // 5, 5), _plain(cfg, s0, STEPS))
 
 
-@pytest.mark.parametrize("nx, ny, k", [
+# The window's fields: ragged last tiles, fields smaller than the window or
+# than the halo, and several lid images in one window.
+EMU_FIELDS = [
     (64, 64, 1),
     (100, 70, 5),     # ragged last tiles
     (70, 130, 10),
@@ -523,11 +753,66 @@ def test_tblock_step_matches_plain(lib, case):
     (109, 109, 5),    # one past a multiple of the 54 own cells
     (36, 20, 5),      # several lid images in one window
     (4, 6, 5),        # a field smaller than the halo
-])
+]
+
+
+@pytest.mark.parametrize("nx, ny, k", EMU_FIELDS)
 def test_tblock_step_equals_pull_step(lib, nx, ny, k):
     cfg = _cfg(nx, ny)
     s0 = _start(cfg)
     _equal(_tblock_steps(lib, cfg, s0, 2, k), _pull_steps(lib, cfg, s0, 2 * k))
+
+
+# The cluster design's shapes (part rows, cluster x, cluster y): clusters
+# along x of each part, and clusters that span y too, whose edge cells
+# trade along both axes and at corners.
+EMU_SHAPES = [(64, 2, 1), (64, 2, 2), (64, 4, 1), (32, 2, 1), (32, 4, 2), (16, 4, 1),
+              (16, 16, 1)]
+_SHAPE_IDS = [f"r{r}_{cx}x{cy}" for r, cx, cy in EMU_SHAPES]
+
+
+@pytest.mark.parametrize("shape", EMU_SHAPES, ids=_SHAPE_IDS)
+@pytest.mark.parametrize("nx, ny, k", EMU_FIELDS)
+def test_tblock_step_clusters_equal_pull_step(lib, cluster_lib, nx, ny, k, shape):
+    """K steps of the cluster design in clusters of each shape, against 2K
+    one-step launches: bit for bit.  A window larger than the field is an
+    exact periodic image of it too."""
+    cfg = _cfg(nx, ny)
+    s0 = _start(cfg)
+    _equal(_tblock_steps(cluster_lib, cfg, s0, 2, k, shape),
+           _pull_steps(lib, cfg, s0, 2 * k))
+
+
+@pytest.mark.parametrize("nx, ny, k, shape", [
+    (65, 65, 5, None),               # one past the package's window
+    (65, 65, 1, None),               # K = 1
+    (2 * 54 + 1, 2 * 54 + 1, tblock.K_STEPS, None),    # one past a multiple of its own cells
+    (60, 50, tblock.K_STEPS, None),                    # smaller than one window
+    (129, 129, 5, (64, 2, 2)),       # the cluster design: one past a 2x2 cluster's window
+    (257, 257, 8, (16, 16, 1)),      # a non-portable cluster of 16
+    (130, 70, 8, (32, 4, 1)),
+    (520, 264, 6, (16, 8, 1)),
+    (129, 65, 5, (64, 2, 1)),
+])
+def test_tblock_cluster_fields_equal_pull_step(lib, cluster_lib, nx, ny, k, shape):
+    """Fields one cell past a multiple of a window or of its own cells, a
+    field smaller than one window, K = 1 and the default K: the package's
+    window (``shape`` None) and the cluster design equal the one-step
+    kernel bit for bit."""
+    cfg = _cfg(nx, ny)
+    s0 = _start(cfg)
+    window = lib if shape is None else cluster_lib
+    _equal(_tblock_steps(window, cfg, s0, 2, k, shape), _pull_steps(lib, cfg, s0, 2 * k))
+
+
+def test_default_shape_serves_every_field():
+    """The package's 64 x 64 window, and the cluster design's fastest
+    shape (one block of the same window), take a field of any size."""
+    rows, cx, cy = cluster.SHAPE
+    assert (rows * cx, cluster.PART_CELLS // rows * cy) == (tblock.WINDOW, tblock.WINDOW)
+    assert cluster.shape_reason(cluster.SHAPE, tblock.K_STEPS) is None
+    for nx, ny in ((4, 6), (64, 64), (65, 4097)):
+        assert tblock.unsupported_reason(_cfg(nx, ny)) is None
 
 
 @pytest.mark.parametrize("wall", PUSH_WALLS)
@@ -566,16 +851,57 @@ def test_tblock_sharded_matches_plain(lib, case):
     _close(_global(out), _plain(cfg, s0, STEPS))
 
 
-@pytest.mark.parametrize("nx, ny, mesh_shape, k", [
+SHARDED_FIELDS = [
     (70, 46, (2, 2), 5),     # shards narrower than the window
     (140, 96, (2, 1), 8),    # shards wider than one tile, ragged last tiles
     (64, 40, (1, 5), 8),     # ly == K: every shard sees a wall image
     (36, 28, (1, 1), 5),     # both lid images in one window
     (110, 218, (2, 2), 5),   # lx = 55, ly = 109: one past a multiple of 54
-])
+]
+
+
+@pytest.mark.parametrize("nx, ny, mesh_shape, k", SHARDED_FIELDS)
 def test_tblock_sharded_equals_pull_sharded(lib, nx, ny, mesh_shape, k):
     cfg = _cfg(nx, ny, mesh_shape=mesh_shape)
     mesh = make_mesh(mesh_shape, ["cpu"] * 5)
+    s0 = halo.shard_state(_start(cfg), mesh)
+    _equal(_global(_tblock_sharded_steps(lib, cfg, mesh, s0, 2, k)),
+           _global(_pull_sharded_steps(lib, cfg, mesh, s0, 2 * k)))
+
+
+SHARDED_EMU_SHAPES = [(64, 2, 1), (64, 2, 2), (32, 4, 1), (16, 16, 1)]
+
+
+@pytest.mark.parametrize("shape", SHARDED_EMU_SHAPES,
+                         ids=[f"r{r}_{cx}x{cy}" for r, cx, cy in SHARDED_EMU_SHAPES])
+@pytest.mark.parametrize("nx, ny, mesh_shape, k", [
+    *SHARDED_FIELDS,
+    (260, 70, (4, 1), 5),    # a 4x1 mesh
+])
+def test_tblock_sharded_clusters_equal_pull_sharded(lib, cluster_lib, nx, ny, mesh_shape, k,
+                                                    shape):
+    """The cluster design's sharded window in clusters of each shape against
+    the one-step sharded kernel: bit for bit; a cluster's parts past the
+    carry read its nearest cell and stay more than K from every own
+    cell."""
+    cfg = _cfg(nx, ny, mesh_shape=mesh_shape)
+    mesh = make_mesh(mesh_shape, ["cpu"] * 5)
+    s0 = halo.shard_state(_start(cfg), mesh)
+    _equal(_global(_tblock_sharded_steps(cluster_lib, cfg, mesh, s0, 2, k, shape)),
+           _global(_pull_sharded_steps(lib, cfg, mesh, s0, 2 * k)))
+
+
+@pytest.mark.parametrize("nx, ny, mesh_shape, k", [
+    (258, 258, (2, 2), 5),                  # shards one past the window
+    (258, 258, (2, 2), 1),
+    (516, 129, (4, 1), tblock.K_STEPS),     # a 4x1 mesh at the default K
+])
+def test_tblock_sharded_default_cluster_equals_pull_sharded(lib, nx, ny, mesh_shape, k):
+    """The package's sharded window on shards one past its window, at
+    K = 1 and on a 4x1 mesh: bit for bit with the one-step sharded
+    kernel."""
+    cfg = _cfg(nx, ny, mesh_shape=mesh_shape)
+    mesh = make_mesh(mesh_shape, ["cpu"] * 4)
     s0 = halo.shard_state(_start(cfg), mesh)
     _equal(_global(_tblock_sharded_steps(lib, cfg, mesh, s0, 2, k)),
            _global(_pull_sharded_steps(lib, cfg, mesh, s0, 2 * k)))

@@ -19,6 +19,9 @@ its CUDA kernel.
   density as the sequential sum f0 + f1 + ... + f8, the kernels' order.)
   The kernel itself is held to the plain version on the card
   (``test_torch_cuda.py``, ``chip_smoke.py``).
+* ``_cluster_windowed_steps`` does the same for the window's cluster
+  design (``scripts/tblock_cluster``, measured and not part of the
+  package), whose halo lies only at a cluster's edge.
 """
 
 import numpy as np
@@ -26,6 +29,7 @@ import pytest
 import torch
 
 from latticeboltzmannsimulations_torch import engine as t_eng
+from latticeboltzmannsimulations_torch import lattice
 from latticeboltzmannsimulations_torch.config import SimConfig as TConfig
 from latticeboltzmannsimulations_torch.convert import state_from_numpy, state_to_numpy
 from latticeboltzmannsimulations_torch.kernels import pull, tblock
@@ -151,14 +155,15 @@ def ordered_sum(monkeypatch):
     monkeypatch.setattr(t_eng, "macroscopics", _macros)
 
 
-def _window_step(cfg, fw, rl, gx, gy):
+def _window_step(cfg, fw, rl, gx, gy, g=None):
     """One fused step on a window whose cell (i, j) is global cell
     (gx[i], gy[j]).  The gather wraps inside the window (so the window's
-    edge cells go wrong, as in the kernel); the walls, the lid momentum with
-    its zero at the corners, the overrides and the lid density follow the
-    global coordinates."""
+    edge cells go wrong, as in the kernel), unless the gathered populations
+    ``g`` are given; the walls, the lid momentum with its zero at the
+    corners, the overrides and the lid density follow the global
+    coordinates."""
     nx, ny, u_lid = cfg.nx, cfg.ny, cfg.u_lid
-    g = gather_pull(fw)
+    g = gather_pull(fw) if g is None else g
     left, right = (gx == 0)[:, None], (gx == nx - 1)[:, None]
     bottom, lid = (gy == ny - 1)[None, :], (gy == 0)[None, :]
     side = left | right
@@ -229,6 +234,99 @@ def test_wrap_consistent_window_equals_fused_steps(ordered_sum, kw, k, tile):
     got = _windowed_steps(cfg, _windowed_steps(cfg, s0, k, tile), k, tile)
     assert torch.equal(got.f, ref.f)
     assert torch.equal(got.rho_lid, ref.rho_lid)
+
+
+def _part_gather(parts, rx, ry, inbox=True):
+    """The pull gather of part (rx, ry) of a cluster, as the kernel's
+    cluster window does it: each plane of the part shifted cyclically over
+    the flat part (so a population whose source lies past the part's edge
+    arrives from the part's own opposite edge), then, where that source
+    lies in another part of the cluster and ``inbox``, the value that part
+    sent across the shared edge."""
+    f = parts[rx][ry]
+    _, rows, cols = f.shape
+    cx, cy = len(parts), len(parts[0])
+    g = torch.stack([torch.roll(f[k].flatten(), int(lattice.CX[k]) * cols
+                                - int(lattice.CY[k])).view(rows, cols) for k in range(9)])
+    if not inbox:
+        return g
+    for k in range(1, 9):
+        dx, dy = int(lattice.CX[k]), -int(lattice.CY[k])
+        for i in range(rows):
+            for j in range(cols):
+                si, sj = i - dx, j - dy
+                ox = (si >= rows) - (si < 0)
+                oy = (sj >= cols) - (sj < 0)
+                if (ox or oy) and 0 <= rx + ox < cx and 0 <= ry + oy < cy:
+                    g[k, i, j] = parts[rx + ox][ry + oy][k, si % rows, sj % cols]
+    return g
+
+
+def _cluster_windowed_steps(cfg, state, k, part, cluster, inbox=True):
+    """K fused steps, cluster by cluster: a window of (R cx) x (C cy) cells
+    around each cluster's tile of (R cx - 2K) x (C cy - 2K) own cells, cut
+    from the field by modulo indexing and split into cx x cy parts of
+    R x C cells, each stepped with ``_part_gather``; the cluster's own cells
+    kept.  With ``inbox`` the halo lies only at the cluster's edge."""
+    nx, ny = cfg.nx, cfg.ny
+    (rows, cols), (cx, cy) = part, cluster
+    tx, ty = rows * cx - 2 * k, cols * cy - 2 * k
+    f_out = torch.full_like(state.f, float("nan"))
+    lid_out = torch.full_like(state.rho_lid, float("nan"))
+    for x0 in range(0, nx, tx):
+        for y0 in range(0, ny, ty):
+            gxs = [torch.arange(x0 - k + rows * a, x0 - k + rows * (a + 1)) % nx
+                   for a in range(cx)]
+            gys = [torch.arange(y0 - k + cols * b, y0 - k + cols * (b + 1)) % ny
+                   for b in range(cy)]
+            parts = [[state.f[:, gxs[a]][:, :, gys[b]] for b in range(cy)] for a in range(cx)]
+            rls = [[state.rho_lid[gxs[a]] for b in range(cy)] for a in range(cx)]
+            for _ in range(k):
+                stepped = [[_window_step(cfg, parts[a][b], rls[a][b], gxs[a], gys[b],
+                                         _part_gather(parts, a, b, inbox))
+                            for b in range(cy)] for a in range(cx)]
+                parts = [[stepped[a][b][0] for b in range(cy)] for a in range(cx)]
+                rls = [[stepped[a][b][1] for b in range(cy)] for a in range(cx)]
+            fw = torch.cat([torch.cat(col, dim=2) for col in parts], dim=1)
+            wx, wy = min(tx, nx - x0), min(ty, ny - y0)
+            f_out[:, x0:x0 + wx, y0:y0 + wy] = fw[:, k:k + wx, k:k + wy]
+            if y0 == 0:
+                # the lid column lies in the parts of column b = k // cols
+                rl = torch.cat([rls[a][k // cols] for a in range(cx)])
+                lid_out[x0:x0 + wx] = rl[k:k + wx]
+    return t_eng.State(f_out, lid_out)
+
+
+@pytest.mark.parametrize("kw, k, part, cluster", [
+    (dict(nx=40, ny=38, collision="mrt"), 3, (6, 10), (3, 1)),   # along x, ragged tiles
+    (dict(nx=33, ny=29, collision="srt"), 2, (5, 8), (2, 2)),    # both axes and corners
+    (dict(nx=30, ny=26, collision="mrt", turbulence="smagorinsky",
+          reynolds=5000.0), 3, (4, 12), (4, 1)),                # parts narrower than 2K
+], ids=["mrt_3x1", "srt_2x2", "mrt_les_4x1"])
+def test_cluster_window_equals_fused_steps(ordered_sum, kw, k, part, cluster):
+    """The cluster design's window (scripts/tblock_cluster/tblock_window.cuh,
+    measured against the package's and not part of it): each part of a cluster
+    shifts its planes over itself and takes what crosses an edge shared with
+    another part from that part, so the halo lies only at the cluster's
+    edge.  Two rounds of K steps equal 2K fused steps bit for bit, lid
+    corners included; without what the parts send each other the own cells
+    near the parts' shared edges go wrong."""
+    cfg = TConfig(**{"reynolds": 1000.0, "precision": "float64", **kw})
+    f0, lid0 = _start(JConfig(**{"reynolds": 1000.0, "precision": "float64", **kw}))
+    s0 = state_from_numpy(f0, lid0, device="cpu")
+    step = t_eng.make_fused_step(cfg)
+    ref = s0
+    for _ in range(2 * k):
+        ref = step(ref)
+    got = _cluster_windowed_steps(
+        cfg, _cluster_windowed_steps(cfg, s0, k, part, cluster), k, part, cluster)
+    assert torch.equal(got.f, ref.f)
+    assert torch.equal(got.rho_lid, ref.rho_lid)
+    alone = _cluster_windowed_steps(cfg, s0, k, part, cluster, inbox=False)
+    once = s0
+    for _ in range(k):
+        once = step(once)
+    assert not torch.equal(alone.f, once.f)
 
 
 def test_window_without_wrap_consistency_goes_wrong(ordered_sum):
